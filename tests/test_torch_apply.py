@@ -1,0 +1,318 @@
+"""The GPU port's capacity planner (`open_simulator_tpu_torch` cli ->
+apply/applier.py -> parallel/sweep.py -> the fused-scan kernels' plain
+versions on the CPU) against the JAX package's, exactly:
+
+- `apply --format json --device cpu` prints the same bytes as the JAX
+  package's `apply --format json` (its XLA scan on the CPU) on
+  example/simon-gpushare-config.yaml and on small synthetic configs
+  where the planner must add nodes (base plan, GPU-share, hostPorts
+  plus extended resources, a daemonset, a priority workload routed to
+  the serial loop, the serial engine);
+- the sweep's probes, pairs and many-count batches agree with each
+  other and with the JAX sweep;
+- without a card the default device exits 2 with the "needs a GPU"
+  error, and out-of-slice inputs name their ROADMAP.md item.
+
+Inputs are YAML files made in a temp dir; pod-name counters of both
+packages are reset before each run."""
+
+import contextlib
+import io
+import os
+
+import numpy as np
+import pytest
+import yaml
+
+from open_simulator_tpu import cli as jax_cli
+from open_simulator_tpu.models.workloads import reset_name_counter as jax_reset
+from open_simulator_tpu_torch import cli as port_cli
+from open_simulator_tpu_torch.models.workloads import reset_name_counter as port_reset
+from open_simulator_tpu_torch.ops import fused_scan
+
+GPUSHARE = "example/simon-gpushare-config.yaml"
+
+
+def _node(name, cpu="4", mem="8Gi", extra=None, gpus=0, taint=False):
+    node = {
+        "apiVersion": "v1",
+        "kind": "Node",
+        "metadata": {"name": name, "labels": {"kubernetes.io/hostname": name}},
+        "status": {"allocatable": {"cpu": cpu, "memory": mem, "pods": "110",
+                                   **(extra or {})}},
+    }
+    if gpus:
+        g = {"alibabacloud.com/gpu-count": str(gpus),
+             "alibabacloud.com/gpu-mem": f"{16 * gpus}Gi"}
+        node["status"]["allocatable"].update(g)
+        node["status"]["capacity"] = dict(node["status"]["allocatable"])
+    if taint:
+        node["spec"] = {"taints": [{"key": "dedicated", "value": "infra",
+                                    "effect": "NoSchedule"}]}
+    return node
+
+
+def _deploy(name, replicas, cpu="1", mem="1Gi", requests=None, ports=None,
+            annotations=None, priority=None, tolerate=False):
+    container = {"name": "c", "image": f"img-{name}",
+                 "resources": {"requests": {"cpu": cpu, "memory": mem, **(requests or {})}}}
+    if ports:
+        container["ports"] = [{"containerPort": p, "hostPort": p, "protocol": "TCP"}
+                              for p in ports]
+    spec = {"containers": [container]}
+    if priority is not None:
+        spec["priority"] = priority
+    if tolerate:
+        spec["tolerations"] = [{"key": "dedicated", "operator": "Exists"}]
+    # generated pods inherit the owner's annotations (the GPU-share ask)
+    meta = {"name": name, "namespace": "cap", "labels": {"app": name}}
+    if annotations:
+        meta["annotations"] = annotations
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "Deployment",
+        "metadata": meta,
+        "spec": {"replicas": replicas, "template": {"spec": spec}},
+    }
+
+
+def _daemonset(name, cpu="200m"):
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "DaemonSet",
+        "metadata": {"name": name, "namespace": "kube-system"},
+        "spec": {"template": {"spec": {"containers": [{
+            "name": "c", "image": "agent",
+            "resources": {"requests": {"cpu": cpu, "memory": "128Mi"}}}]}}},
+    }
+
+
+def _config(root, nodes, apps, new_node, cluster_extra=(), chart=False, kube=False):
+    """Write a simon Config and its dirs under `root`; returns its path."""
+    cluster_dir = root / "cluster"
+    cluster_dir.mkdir()
+    for i, obj in enumerate(list(nodes) + list(cluster_extra)):
+        (cluster_dir / f"o{i:03d}.yaml").write_text(yaml.safe_dump(obj))
+    app_list = []
+    for name, objs in apps:
+        d = root / f"app-{name}"
+        d.mkdir()
+        for i, obj in enumerate(objs):
+            (d / f"o{i}.yaml").write_text(yaml.safe_dump(obj))
+        app_list.append({"name": name, "path": str(d), **({"chart": True} if chart else {})})
+    spec = {"cluster": {"customConfig": str(cluster_dir)}, "appList": app_list}
+    if kube:
+        kc = root / "kubeconfig"
+        kc.write_text("apiVersion: v1\n")
+        spec["cluster"] = {"kubeConfig": str(kc)}
+    if new_node is not None:
+        nn = root / "newnode"
+        nn.mkdir()
+        (nn / "node.yaml").write_text(yaml.safe_dump(new_node))
+        spec["newNode"] = str(nn)
+    cfg = root / "cfg.yaml"
+    cfg.write_text(yaml.safe_dump({"apiVersion": "simon/v1alpha1", "kind": "Config",
+                                   "metadata": {"name": "t"}, "spec": spec}))
+    return str(cfg)
+
+
+def _run(main, reset, argv):
+    reset()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _both(cfg, *flags, port_flags=("--device", "cpu")):
+    """(rc, stdout) of the JAX CLI and of the port's, same flags."""
+    argv = ["apply", "-f", cfg, *flags]
+    j = _run(jax_cli.main, jax_reset, argv)
+    p = _run(port_cli.main, port_reset, argv + list(port_flags))
+    return j[:2], p[:2]
+
+
+def _synthetic(kind):
+    """(nodes, apps, new_node, cluster extras) of one planner case."""
+    if kind == "base":
+        nodes = [_node(f"n{i}", taint=i == 0) for i in range(3)]
+        apps = [("web", [_deploy("web", 14), _deploy("tol", 3, cpu="500m", tolerate=True)])]
+        return nodes, apps, _node("template", cpu="4"), []
+    if kind == "gpushare":
+        nodes = [_node(f"g{i}", cpu="16", mem="64Gi", gpus=2) for i in range(2)]
+        gpu = {"alibabacloud.com/gpu-mem": "8Gi", "alibabacloud.com/gpu-count": "1"}
+        gpu2 = {"alibabacloud.com/gpu-mem": "12Gi", "alibabacloud.com/gpu-count": "2"}
+        apps = [("train", [_deploy("small", 9, annotations=gpu),
+                           _deploy("pair", 3, annotations=gpu2)])]
+        return nodes, apps, _node("template", cpu="16", mem="64Gi", gpus=2), []
+    if kind == "ports-scalars":
+        accel = {"example.com/accel": "2"}
+        nodes = [_node(f"n{i}", cpu="8", mem="16Gi", extra=accel) for i in range(2)]
+        apps = [("svc", [_deploy("svc", 5, cpu="500m", ports=[8080]),
+                         _deploy("acc", 7, cpu="500m", requests={"example.com/accel": "1"}),
+                         _deploy("plain", 4)])]
+        return nodes, apps, _node("template", cpu="8", mem="16Gi", extra=accel), []
+    if kind == "daemonset":
+        nodes = [_node(f"n{i}") for i in range(2)]
+        apps = [("web", [_deploy("web", 12)])]
+        return nodes, apps, _node("template"), [_daemonset("agent")]
+    if kind == "priority":
+        nodes = [_node(f"n{i}") for i in range(2)]
+        apps = [("web", [_deploy("web", 9, priority=100), _deploy("lo", 4, priority=1)])]
+        return nodes, apps, _node("template"), []
+    raise KeyError(kind)
+
+
+def test_gpushare_example_json_is_byte_identical():
+    (jrc, jout), (prc, pout) = _both(GPUSHARE, "--format", "json")
+    assert jrc == prc == 0
+    assert pout == jout
+    import json
+
+    doc = json.loads(pout)
+    assert doc["success"] and doc["newNodeCount"] == 0
+    placed = [n for n in doc["nodes"] if n["pods"]]
+    assert sum(len(n["pods"]) for n in placed) == 7 and len(placed) == 2
+
+
+def test_gpushare_example_table_is_identical():
+    (jrc, jout), (prc, pout) = _both(GPUSHARE, "--extended-resources", "gpu")
+    assert jrc == prc == 0 and pout == jout
+    assert "GPU Node Resource" in pout
+
+
+@pytest.mark.parametrize("kind", ["base", "gpushare", "ports-scalars", "daemonset",
+                                  "priority"])
+def test_synthetic_plan_json_is_byte_identical(kind, tmp_path):
+    nodes, apps, new_node, extra = _synthetic(kind)
+    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    (jrc, jout), (prc, pout) = _both(cfg, "--format", "json")
+    assert (prc, pout) == (jrc, jout)
+    import json
+
+    doc = json.loads(pout)
+    assert doc["success"] and doc["newNodeCount"] > 0, doc["message"]
+
+
+def test_priority_workload_takes_the_serial_route(tmp_path):
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    nodes, apps, new_node, extra = _synthetic("priority")
+    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    rc, _, err = _run(port_cli.main, port_reset,
+                      ["apply", "-f", cfg, "--device", "cpu", "--trace"])
+    assert rc == 0
+    assert "priority" in GLOBAL.notes.get("apply-serial-route", "")
+    assert "apply/simulate" in err
+
+
+def test_serial_engine_json_is_byte_identical(tmp_path):
+    nodes, apps, new_node, extra = _synthetic("base")
+    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    (jrc, jout), (prc, pout) = _both(cfg, "--format", "json", "--engine", "oracle",
+                                     "--no-sweep", port_flags=())
+    assert (prc, pout) == (jrc, jout) and prc == 0
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _run(port_cli.main, port_reset,
+                        ["apply", "-f", GPUSHARE, "--format", "json"])
+    assert rc == 2 and not out
+    assert "needs a GPU" in err
+
+
+@pytest.mark.parametrize("what,item", [("chart", "A1f"), ("kube", "A1e")])
+def test_out_of_slice_config_names_its_roadmap_item(what, item, tmp_path):
+    nodes, apps, new_node, _ = _synthetic("base")
+    cfg = _config(tmp_path, nodes, apps, new_node,
+                  chart=what == "chart", kube=what == "kube")
+    rc, out, err = _run(port_cli.main, port_reset,
+                        ["apply", "-f", cfg, "--device", "cpu"])
+    assert rc == 2 and f"ROADMAP.md {item}" in err
+
+
+def test_out_of_slice_planner_options_raise():
+    from open_simulator_tpu_torch.apply import applier
+
+    config = applier.SimonConfig.from_file(GPUSHARE)
+    for kw, item in (({"tolerate_node_failures": 1}, "A1c"),
+                     ({"journal_path": "j.jsonl"}, "A1b")):
+        with pytest.raises(fused_scan.OutOfSliceError, match=item):
+            applier.Applier(config, device="cpu", **kw)
+    with pytest.raises(fused_scan.OutOfSliceError, match="A1d"):
+        applier.probe_plan_multi(None, [], [])
+
+
+def _sweeps(tmp_path):
+    """The JAX package's sweep and the port's over the base case."""
+    import importlib
+
+    nodes, apps, new_node, _ = _synthetic("base")
+    out = []
+    for pkg, kw in (("open_simulator_tpu", {}), ("open_simulator_tpu_torch",
+                                                  {"device": "cpu"})):
+        importlib.import_module(f"{pkg}.models.workloads").reset_name_counter()
+        core = importlib.import_module(f"{pkg}.scheduler.core")
+        dec = importlib.import_module(f"{pkg}.models.decode")
+        sweep_mod = importlib.import_module(f"{pkg}.parallel.sweep")
+        cluster = dec.ResourceTypes()
+        cluster.nodes = [dict(n) for n in nodes]
+        res = dec.ResourceTypes()
+        res.deployments = list(apps[0][1])
+        out.append(sweep_mod.CapacitySweep(cluster, [core.AppResource("web", res)],
+                                           new_node, 6, **kw))
+    return out
+
+
+def test_sweep_probes_equal_the_jax_sweep_and_each_other(tmp_path):
+    jax_sweep, sweep = _sweeps(tmp_path)
+    assert sweep.lower_bound() == jax_sweep.lower_bound()
+    singles = [sweep.probe(c) for c in range(7)]
+    for c, r in enumerate(singles):
+        j = jax_sweep.probe(c)
+        assert (r.unscheduled, r.cpu_util, r.mem_util, r.vg_util) == (
+            j.unscheduled, j.cpu_util, j.mem_util, j.vg_util)
+        np.testing.assert_array_equal(r.placements, np.asarray(j.placements))
+    pair = sweep.probe_pair(2, 5)
+    many = sweep.probe_many(list(range(7)))
+    for r in pair:
+        np.testing.assert_array_equal(r.placements, singles[r.count].placements)
+    np.testing.assert_array_equal(many.placements,
+                                  np.stack([r.placements for r in singles]))
+    assert list(many.unscheduled) == [r.unscheduled for r in singles]
+    # monotone: more nodes never schedule fewer pods
+    assert all(a >= b for a, b in zip(many.unscheduled[:-1], many.unscheduled[1:]))
+
+
+def test_find_min_count_pairs_probes_and_matches_jax(tmp_path):
+    from open_simulator_tpu_torch.apply.applier import _capacity_feasible
+
+    jax_sweep, sweep = _sweeps(tmp_path)
+    feasible, caps = _capacity_feasible()
+    seen = []
+    launches = dict(fused_scan.LAUNCHES)
+    best = sweep.find_min_count(feasible, start=sweep.lower_bound(*caps),
+                                on_probe=lambda r: seen.append(r.count))
+    jbest = jax_sweep.find_min_count(feasible, start=jax_sweep.lower_bound(*caps))
+    assert best.count == jbest.count
+    assert fused_scan.LAUNCHES == launches  # the CPU path counts no launch
+    # minimality: one node fewer fails the caps predicate
+    if best.count > sweep.lower_bound(*caps):
+        assert not feasible(sweep.probe(best.count - 1))
+    assert len(seen) == len(set(seen))
+
+
+def test_module_runs_as_a_script():
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "open_simulator_tpu_torch.cli", "apply", "-f", GPUSHARE,
+         "--format", "json", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=os.getcwd(),
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith('{"success": true, "newNodeCount": 0')

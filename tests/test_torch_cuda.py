@@ -88,3 +88,124 @@ def test_cuda_kernel_equals_plain(name):
     np.testing.assert_array_equal(cu_p.cpu().numpy(), ref_p.numpy())
     for k in fused_scan.STATE_FIELDS:
         np.testing.assert_array_equal(cu_f[k].cpu().numpy(), ref_f[k].numpy(), err_msg=k)
+
+
+def _b2_scenario(n_nodes, n_pods, seed, kinds=2, devices=4, pins=True):
+    """Nodes with `kinds` extended scalar resources and up to `devices`
+    GPUs; pods mixing scalar requests, hostPorts (one port, several
+    ports, the wildcard and a second protocol), single- and multi-GPU
+    shares and plain requests, some pinned."""
+    rng = np.random.RandomState(seed)
+    names = [f"example.com/r{k}" for k in range(kinds)]
+    nodes = []
+    for i in range(n_nodes):
+        node = make_fake_node(f"node-{i}", "32", "128Gi")
+        node["status"]["allocatable"].update({nm: "4" for nm in names})
+        g = int(rng.randint(0, devices + 1))
+        if g:
+            for section in ("allocatable", "capacity"):
+                node["status"].setdefault(section, {}).update({
+                    "alibabacloud.com/gpu-count": str(g),
+                    "alibabacloud.com/gpu-mem": str(32 * g),
+                })
+        nodes.append(node)
+    pods = []
+    for i in range(n_pods):
+        pod = make_fake_pod(f"p-{i}", "default", ["250m", "1", "2"][rng.randint(3)], "1Gi")
+        kind = rng.randint(4)
+        if kind == 0:
+            pod["spec"]["containers"][0]["resources"]["requests"][
+                names[rng.randint(kinds)]] = str(1 + rng.randint(2))
+        elif kind == 1:
+            port = 8000 + rng.randint(40)
+            entry = {"containerPort": port, "hostPort": port,
+                     "protocol": "UDP" if rng.rand() < 0.2 else "TCP"}
+            if rng.rand() < 0.2:
+                entry["hostIP"] = "0.0.0.0" if rng.rand() < 0.5 else "10.0.0.1"
+            pod["spec"]["containers"][0]["ports"] = [entry]
+        elif kind == 2:
+            pod["metadata"]["annotations"] = {
+                "alibabacloud.com/gpu-mem": str(int(rng.choice([4, 8, 16, 32]))),
+                "alibabacloud.com/gpu-count": str(int(rng.choice([1, 1, 2, 3]))),
+            }
+        if pins and rng.rand() < 0.05:
+            pod["spec"]["nodeName"] = f"node-{rng.randint(n_nodes)}"
+        pods.append(pod)
+    return nodes, pods
+
+
+def _plan(nodes, pods):
+    oracle = Oracle(copy.deepcopy(nodes))
+    cluster = enc.encode_cluster(oracle)
+    batch = enc.encode_batch(oracle, cluster, copy.deepcopy(pods))
+    dyn = enc.encode_dynamic(oracle, cluster)
+    return fused_scan.build_plan(cluster, batch, dyn,
+                                 enc.features_of_batch(cluster, batch)), batch
+
+
+def _same(got, want):
+    (gp, gf), (wp, wf) = got, want
+    np.testing.assert_array_equal(gp.cpu().numpy(), wp.cpu().numpy())
+    assert gf.keys() == wf.keys()
+    for k in gf:
+        np.testing.assert_array_equal(gf[k].cpu().numpy(), wf[k].cpu().numpy(), err_msg=k)
+
+
+# (nodes, pods, seed, scalar kinds, GPUs per node, node_frac, pod_frac)
+B2_CASES = {
+    "b2-small": (12, 300, 5, 2, 4, 1.0, 1.0),
+    "b2-wide-masked": (2500, 1500, 6, 2, 8, 0.9, 0.95),
+    "b2-beyond-jax-caps": (1100, 1200, 7, 10, 10, 1.0, 1.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(B2_CASES))
+def test_cuda_ext_kernel_equals_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n_nodes, n_pods, seed, kinds, devices, nf, pf = B2_CASES[name]
+    plan, batch = _plan(*_b2_scenario(n_nodes, n_pods, seed, kinds, devices))
+    assert plan.has_scal and plan.has_gpu and plan.has_ports and plan.has_pins
+    rng = np.random.RandomState(seed + 100)
+    args = (batch.class_of_pod, rng.rand(n_pods) < pf, rng.rand(n_nodes) < nf)
+    ref = fused_scan.fused_scan_reference(plan, *args, pinned=batch.pinned_node)
+    before = fused_scan.LAUNCHES[fused_scan.EXT_KERNEL_NAME]
+    got = fused_scan.run_fused_scan(plan.to("cuda"), *args, pinned=batch.pinned_node)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[fused_scan.EXT_KERNEL_NAME] == before + 1
+    _same(got, ref)
+    assert (ref[0] >= 0).any()
+    if n_nodes < 100:  # the small cluster overflows
+        assert (ref[0] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b2", [False, True])
+def test_cuda_batch_kernel_equals_batch_plain(b2):
+    """Several nodes per thread, per-scenario node masks, inactive pods
+    and pins; with and without the B2 blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n_nodes, n_pods = 2500, 1500
+    nodes, pods = (_b2_scenario(n_nodes, n_pods, 8) if b2
+                   else _scenario(n_nodes, n_pods, 8, True))
+    plan, batch = _plan(nodes, pods)
+    assert plan.ext == b2 and plan.has_pins
+    rng = np.random.RandomState(9)
+    last_off = np.ones(n_nodes, bool)
+    last_off[int(n_nodes * 0.9):] = False
+    pin = np.asarray(batch.pinned_node)
+    scen = [
+        (np.ones(n_pods, bool), np.ones(n_nodes, bool), pin),
+        (np.ones(n_pods, bool), last_off, pin),
+        (rng.rand(n_pods) < 0.8, np.arange(n_nodes) % 7 != 0, pin),
+        (np.ones(n_pods, bool), rng.rand(n_nodes) < 0.5, np.where(pin % 2 == 0, pin, -1)),
+    ]
+    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen)
+    before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
+    got = fused_scan.run_fused_scan_batch(plan.to("cuda"), batch.class_of_pod, scen)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
+    for g, r in zip(got, ref):
+        _same(g, r)

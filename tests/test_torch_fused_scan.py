@@ -204,9 +204,22 @@ def test_plan_from_jax_arrays_equals_build_plan():
     "hard_spread", "soft_spread",
 ])
 def test_out_of_slice_features_raise(flag):
+    """A feature outside the kernel raises OutOfSliceError naming its
+    ROADMAP.md item. The B2 blocks (GPU-share, hostPorts, scalars) are
+    inside the kernel: they turn their plan rows on instead."""
     cluster, batch, dyn, features = _encode(PORT_PKG, _nodes(3, 40), _pods(5, 41))
+    features = features._replace(**{flag: True})
+    block = {"gpu": "has_gpu", "ports": "has_ports", "scalars": "has_scal"}.get(flag)
+    if block is not None:
+        if flag == "scalars":
+            cluster.scalar_alloc = np.ones((1, cluster.n), dtype=np.int64)
+            dyn.used_scalar = np.zeros((1, cluster.n), dtype=np.int64)
+            batch.req_scalar = np.zeros((batch.u, 1), dtype=np.int64)
+        plan = fused_scan.build_plan(cluster, batch, dyn, features)
+        assert getattr(plan, block) and plan.ext
+        return
     with pytest.raises(OutOfSliceError) as err:
-        fused_scan.build_plan(cluster, batch, dyn, features._replace(**{flag: True}))
+        fused_scan.build_plan(cluster, batch, dyn, features)
     assert "ROADMAP.md" in str(err.value) and err.value.item
 
 

@@ -21,6 +21,23 @@ bad = sorted(k for k in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 assert "yaml" not in sys.modules, "PyYAML imported at module load"
+for want in ("parallel.sweep", "apply.applier", "apply.report", "cli"):
+    assert f"open_simulator_tpu_torch.{want}" in mods, want
+"""
+
+# the apply path end to end in a fresh interpreter: the CLI plans the
+# example GPU-share config on the CPU and no JAX module gets loaded
+_APPLY = r"""
+import runpy, sys
+sys.argv = ["cli", "apply", "-f", "example/simon-gpushare-config.yaml",
+            "--format", "json", "--device", "cpu"]
+try:
+    runpy.run_module("open_simulator_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
 """
 
 
@@ -31,6 +48,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     n_mods = int(out.stdout.split()[0])
     assert n_mods >= 30
+
+
+def test_apply_path_imports_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _APPLY], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert '"success": true' in out.stdout
 
 
 def test_chip_smoke_imports_no_jax():

@@ -163,10 +163,13 @@ def test_out_of_slice_batch_raises():
     from open_simulator_tpu_torch.ops.fused_scan import OutOfSliceError
 
     nodes, pods = build_scenario(5, 10)
-    pods[3]["spec"]["containers"][0]["ports"] = [
-        {"containerPort": 80, "hostPort": 8080, "protocol": "TCP"}
-    ]
-    with pytest.raises(OutOfSliceError, match="hostPorts.*B2"):
+    pods[3]["spec"]["affinity"] = {"podAntiAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": {"cls": "small"}},
+            "topologyKey": "kubernetes.io/hostname",
+        }],
+    }}
+    with pytest.raises(OutOfSliceError, match="inter-pod affinity.*B4"):
         _run(PORT_PKG, {"nodes": nodes}, [("a", {"pods": pods})])
 
 
