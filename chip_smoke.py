@@ -37,7 +37,39 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
    scenarios, a batch launch of those scenarios must too, and every
    probe pair must equal single-kernel launches; B6's entry in the
    `kernels` line (time by CUDA events, plain time, bound) is that
-   batch launch.
+   batch launch;
+7. B3 (`fused_scan_store`) on bench.py's storage scenario (10,000 nodes
+   with 2 VGs, an SSD and an HDD; 20,000 pods with 1-3 LVM volumes or
+   an exclusive device): kernel == plain, placements and every row
+   (VG usage and device bits included), then `simulate(engine="cuda")`
+   on it; then the 6-VG shape (past the TPU plan's 4-VG cap), kernel ==
+   plain;
+8. B4 (`fused_scan_terms`) on the affinity stress (10,000 nodes in 16
+   zones, 100 StatefulSets x 100 replicas with hostname anti-affinity,
+   hard zone spread, soft hostname spread and preferred zone affinity):
+   kernel == plain including every value-space term row, then
+   `simulate(engine="cuda")`;
+9. B5: the same block on the same stress at 25,000 nodes (where the
+   JAX package streams its term state), kernel == plain, then
+   `simulate(engine="cuda")`;
+10. every block in one plan (bench.py's conformance mix: terms, ports,
+    scalars, pins, storage, more than 128 classes, a zone soft spread
+    and a required affinity group) as one launch and as a batch of
+    three node masks, both == the batch plain version;
+11. the slice's path: `apply -f example/simon-config.yaml --format
+    json` through the port's CLI on the card, byte-identical to its
+    `--device cpu` run and planning the JAX package's +1 with the
+    storage-and-terms kernel; then a full-width plan (10,000 storage
+    nodes in 16 zones, the `hello` chart, the stress at 50 replicas, an
+    LVM StatefulSet and a Deployment that fits only new nodes) that
+    must plan the JAX package's count. Every scan either plan ran (its
+    single probes and its pairs) == the batch plain version.
+
+Cuts that keep the script near 8 minutes (the kernels always run every
+pod; the plain version runs the first pods of a scan, whose placements
+do not depend on the later pods): phase 4b 5,000 pods; phase 5's plain
+check the first 5,000 pods; phase 6's the first 30,000 of each of the
+plan's scans; phase 7b 2,000 pods; phase 9's the first 4,000 pods.
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line, and `{"ok": true, "device": {...}}`. It imports nothing of
@@ -51,19 +83,55 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 N_NODES = 10_000
 N_PODS = 20_000
 SEED = 0
 GPU_NODES = 1_000
 GPU_PODS = 10_000
-MIXED_PODS = 10_000  # phase 4b, cut from 20,000 for the plain loop
+MIXED_PODS = 5_000  # phase 4b, cut from 20,000 for the plain loop
+# the plain version's pods in phases 5 and 6: the first this many of
+# each scan (the kernel runs every pod; a scan's first pods do not
+# depend on the later ones), to keep the script near 8 minutes
+PHASE5_PLAIN_PODS = 5_000
+CAP_PLAIN_PODS = 30_000
 CAP_NODES = 10_000
 CAP_PODS = 100_000
 # new nodes the JAX package plans for the phase-6 scenario: its
 # probe_plan on the XLA scan (CPU) answers +55, as its TPU benchmark
 # records did (BENCH_r02-r05.json)
 JAX_CAPACITY_ANSWER = 55
+# phase 7: bench.py's storage scenario; the 6-VG storage-fallback shape
+# with its pods cut from 20,000 for the plain loop
+STOR_NODES = 10_000
+STOR_PODS = 20_000
+FALLBACK_VGS = 6
+FALLBACK_PODS = 2_000
+# phases 8 and 9: the affinity stress (100 StatefulSets x 100 replicas,
+# 16 zones) at 10,000 nodes and at 25,000, where the JAX package streams
+# its term state
+AFF_NODES = 10_000
+AFF_STS = 100
+AFF_REPLICAS = 100
+AFF_ZONES = 16
+B5_NODES = 25_000
+B5_PLAIN_PODS = 4_000  # phase 9's kernel-vs-plain, cut from 10,000
+# phase 10: bench.py's conformance mix
+FUZZ_NODES = 1_000
+FUZZ_PODS = 2_000
+# phase 11: the repo's quickstart, whose plan the JAX package's CLI
+# answers with one new node, and the full-width plan
+# (write_plan_config), for which tools/jax_plan_answer.py (the JAX
+# package's CLI on its XLA scan, on a CPU) answers +50 for 6,102 pods
+QUICKSTART = "example/simon-config.yaml"
+JAX_QUICKSTART_ANSWER = 1
+PLAN_NODES = 10_000
+PLAN_REPLICAS = 50
+PLAN_KV_REPLICAS = 1_000
+PLAN_HEAVY_REPLICAS = 100
+JAX_PLAN_ANSWER = 50
 # bytes/s of HBM and the non-tensor f32 rate of one H100 SXM (NVIDIA
 # data sheet); the scan's int64/f64 work has no faster path than that
 HBM_BYTES_PER_S = 3.35e12
@@ -74,6 +142,14 @@ CORE_OPS_PER_S = 67e12
 # GPU device (a GPU-share class only)
 OPS_PER_NODE_VISIT = 50
 OPS_PER_SCALAR, OPS_PER_PORT_WORD, OPS_PER_GPU_DEVICE = 3, 2, 4
+# the storage block, for a class with volumes: about 6 per (LVM volume,
+# VG) of the binpack, 8 per VG of the score and 4 per device of the
+# first-fit walk; the term block: about 14 per relevant term row (a
+# topology value, four counts, the filters and the raw score), 5 per
+# affinity-group row, 12 per hard-spread constraint (its minimum and
+# its filter) and 12 per soft-spread constraint (stamp, count, score)
+OPS_PER_VG_VOLUME, OPS_PER_VG, OPS_PER_DEVICE = 6, 8, 4
+OPS_PER_TERM_ROW, OPS_PER_GROUP_ROW, OPS_PER_HARD_SLOT, OPS_PER_SOFT_SLOT = 14, 5, 12, 12
 
 
 def card() -> str:
@@ -246,6 +322,237 @@ def write_capacity_config(root) -> str:
     return str(cfg)
 
 
+GI = 1 << 30
+
+
+def storage_anno(n_vgs):
+    """The open-local annotation of bench.py's storage nodes: `n_vgs`
+    VGs of 100 / 200 GiB, a 120 GiB SSD and a 500 GiB HDD."""
+    return json.dumps({
+        "vgs": [{"name": f"pool-{chr(ord('a') + v)}",
+                 "capacity": str((100 + 100 * (v % 2)) * GI), "requested": "0"}
+                for v in range(n_vgs)],
+        "devices": [{"name": "/dev/vdb", "capacity": str(120 * GI), "mediaType": "ssd",
+                     "isAllocated": "false"},
+                    {"name": "/dev/vdc", "capacity": str(500 * GI), "mediaType": "hdd",
+                     "isAllocated": "false"}],
+    })
+
+
+def build_storage_scenario(n_nodes=STOR_NODES, n_pods=STOR_PODS, n_vgs=2):
+    """bench.py's storage scenario: 32 cpu / 128 GiB nodes with the
+    storage of storage_anno; 90% of the pods bin-pack 1-3 LVM volumes,
+    10% claim an exclusive SSD or HDD."""
+    anno = storage_anno(n_vgs)
+    nodes = [{"kind": "Node", "metadata": {
+        "name": f"stor-node-{i:05d}", "labels": {"kubernetes.io/hostname": f"stor-node-{i:05d}"},
+        "annotations": {"simon/node-local-storage": anno}},
+        "status": {"allocatable": {"cpu": "32", "memory": "128Gi", "pods": "110"},
+                   "capacity": {"cpu": "32", "memory": "128Gi", "pods": "110"}}}
+        for i in range(n_nodes)]
+    lvm = [[("LVM", 1)], [("LVM", 5)], [("LVM", 10), ("LVM", 2)],
+           [("LVM", 8), ("LVM", 4), ("LVM", 1)]]
+    dev = [[("SSD", 100)], [("HDD", 400)]]
+    pods = []
+    for p in range(n_pods):
+        vols = dev[(p // 10) % 2] if p % 10 == 9 else lvm[p % 4]
+        payload = {"volumes": [{"kind": k, "size": str(s * GI),
+                                "scName": f"open-local-{k.lower()}"} for k, s in vols]}
+        pods.append({
+            "metadata": {"name": f"stor-pod-{p:06d}", "namespace": "bench", "labels": {},
+                         "annotations": {"simon/pod-local-storage": json.dumps(payload)}},
+            "spec": {"containers": [{"name": "c", "image": "kv", "resources": {
+                "requests": {"cpu": "250m", "memory": "512Mi"}}}],
+                "schedulerName": "default-scheduler"},
+        })
+    return nodes, pods
+
+
+def affinity_nodes(n_nodes, zones, anno=None):
+    """32 cpu / 64 GiB nodes in `zones` zones (the affinity stress's),
+    with an open-local annotation when `anno` is given."""
+    nodes = []
+    for i in range(n_nodes):
+        name = f"sn-{i:05d}"
+        node = {"kind": "Node", "apiVersion": "v1", "metadata": {
+            "name": name, "labels": {"kubernetes.io/hostname": name, "zone": f"z{i % zones}"},
+            "annotations": {}},
+            "status": {"allocatable": {"cpu": "32", "memory": "64Gi", "pods": "110"},
+                       "capacity": {"cpu": "32", "memory": "64Gi", "pods": "110"}}}
+        if anno is not None:
+            node["metadata"]["annotations"]["simon/node-local-storage"] = anno
+        nodes.append(node)
+    return nodes
+
+
+def affinity_stateful_sets(n_sts=AFF_STS, replicas=AFF_REPLICAS, namespace="stress"):
+    """The affinity stress of the JAX package's testing.py: every
+    StatefulSet has required hostname anti-affinity on its own app
+    label and a hard zone spread (maxSkew 1); odd ones a soft hostname
+    spread (maxSkew 2); every third one a preferred zone affinity
+    (weight 50) to the previous StatefulSet's pods."""
+    stss = []
+    for s in range(n_sts):
+        app = f"sts-{s:03d}"
+        selector = {"matchLabels": {"app": app}}
+        affinity = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": selector, "topologyKey": "kubernetes.io/hostname"}]}}
+        if s % 3 == 2:
+            affinity["podAffinity"] = {"preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": 50, "podAffinityTerm": {
+                    "labelSelector": {"matchLabels": {"app": f"sts-{s - 1:03d}"}},
+                    "topologyKey": "zone"}}]}
+        spread = [{"maxSkew": 1, "topologyKey": "zone", "whenUnsatisfiable": "DoNotSchedule",
+                   "labelSelector": selector}]
+        if s % 2 == 1:
+            spread.append({"maxSkew": 2, "topologyKey": "kubernetes.io/hostname",
+                           "whenUnsatisfiable": "ScheduleAnyway", "labelSelector": selector})
+        stss.append({
+            "kind": "StatefulSet", "apiVersion": "apps/v1",
+            "metadata": {"name": app, "namespace": namespace, "labels": {"app": app}},
+            "spec": {"selector": {"matchLabels": {"app": app}}, "replicas": replicas,
+                     "template": {"metadata": {"labels": {"app": app}}, "spec": {
+                         "containers": [{"name": "c", "image": f"image-{app}", "resources": {
+                             "requests": {"cpu": "500m", "memory": "1Gi"}}}],
+                         "affinity": affinity, "topologySpreadConstraints": spread}}},
+        })
+    return stss
+
+
+def expand(nodes, workloads, app="stress"):
+    """Pods of StatefulSets in simulate()'s queue order (the port's
+    workload expansion)."""
+    from open_simulator_tpu_torch.models import workloads as wl
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.scheduler.core import _sort_app_pods
+
+    wl.reset_name_counter()
+    res = ResourceTypes()
+    res.stateful_sets = workloads
+    return _sort_app_pods(wl.generate_valid_pods_from_app(app, res, nodes))
+
+
+def build_fuzz_scenario(n_nodes=FUZZ_NODES, n_pods=FUZZ_PODS, seed=0):
+    """bench.py run_conformance_fuzz's mix: the affinity stress over 20
+    StatefulSets in 8 zones with hostPorts, an extended resource, pins
+    and open-local volumes stamped on a tenth of the pods (each a class
+    of its own: more than 128 classes), plus a zone-keyed ScheduleAnyway
+    spread and a required zone affinity on some StatefulSets, so that the
+    non-hostname soft path and the affinity-group path run."""
+    import copy
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    nodes = affinity_nodes(n_nodes, 8)
+    stss = affinity_stateful_sets(20, max(n_pods // 20, 1), "fuzz")
+    for s, sts in enumerate(stss):
+        spec = sts["spec"]["template"]["spec"]
+        if s % 4 == 0:
+            spec["topologySpreadConstraints"].append({
+                "maxSkew": 2, "topologyKey": "zone", "whenUnsatisfiable": "ScheduleAnyway",
+                "labelSelector": {"matchLabels": {"app": sts["metadata"]["name"]}}})
+        if s % 5 == 4:
+            spec["affinity"]["podAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": [
+                {"labelSelector": {"matchLabels": {"app": "sts-000"}}, "topologyKey": "zone"}]}
+    pods = expand(nodes, stss, "fuzz")
+    for node in nodes[: n_nodes // 2]:
+        node["status"]["allocatable"]["example.com/accel"] = "4"
+    anno = json.dumps({"vgs": [{"name": "a", "capacity": str(100 * GI), "requested": "0"}],
+                       "devices": [{"name": "/dev/vdb", "capacity": str(120 * GI),
+                                    "mediaType": "ssd", "isAllocated": "false"}]})
+    for node in nodes[: n_nodes // 3]:
+        node["metadata"]["annotations"]["simon/node-local-storage"] = anno
+    for i, pod in enumerate(pods[:n_pods]):
+        k = rng.randint(0, 40)
+        if k > 3:
+            continue
+        pod["spec"] = spec = copy.deepcopy(pod["spec"])
+        if k == 0:
+            port = 9000 + int(rng.randint(0, 3))
+            spec["containers"][0]["ports"] = [
+                {"containerPort": port, "hostPort": port, "protocol": "TCP"}]
+        elif k == 1:
+            spec["containers"][0]["resources"]["requests"]["example.com/accel"] = str(1 + i % 4)
+        elif k == 2:
+            spec["nodeName"] = nodes[int(rng.randint(0, n_nodes))]["metadata"]["name"]
+        else:
+            vols = ([{"kind": "LVM", "size": str((1 + i % 8) * GI), "scName": "open-local-lvm"}]
+                    if i % 3 else
+                    [{"kind": "SSD", "size": str(60 * GI), "scName": "open-local-device-ssd"}])
+            pod["metadata"] = meta = dict(pod["metadata"])
+            meta["annotations"] = dict(meta.get("annotations") or {})
+            meta["annotations"]["simon/pod-local-storage"] = json.dumps({"volumes": vols})
+    return nodes, pods[:n_pods]
+
+
+def plan_workloads():
+    """The apps of the full-width plan, after the `hello` chart: the
+    affinity stress at PLAN_REPLICAS replicas, a StatefulSet of open-local
+    LVM volumeClaimTemplates (example/application/storage/sts-local.yaml's
+    shape) and a Deployment whose pods fit no existing node (40 cpu on 32
+    cpu nodes), so that the planner must add nodes."""
+    kv = {"apiVersion": "apps/v1", "kind": "StatefulSet",
+          "metadata": {"name": "kv-store", "namespace": "default"},
+          "spec": {"serviceName": "kv", "replicas": PLAN_KV_REPLICAS,
+                   "selector": {"matchLabels": {"app": "kv-store"}},
+                   "template": {"metadata": {"labels": {"app": "kv-store"}}, "spec": {
+                       "containers": [{"name": "kv", "image": "kv:5.2", "resources": {
+                           "requests": {"cpu": "500m", "memory": "1Gi"}}}]}},
+                   "volumeClaimTemplates": [{"metadata": {"name": "data"}, "spec": {
+                       "accessModes": ["ReadWriteOnce"], "storageClassName": "open-local-lvm",
+                       "resources": {"requests": {"storage": "8Gi"}}}}]}}
+    heavy = {"apiVersion": "apps/v1", "kind": "Deployment",
+             "metadata": {"name": "batch-heavy", "namespace": "default",
+                          "labels": {"app": "batch-heavy"}},
+             "spec": {"replicas": PLAN_HEAVY_REPLICAS,
+                      "selector": {"matchLabels": {"app": "batch-heavy"}},
+                      "template": {"metadata": {"labels": {"app": "batch-heavy"}}, "spec": {
+                          "containers": [{"name": "w", "image": "worker", "resources": {
+                              "requests": {"cpu": "40", "memory": "64Gi"}}}]}}}}
+    return [("stress", affinity_stateful_sets(AFF_STS, PLAN_REPLICAS)),
+            ("local-storage", [kv]), ("batch-heavy", [heavy])]
+
+
+def write_plan_config(root) -> str:
+    """The full-width plan as a simon config under `root`: PLAN_NODES
+    zone-labelled storage nodes (32 cpu / 128 GiB, phase 7's storage),
+    the apps `hello` (the repo's example chart), the stress, the LVM
+    StatefulSet and the heavy Deployment, in that order, and a 96 cpu /
+    384 GiB new node."""
+    from pathlib import Path
+
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    nodes = affinity_nodes(PLAN_NODES, AFF_ZONES, storage_anno(2))
+    for node in nodes:
+        for key in ("allocatable", "capacity"):
+            node["status"][key]["memory"] = "128Gi"
+    new_node = {"kind": "Node", "apiVersion": "v1", "metadata": {
+        "name": "template", "labels": {"kubernetes.io/hostname": "template"}},
+        "status": {"allocatable": {"cpu": "96", "memory": "384Gi", "pods": "110"},
+                   "capacity": {"cpu": "96", "memory": "384Gi", "pods": "110"}}}
+    apps = [{"name": "hello-chart", "path": str(ROOT / "example/application/charts/hello"),
+             "chart": True}]
+    dirs = [("cluster", nodes), ("newnode", [new_node])]
+    for name, objs in plan_workloads():
+        dirs.append((f"app-{name}", objs))
+        apps.append({"name": name, "path": str(root / f"app-{name}")})
+    for sub, docs in dirs:
+        (root / sub).mkdir()
+        with open(root / sub / "objects.yaml", "w") as f:
+            yaml.dump_all(docs, f, Dumper=dumper)
+    cfg = root / "simon-config.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "apiVersion": "simon/v1alpha1", "kind": "Config", "metadata": {"name": "plan"},
+        "spec": {"cluster": {"customConfig": str(root / "cluster")}, "appList": apps,
+                 "newNode": str(root / "newnode")},
+    }))
+    return str(cfg)
+
+
 def encode(nodes, pods, device):
     """The fused-scan plan of `pods` (in simulate()'s queue order) on a
     fresh cluster, and the pod names in that order."""
@@ -267,6 +574,35 @@ def encode(nodes, pods, device):
     return plan, batch, names
 
 
+def visit_ops(plan):
+    """Integer and f64 operations of one (pod, node) visit, per class:
+    the base count plus the blocks the class runs (the counts are a
+    count of csrc/fused_scan.cu's source, not a measurement)."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    d = fused_scan.block_dims(plan)
+    visit = np.full(plan.u, OPS_PER_NODE_VISIT + OPS_PER_SCALAR * d["k"]
+                    + OPS_PER_PORT_WORD * d["w"], dtype=np.int64)
+    if plan.has_gpu:
+        visit += OPS_PER_GPU_DEVICE * d["g"] * (plan.gpu_cls[:, 0].cpu().numpy() > 0)
+    if plan.has_store:
+        lv = (plan.cls_lvm.cpu().numpy() > 0).sum(axis=1)
+        wants = plan.cls_wants.cpu().numpy() > 0
+        visit += wants * (OPS_PER_VG_VOLUME * lv * d["v"] + OPS_PER_VG * d["v"]
+                          + OPS_PER_DEVICE * (d["ds"] + d["dh"]))
+    if plan.has_terms:
+        def slots(t):
+            return (t.cpu().numpy() >= 0).sum(axis=1)
+
+        visit += (OPS_PER_TERM_ROW * slots(plan.cls_rows)
+                  + OPS_PER_GROUP_ROW * slots(plan.cls_grows)
+                  + OPS_PER_HARD_SLOT * slots(plan.cls_hrows)
+                  + OPS_PER_SOFT_SLOT * slots(plan.cls_srows))
+    return visit
+
+
 def bound(plan, class_of_pod, scenarios) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes the scans must move
     (each input read once, each output written once) over HBM bandwidth
@@ -274,20 +610,19 @@ def bound(plan, class_of_pod, scenarios) -> tuple:
     import numpy as np
     import torch
 
+    from open_simulator_tpu_torch.ops import fused_scan
+
     n, p = plan.n, len(class_of_pod)
+    d = fused_scan.block_dims(plan)
     plan_bytes = sum(t.numel() * t.element_size() for t in vars(plan).values()
                      if isinstance(t, torch.Tensor))
-    k = plan.scal_alloc.shape[0] if plan.has_scal else 0
-    g = plan.gpu_init.shape[0] if plan.has_gpu else 0
-    w = plan.port_init.shape[0] if plan.has_ports else 0
-    state_bytes = n * (6 * 8 + k * 8 + g * 8 + w * 4)
+    state_bytes = n * (6 * 8 + d["k"] * 8 + d["g"] * 8 + d["w"] * 4
+                       + d["v"] * 8 + d["ds"] + d["dh"])
+    state_bytes += 8 * (4 * d["vt"] + d["va"] + d["a"] + d["vs"])
     per_scenario = p * (1 + 4) + n + p * 4 + state_bytes
     total_bytes = plan_bytes + p * 4 + len(scenarios) * per_scenario
     cls = np.asarray(class_of_pod)
-    visit = np.full(plan.u, OPS_PER_NODE_VISIT + OPS_PER_SCALAR * k
-                    + OPS_PER_PORT_WORD * w, dtype=np.int64)
-    if plan.has_gpu:
-        visit += OPS_PER_GPU_DEVICE * g * (plan.gpu_cls[:, 0].cpu().numpy() > 0)
+    visit = visit_ops(plan)
     ops = 0
     for active, _valid, pinned in scenarios:
         scanned = np.asarray(active, bool)
@@ -328,6 +663,13 @@ def cuda_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def prefix(scenarios, k):
+    """The scenarios with only their first `k` pods active."""
+    import numpy as np
+
+    return [(np.asarray(a, bool) & (np.arange(len(a)) < k), v, q) for a, v, q in scenarios]
+
+
 def max_abs_err(got, want) -> int:
     """Largest difference over placements and every final state row of
     one scan; raises when the rows differ in name."""
@@ -365,8 +707,9 @@ def kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=3) -> dict:
 
 def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
     """Drive simulate(engine="cuda") with the counters at 0; require
-    that `kernel` ran and every pod landed where the plain version put
-    it. Returns the kernel's launch count."""
+    that `kernel` ran and every pod landed where `plain_place` (a scan
+    already held against the plain version) put it. Returns the
+    kernel's launch count."""
     import torch
 
     from open_simulator_tpu_torch.models.decode import ResourceTypes
@@ -399,9 +742,9 @@ def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
     if note != f"cuda-{kernel}":
         raise AssertionError(f"{label}: batch-kernel note {note!r}")
     if placed != expect:
-        raise AssertionError(f"{label}: simulate() placements differ from the plain version")
-    print(f"{label}: simulate(engine='cuda') placed {len(placed)}/{len(pods)} as the plain "
-          f"version did ({len(result.unscheduled_pods)} unscheduled); launches {launches}; "
+        raise AssertionError(f"{label}: simulate() placements differ from the checked scan's")
+    print(f"{label}: simulate(engine='cuda') placed {len(placed)}/{len(pods)} as the checked "
+          f"scan did ({len(result.unscheduled_pods)} unscheduled); launches {launches}; "
           f"note {note!r}; {sim_s:.3f} s end to end = {len(pods) / sim_s:.1f} pods/s; "
           f"engine/scan {scan_s * 1e3:.1f} ms ({100 * scan_s / sim_s:.1f}%) [{gpu}]",
           flush=True)
@@ -413,35 +756,47 @@ def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
 
 def print_build(lib):
     """Registers and spills of each instantiation from nvcc's report:
-    flags (batch, scalars, gpu, ports) of fused_scan_kernel<...>."""
+    flags (batch, scalars, gpu, ports, storage, terms) of
+    fused_scan_kernel<...>."""
     import re
 
     flags = None
     for line in lib.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"fused_scan_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"fused_scan_kernelI" + "Lb(\\d)E" * 6, line)
         if m:
             flags = "".join(m.groups())
         elif flags and ("registers" in line or "spill" in line):
-            print(f"  ptxas <batch,scal,gpu,ports>={flags}: {line.strip()}")
+            print(f"  ptxas <batch,scal,gpu,ports,store,terms>={flags}: {line.strip()}")
 
 
-def phase6(gpu) -> dict:
-    """The capacity plan through the port's CLI at full width."""
+def run_cli(argv, cwd=None):
+    """The port's CLI in this process: (exit code, stdout, stderr), with
+    the pod-name counter reset first."""
     import contextlib
     import io
-    import tempfile
-
-    import torch
+    import os
 
     from open_simulator_tpu_torch import cli
-    from open_simulator_tpu_torch.apply.applier import _capacity_feasible
     from open_simulator_tpu_torch.models.workloads import reset_name_counter
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_name_counter()
+    with contextlib.chdir(cwd or os.getcwd()), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def plan_on_card(argv, cwd=None) -> dict:
+    """Run a plan through the port's CLI on the card with the launch
+    counters at 0, recording the sweep and every scan it runs (plan,
+    kind, scenarios, outputs, start and end CUDA events)."""
+    import torch
+
     from open_simulator_tpu_torch.ops import fused_scan
     from open_simulator_tpu_torch.parallel import sweep as sweep_mod
     from open_simulator_tpu_torch.utils.trace import GLOBAL
 
-    # the sweep, and every scan the plan runs: (plan, kind, scenarios,
-    # outputs, start and end events on the card)
     sweeps, calls = [], []
     real_find = sweep_mod.CapacitySweep.find_min_count
     real_single, real_batch = fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch
@@ -450,7 +805,7 @@ def phase6(gpu) -> dict:
         sweeps.append(self)
         return real_find(self, *a, **k)
 
-    def recorded(kind, plan, cls, scenarios, run):
+    def recorded(kind, plan, scenarios, run):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -460,38 +815,90 @@ def phase6(gpu) -> dict:
         return outs
 
     def single(plan, cls, active, valid, pinned=None):
-        return recorded("single", plan, cls, [(active, valid, pinned)],
+        return recorded("single", plan, [(active, valid, pinned)],
                         lambda: [real_single(plan, cls, active, valid, pinned)])[0]
 
     def batch(plan, cls, scenarios):
-        return recorded("batch", plan, cls, scenarios,
-                        lambda: real_batch(plan, cls, scenarios))
+        return recorded("batch", plan, scenarios, lambda: real_batch(plan, cls, scenarios))
+
+    sweep_mod.CapacitySweep.find_min_count = find
+    fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch = single, batch
+    try:
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(argv, cwd)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        launches = dict(fused_scan.LAUNCHES)
+    finally:
+        sweep_mod.CapacitySweep.find_min_count = real_find
+        fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch = real_single, real_batch
+    if rc != 0:
+        raise AssertionError(f"{argv}: exited {rc}: {err[-2000:]}")
+    sweep = sweeps[0]
+    if any(c[0] is not sweep.plan for c in calls):
+        raise AssertionError(f"{argv}: a scan ran on another plan than the sweep's")
+    kinds = [c[1] for c in calls]
+    singles = sum(v for k, v in launches.items() if k != fused_scan.BATCH_KERNEL_NAME)
+    if (kinds.count("single") != singles
+            or kinds.count("batch") != launches[fused_scan.BATCH_KERNEL_NAME]):
+        raise AssertionError(f"{argv}: recorded scans {kinds} != launches {launches}")
+
+    def counts(scenarios):
+        return [int(valid.sum()) - sweep.n_base for _a, valid, _p in scenarios]
+
+    return {"doc": json.loads(out), "out": out, "launches": launches, "calls": calls,
+            "sweep": sweep, "trace": GLOBAL.as_dict(), "plan_s": plan_s, "counts": counts,
+            "main_ms": [(kind, counts(scen), start.elapsed_time(end))
+                        for _, kind, scen, _, start, end in calls]}
+
+
+def hold_plan_scans(label, gpu, res) -> None:
+    """Every scan a plan ran (its single probes and its pairs) against
+    one call of the batch plain version on all their scenarios:
+    placements and every final row."""
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    sweep, calls = res["sweep"], res["calls"]
+    scenarios = [sc for c in calls for sc in c[2]]
+    outs = [o for c in calls for o in c[3]]
+    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(
+        sweep.plan, sweep.batch.class_of_pod, scenarios), 1)
+    err = max(max_abs_err(o, w) for o, w in zip(outs, want))
+    if err:
+        raise AssertionError(f"{label}: a scan of the plan != batch plain ({err})")
+    print(f"{label}: every scan of the plan (kinds {[c[1] for c in calls]}, counts "
+          f"{res['counts'](scenarios)}) == batch plain ({r_times[0]:.1f} ms for all in one "
+          f"call), placements and every row [{gpu}]", flush=True)
+
+
+def print_plan(label, gpu, res) -> None:
+    doc = res["doc"]
+    placed = sum(len(n["pods"]) for n in doc["nodes"])
+    print(f"{label}: apply planned +{doc['newNodeCount']} nodes for {placed} pods on "
+          f"{len(doc['nodes'])} nodes in {res['plan_s']:.3f} s; launches {res['launches']}; "
+          f"card time of each scan (kind, counts, ms by CUDA events) {res['main_ms']} [{gpu}]",
+          flush=True)
+    print(f"{label}: host clock by phase: " + ", ".join(
+        f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms x{ph['count']}"
+        for ph in res["trace"]["phases"]) + f" [{gpu}]", flush=True)
+
+
+def phase6(gpu) -> dict:
+    """The capacity plan through the port's CLI at full width."""
+    import tempfile
+
+    from open_simulator_tpu_torch.apply.applier import _capacity_feasible
+    from open_simulator_tpu_torch.ops import fused_scan
 
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         cfg = write_capacity_config(root)
         print(f"phase 6: wrote {CAP_NODES} nodes x {CAP_PODS} pods as a simon config in "
               f"{time.perf_counter() - t0:.2f} s (set-up)", flush=True)
-        sweep_mod.CapacitySweep.find_min_count = find
-        fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch = single, batch
-        out, err = io.StringIO(), io.StringIO()
-        try:
-            reset_name_counter()
-            fused_scan.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-                rc = cli.main(["apply", "-f", cfg, "--format", "json", "--trace"])
-            torch.cuda.synchronize()
-            plan_s = time.perf_counter() - t0
-            launches = dict(fused_scan.LAUNCHES)
-        finally:
-            sweep_mod.CapacitySweep.find_min_count = real_find
-            fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch = real_single, real_batch
-    trace = GLOBAL.as_dict()
-    if rc != 0:
-        raise AssertionError(f"phase 6: apply exited {rc}: {err.getvalue()[-2000:]}")
-    doc = json.loads(out.getvalue())
+        res = plan_on_card(["apply", "-f", cfg, "--format", "json", "--trace"])
+    doc, launches, calls = res["doc"], res["launches"], res["calls"]
     count = doc["newNodeCount"]
     placed = sum(len(n["pods"]) for n in doc["nodes"])
     if not doc["success"] or doc["unscheduledPods"] or placed != CAP_PODS:
@@ -502,43 +909,30 @@ def phase6(gpu) -> dict:
                              f"+{JAX_CAPACITY_ANSWER}")
     if launches[fused_scan.KERNEL_NAME] < 1 or launches[fused_scan.BATCH_KERNEL_NAME] < 1:
         raise AssertionError(f"phase 6: the plan did not launch both kernels: {launches}")
-    sweep = sweeps[0]
+    print_plan("phase 6 (the JAX package's answer)", gpu, res)
+    sweep, counts = res["sweep"], res["counts"]
     plan, cls = sweep.plan, sweep.batch.class_of_pod
-    if any(c[0] is not plan for c in calls):
-        raise AssertionError("phase 6: a scan ran on another plan than the sweep's")
-    kinds = [c[1] for c in calls]
-    if (kinds.count("single") != launches[fused_scan.KERNEL_NAME]
-            + launches[fused_scan.EXT_KERNEL_NAME]
-            or kinds.count("batch") != launches[fused_scan.BATCH_KERNEL_NAME]):
-        raise AssertionError(f"phase 6: recorded scans {kinds} != launches {launches}")
 
-    def counts(scenarios):
-        return [int(valid.sum()) - sweep.n_base for _a, valid, _p in scenarios]
+    # checks outside the main path (the counters are read): B6 on every
+    # scan of the plan in one launch, equal to the plan's own scans;
+    # the plan's scans over their first CAP_PLAIN_PODS pods against the
+    # plain version in one call, kernel (one batch launch) and plain;
+    # single launches of each batch scenario; and one node fewer than
+    # the answer
+    import numpy as np
 
-    main_ms = [(kind, counts(scen), start.elapsed_time(end))
-               for _, kind, scen, _, start, end in calls]
-    phases = {ph["name"]: ph for ph in trace["phases"]}
-    print(f"phase 6: apply planned +{count} nodes (the JAX package's answer) for "
-          f"{placed} pods on {len(doc['nodes'])} nodes in {plan_s:.3f} s; launches "
-          f"{launches}; card time of each scan (kind, counts, ms by CUDA events) "
-          f"{main_ms} [{gpu}]", flush=True)
-    print("phase 6: host clock by phase: " + ", ".join(
-        f"{n} {ph['seconds'] * 1e3:.1f} ms x{ph['count']}" for n, ph in phases.items())
-        + f" [{gpu}]", flush=True)
-
-    # checks outside the main path (the counters are read): every scan
-    # of the plan against the plain version in one call; B6 on the same
-    # scenarios in one launch; single launches of each batch scenario;
-    # and one node fewer than the answer
     scenarios = [sc for c in calls for sc in c[2]]
     outs = [(c[1], o) for c in calls for o in c[3]]
-    want, r_times = timed(
-        lambda: fused_scan.fused_scan_batch_reference(plan, cls, scenarios), 1)
-    errs = {"single": 0, "batch": 0}
+    got, full_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios))
+    if max(max_abs_err(g, o) for g, (_k, o) in zip(got, outs)):
+        raise AssertionError("phase 6: a batch launch of the plan's scans != its own scans")
+    cut = prefix(scenarios, CAP_PLAIN_PODS)
+    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, cut), 1)
+    got, batch_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, cut))
+    errs = {"single": 0, "batch": max(max_abs_err(g, w) for g, w in zip(got, want))}
     for (kind, o), w in zip(outs, want):
-        errs[kind] = max(errs[kind], max_abs_err(o, w))
-    got, batch_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios))
-    errs["batch"] = max([errs["batch"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        head = np.asarray(o[0].cpu())[:CAP_PLAIN_PODS] != np.asarray(w[0].cpu())[:CAP_PLAIN_PODS]
+        errs[kind] = max(errs[kind], int(head.sum()))
     if errs["single"] or errs["batch"]:
         raise AssertionError(f"phase 6: scans of the plan != plain version: {errs}")
     single_ms = []
@@ -557,16 +951,155 @@ def phase6(gpu) -> dict:
     lower = sweep.lower_bound(*caps)
     if count > lower and feasible(sweep.probe(count - 1)):
         raise AssertionError(f"phase 6: +{count - 1} nodes already satisfy the caps")
-    b_ms, b_by = bound(plan, cls, scenarios)
-    print(f"phase 6: every scan of the plan (counts {counts(scenarios)}) == plain "
-          f"version ({r_times[0]:.1f} ms for all in one call); one batch launch of "
-          f"them {batch_ms:.1f} ms == plain, bound {b_ms:.4f} ms by {b_by}; every probe "
-          f"pair == single launches; +{count - 1} fails (lower bound {lower}); one "
+    b_ms, b_by = bound(plan, cls, cut)
+    print(f"phase 6: one batch launch of every scan of the plan (counts "
+          f"{counts(scenarios)}) {full_ms:.1f} ms == the plan's own scans; their first "
+          f"{CAP_PLAIN_PODS} pods (placements of the plan's scans, and one batch launch "
+          f"{batch_ms:.1f} ms, placements and every row) == plain version "
+          f"({r_times[0]:.1f} ms for all in one call), bound {b_ms:.4f} ms by {b_by}; every "
+          f"probe pair == single launches; +{count - 1} fails (lower bound {lower}); one "
           f"probe {statistics.median(single_ms):.1f} ms, one pair launch {pair_ms:.1f} ms "
           f"(CUDA events, {CAP_PODS} pods x {sweep.n} nodes) [{gpu}]", flush=True)
     batch_res = {"ms": batch_ms, "plain_ms": r_times[0], "max_abs_err": errs["batch"],
                  "bound_ms": b_ms, "bound_by": b_by}
     return {"launches": launches, "batch": batch_res, "single_err": errs["single"]}
+
+
+def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
+                plain_pods=None) -> dict:
+    """One scenario of a new block: the kernel against its plain version
+    on the card (placements and every final row; with `plain_pods`, over
+    the first that many pods, and the kernel once more over all of
+    them), then, with `simulate`, simulate(engine="cuda") on it with the
+    counters at 0. Returns the comparison's numbers with the main
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    t0 = time.perf_counter()
+    plan, batch, names = encode(nodes, pods, "cuda")
+    if fused_scan.kernel_name(plan) != kernel:
+        raise AssertionError(f"{label}: the plan runs {fused_scan.kernel_name(plan)}, "
+                             f"not {kernel}")
+    d = fused_scan.block_dims(plan)
+    print(f"{label}: encoded {plan.n} nodes x {len(names)} pods, {plan.u} classes, block "
+          f"sizes { {k: v for k, v in d.items() if v} } in {time.perf_counter() - t0:.2f} s "
+          f"(host); scratch and block state {fused_scan.scratch_bytes(plan) / 2**20:.1f} MiB "
+          f"a scenario", flush=True)
+    p, valid = len(names), np.ones(plan.n, bool)
+    active = np.arange(p) < (p if plain_pods is None else plain_pods)
+    res = kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=runs)
+    placements = res["placements"]
+    print(f"{label}: {int((placements >= 0).sum())}/{int(active.sum())} placed by both",
+          flush=True)
+    if plain_pods is not None:
+        (full, _), ms = cuda_ms(lambda: fused_scan.run_fused_scan(
+            plan, batch.class_of_pod, np.ones(p, bool), valid, pinned=batch.pinned_node))
+        placements = full.cpu().numpy()
+        if (placements[:plain_pods] != res["placements"][:plain_pods]).any():
+            raise AssertionError(f"{label}: the full scan's first pods differ from the cut's")
+        print(f"{label}: the kernel over all {p} pods {ms:.1f} ms (CUDA events), its first "
+              f"{plain_pods} placements those of the cut; "
+              f"{int((placements >= 0).sum())}/{p} placed [{gpu}]", flush=True)
+    res["launches"] = 0
+    if simulate:
+        del plan
+        torch.cuda.empty_cache()
+        res["launches"] = simulate_path(label, gpu, nodes, pods, names, placements, kernel)
+    return res
+
+
+def phase10(gpu) -> None:
+    """Every block in one plan: bench.py's conformance mix as one launch
+    and as a B6 batch of three node masks, both equal to the batch plain
+    version."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    nodes, pods = build_fuzz_scenario()
+    plan, batch, names = encode(nodes, pods, "cuda")
+    blocks = (plan.has_store, plan.has_terms, plan.has_scal, plan.has_ports, plan.has_pins)
+    host_soft = plan.s_host.cpu().numpy()
+    soft_rows = plan.cls_srows.cpu().numpy()
+    zone_soft = bool(((soft_rows >= 0) & ~host_soft[np.maximum(soft_rows, 0)].astype(bool)).any())
+    groups = bool((plan.cls_gid.cpu().numpy() >= 0).any())
+    if not all(blocks) or plan.u <= 128 or not zone_soft or not groups:
+        raise AssertionError(f"phase 10: blocks {blocks}, {plan.u} classes, zone soft "
+                             f"spread {zone_soft}, affinity group {groups}")
+    n, p = plan.n, len(names)
+    pin = batch.pinned_node
+    every5 = np.arange(n) % 5 != 0
+    last_off = np.ones(n, bool)
+    last_off[int(n * 0.9):] = False
+    scen = [(np.ones(p, bool), np.ones(n, bool), pin), (np.ones(p, bool), every5, pin),
+            (np.ones(p, bool), last_off, pin)]
+    cls = batch.class_of_pod
+    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, scen), 1)
+    single, s_ms = cuda_ms(lambda: fused_scan.run_fused_scan(plan, cls, *scen[0]))
+    got, b_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scen))
+    err = max([max_abs_err(single, want[0])] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    if err:
+        raise AssertionError(f"phase 10: kernel != batch plain, max abs err {err}")
+    print(f"phase 10 (all blocks, {n} nodes x {p} pods, {plan.u} classes): one "
+          f"{fused_scan.kernel_name(plan)} launch {s_ms:.1f} ms and one batch launch of 3 "
+          f"node masks {b_ms:.1f} ms == batch plain ({r_times[0]:.1f} ms), placements and "
+          f"every row [{gpu}]", flush=True)
+
+
+def phase11(gpu) -> None:
+    """The slice's path: the quickstart through the CLI on the card and
+    on the CPU, byte for byte; then the full-width plan. Each plan's
+    scans are held against the batch plain version."""
+    import tempfile
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    argv = ["apply", "-f", QUICKSTART, "--format", "json"]
+    quick = plan_on_card(argv, cwd=ROOT)
+    rc, cpu_out, err = run_cli(argv + ["--device", "cpu"], cwd=ROOT)
+    doc, launches = quick["doc"], quick["launches"]
+    if rc != 0 or quick["out"] != cpu_out:
+        raise AssertionError(f"phase 11: the card's JSON differs from the CPU's (rc {rc}): "
+                             f"{err[-1000:]}")
+    if not doc["success"] or doc["newNodeCount"] != JAX_QUICKSTART_ANSWER:
+        raise AssertionError(f"phase 11: success {doc['success']}, +{doc['newNodeCount']} "
+                             f"nodes; the JAX package plans +{JAX_QUICKSTART_ANSWER}")
+    plan = quick["sweep"].plan
+    if not (plan.has_store and plan.has_terms) or (
+            launches[fused_scan.STORE_TERMS_KERNEL_NAME] < 1):
+        raise AssertionError(f"phase 11: the quickstart did not launch the storage and "
+                             f"term instantiation: {launches}")
+    print(f"phase 11: {' '.join(argv)} on the card ({quick['plan_s']:.3f} s) == --device "
+          f"cpu, byte for byte ({len(cpu_out)} bytes): success, +{doc['newNodeCount']} node "
+          f"(the JAX package's answer), launches {launches} [{gpu}]", flush=True)
+    print(cpu_out.strip())
+    hold_plan_scans("phase 11 (quickstart)", gpu, quick)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        cfg = write_plan_config(root)
+        print(f"phase 11: wrote the full-width plan ({PLAN_NODES} nodes) in "
+              f"{time.perf_counter() - t0:.2f} s (set-up)", flush=True)
+        res = plan_on_card(["apply", "-f", cfg, "--format", "json", "--trace"])
+    doc, launches = res["doc"], res["launches"]
+    if not doc["success"] or doc["unscheduledPods"]:
+        raise AssertionError(f"phase 11: full-width plan success {doc['success']}, "
+                             f"{len(doc['unscheduledPods'])} unscheduled")
+    if doc["newNodeCount"] != JAX_PLAN_ANSWER:
+        raise AssertionError(f"phase 11: +{doc['newNodeCount']} nodes, the JAX package "
+                             f"plans +{JAX_PLAN_ANSWER}")
+    if (launches[fused_scan.STORE_TERMS_KERNEL_NAME] < 1
+            or launches[fused_scan.BATCH_KERNEL_NAME] < 1):
+        raise AssertionError(f"phase 11: the plan did not launch both kernels: {launches}")
+    print_plan("phase 11 (full width, the JAX package's answer)", gpu, res)
+    hold_plan_scans("phase 11 (full width)", gpu, res)
+    plan = res["sweep"].plan
+    print(f"phase 11: scratch and block state {fused_scan.scratch_bytes(plan, 2) / 2**20:.1f} "
+          f"MiB for a pair, {fused_scan.scratch_bytes(plan, 101) / 2**30:.2f} GiB for 101 "
+          f"counts [{gpu}]", flush=True)
 
 
 def main() -> int:
@@ -578,6 +1111,7 @@ def main() -> int:
         return 2
     from open_simulator_tpu_torch.ops import fused_scan
 
+    t_start = time.perf_counter()
     gpu = card()
     print(f"card: {gpu}", flush=True)
 
@@ -634,19 +1168,22 @@ def main() -> int:
     cls = batch.class_of_pod
     fused_scan.run_fused_scan_batch(plan, cls, scenarios)  # warm
     got, b_times = timed(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios), 3)
-    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, scenarios), 1)
     singles, s_times = timed(lambda: [fused_scan.run_fused_scan(plan, cls, a, v, pinned=q)
                                       for a, v, q in scenarios], 1)
-    batch_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    cut = prefix(scenarios, PHASE5_PLAIN_PODS)
+    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, cut), 1)
+    batch_err = max(max_abs_err(g, w) for g, w in zip(
+        fused_scan.run_fused_scan_batch(plan, cls, cut), want))
     single_err = max(max_abs_err(g, s) for g, s in zip(got, singles))
     if batch_err or single_err:
         raise AssertionError(f"phase 5: batch kernel != plain ({batch_err}) or != single "
                              f"launches ({single_err})")
     b_bound = bound(plan, cls, scenarios)
-    print(f"phase 5: {len(scenarios)} scenarios in one batch launch == batch plain == "
-          f"single launches; batch kernel {statistics.median(b_times):.3f} ms (median of "
-          f"3: {[round(t, 3) for t in b_times]}), {len(scenarios)} single launches "
-          f"{s_times[0]:.1f} ms, batch plain {r_times[0]:.1f} ms, bound "
+    print(f"phase 5: {len(scenarios)} scenarios in one batch launch == single launches, "
+          f"and over their first {PHASE5_PLAIN_PODS} pods == batch plain; batch kernel "
+          f"{statistics.median(b_times):.3f} ms (median of 3: "
+          f"{[round(t, 3) for t in b_times]}), {len(scenarios)} single launches "
+          f"{s_times[0]:.1f} ms, batch plain of the cut {r_times[0]:.1f} ms, bound "
           f"{b_bound[0]:.4f} ms by {b_bound[1]} [{gpu}]", flush=True)
 
     # ---- phase 6: the capacity plan through the CLI; B6's entry is
@@ -655,6 +1192,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     cap = phase6(gpu)
     base["max_abs_err"] = max(base["max_abs_err"], cap["single_err"])
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
+
+    # ---- phase 7: B3, bench.py's storage scenario, then the 6-VG shape
+    s_nodes, s_pods = build_storage_scenario()
+    store = block_phase(f"phase 7 (B3, {STOR_NODES} storage nodes x {STOR_PODS} pods)", gpu,
+                        s_nodes, s_pods, fused_scan.STORE_KERNEL_NAME)
+    f_nodes, f_pods = build_storage_scenario(n_pods=FALLBACK_PODS, n_vgs=FALLBACK_VGS)
+    block_phase(f"phase 7b ({FALLBACK_VGS} VGs, pods cut to {FALLBACK_PODS})", gpu, f_nodes,
+                f_pods, fused_scan.STORE_KERNEL_NAME, simulate=False)
+    del s_nodes, s_pods, f_nodes, f_pods
+
+    # ---- phase 8: B4, the affinity stress at 10,000 nodes
+    a_nodes = affinity_nodes(AFF_NODES, AFF_ZONES)
+    a_pods = expand(a_nodes, affinity_stateful_sets())
+    terms = block_phase(f"phase 8 (B4, affinity stress, {AFF_NODES} nodes x {len(a_pods)} "
+                        f"pods)", gpu, a_nodes, a_pods, fused_scan.TERMS_KERNEL_NAME)
+
+    # ---- phase 9: B5, the same block at the JAX package's streamed size
+    b5_nodes = affinity_nodes(B5_NODES, AFF_ZONES)
+    b5_pods = expand(b5_nodes, affinity_stateful_sets())
+    streamed = block_phase(f"phase 9 (B5, affinity stress, {B5_NODES} nodes x "
+                           f"{len(b5_pods)} pods, plain over {B5_PLAIN_PODS})", gpu, b5_nodes,
+                           b5_pods, fused_scan.TERMS_KERNEL_NAME, plain_pods=B5_PLAIN_PODS)
+    del a_nodes, a_pods, b5_nodes, b5_pods
+    torch.cuda.empty_cache()
+    print(f"phases 7-9: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
+
+    # ---- phase 10: every block in one plan, single and batch
+    phase10(gpu)
+
+    # ---- phase 11: the slice's path through the CLI
+    phase11(gpu)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
     def entry(name, replaces, launches, res):
         return {"name": name, "route": "cuda",
@@ -672,6 +1242,12 @@ def main() -> int:
               ext_launches, ext),
         entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
               cap["launches"][fused_scan.BATCH_KERNEL_NAME], cap["batch"]),
+        entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
+              store["launches"], store),
+        entry(fused_scan.TERMS_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2106",
+              terms["launches"], terms),
+        entry(f"{fused_scan.TERMS_KERNEL_NAME} at {B5_NODES} nodes",
+              "open_simulator_tpu/ops/pallas_scan.py:1914", streamed["launches"], streamed),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

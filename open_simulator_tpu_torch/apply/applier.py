@@ -5,6 +5,7 @@ apply/applier.py:
 - Simon CR config parsing (apiVersion simon/v1alpha1, kind Config;
   pkg/api/v1alpha1/types.go) with path validation (apply.go:249-286)
 - the cluster from a customConfig dir; the app list from plain YAML dirs
+  or Helm charts (models/chart.py, the reference's pkg/chart rendering)
 - the capacity loop (apply.go:186-239): instead of interactively asking
   the user for a node count per iteration, candidate counts up to
   MaxNumNewNode are evaluated via bisection probes over ONE encoded
@@ -22,7 +23,7 @@ workload, which the scan cannot model (PrioritySignalError), and that
 route is trace-noted.
 
 Not ported yet, each raising OutOfSliceError with its ROADMAP.md item:
-kubeConfig clusters, Helm chart apps, N+K planning
+kubeConfig clusters, N+K planning
 (`tolerate_node_failures`), the resumable journal and the multi-spec
 what-if (`probe_plan_multi`); the interactive shell has no entry point
 here.
@@ -36,6 +37,7 @@ from typing import List, Optional
 
 from ..models import storage as stor
 from ..models import workloads as wl
+from ..models.chart import process_chart
 from ..models.cluster import cluster_from_config_dir, match_and_set_local_storage
 from ..models.decode import (
     ResourceTypes,
@@ -54,7 +56,6 @@ MAX_NUM_NEW_NODE = wl.MAX_NUM_NEW_NODE
 
 # ROADMAP.md items of the apply features the port does not carry yet
 ITEM_KUBECONFIG = "A1e"
-ITEM_CHART = "A1f"
 ITEM_NPLUSK = "A1c"
 ITEM_JOURNAL = "A1b"
 ITEM_MULTI = "A1d"
@@ -486,9 +487,6 @@ class Applier:
             raise OutOfSliceError("the planning journal (--journal/--resume)", ITEM_JOURNAL)
         if config.kube_config:
             raise OutOfSliceError("kubeConfig clusters", ITEM_KUBECONFIG)
-        for app in config.app_list:
-            if app.chart:
-                raise OutOfSliceError(f"Helm chart apps ({app.name})", ITEM_CHART)
         config.validate()
         self.config = config
         self.extended_resources = extended_resources or []
@@ -522,7 +520,10 @@ class Applier:
     def load_apps(self) -> List[AppResource]:
         out = []
         for app in self.config.app_list:
-            content = yaml_content_from_directory(app.path)
+            if app.chart:
+                content = process_chart(app.name, app.path)
+            else:
+                content = yaml_content_from_directory(app.path)
             out.append(AppResource(name=app.name, resource=decode_yaml_content(content)))
         return out
 

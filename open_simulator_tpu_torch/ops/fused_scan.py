@@ -8,13 +8,17 @@ scenario's node mask), score (LeastAllocated, BalancedAllocation in
 f64, Simon min-max, NodeAffinity and TaintToleration normalised over
 the feasible nodes, the prefolded ImageLocality / NodePreferAvoidPods
 row), first-max select with ties to the lowest node index, nodeName
-pins, INACTIVE pods, and the commit of the per-node states. Three
-launch shapes, counted apart:
+pins, INACTIVE pods, and the commit of the per-node states. Launch
+shapes, counted apart:
 
 - `fused_scan_base`: one scenario, base plan;
 - `fused_scan_ext`: one scenario with any of the scalar-resource,
   hostPort and GPU-share blocks (compile-time flags of the same
   kernel), which extend the fit and the commit;
+- `fused_scan_store`, `fused_scan_terms`, `fused_scan_store_terms`: one
+  scenario with the open-local storage block, the inter-pod affinity /
+  topology-spread block, or both (the B2 blocks ride along as runtime
+  branches there);
 - `fused_scan_batch`: several (active, valid, pinned) scenarios of one
   plan in one launch, one block per scenario, with the same flags.
 
@@ -22,17 +26,21 @@ The semantics are those of the JAX package's XLA scan (ops/scan.py),
 which is conformance-tested against the serial oracle; the TPU kernel's
 layout is not copied: state and class tables are int64 in true units
 over the unpadded node axis, with no GCD scaling, no (R, 128) tiles, no
-class-row dedup and no cap on scalar kinds, GPUs per node or ports.
+class-row dedup and no cap on scalar kinds, GPUs per node, ports, VGs,
+devices, volumes, term rows or spread constraints. Inter-pod term
+counts live in VALUE space (one ragged row of counts per term row,
+indexed by topology value, `t_off` giving each row's offset): a read is
+the gather `count[off[r] + topo[r, n]]`, a commit one add per row.
 
 Kernel note. It replaces `pallas_scan._make_kernel` (the `pl.pallas_call`
-in `run_scan_pallas`) and `run_scan_pallas_batch`. On an H100 it is
-bound by its serial chain: P pod steps, each depending on the previous
-step's commit, each two block-wide barriers around two passes over the
-node axis that read about 110 bytes of state and class rows per node
-from L2. The design keeps the whole loop inside one launch of one
-1024-thread block per scenario, gives every node one owner thread (so
-the commit needs no barrier), and reduces with warp shuffles and one
-shared-memory exchange per reduction; see the source for the details.
+in `run_scan_pallas`, resident and streamed term layouts alike) and
+`run_scan_pallas_batch`. On an H100 it is bound by its serial chain: P
+pod steps, each depending on the previous step's commit, each a few
+block-wide barriers around passes over the node axis that read state
+and class rows from L2. The design keeps the whole loop inside one
+launch of one 1024-thread block per scenario, gives every node one
+owner thread, and reduces with warp shuffles and one shared-memory
+exchange per reduction; see the source for the details.
 
 `fused_scan_batch_reference` is the plain PyTorch version of the same
 function: an eager loop over the pods, one step vectorised over the
@@ -60,12 +68,22 @@ MAX_SCORE = 100
 INACTIVE = -2
 KERNEL_NAME = "fused_scan_base"
 EXT_KERNEL_NAME = "fused_scan_ext"
+STORE_KERNEL_NAME = "fused_scan_store"
+TERMS_KERNEL_NAME = "fused_scan_terms"
+STORE_TERMS_KERNEL_NAME = "fused_scan_store_terms"
 BATCH_KERNEL_NAME = "fused_scan_batch"
 STATE_FIELDS = ("used_mcpu", "used_mem", "used_eph", "nz_mcpu", "nz_mem", "pod_cnt")
+# value-space term state rows of the [4, VT] array, in order
+TERM_FIELDS = ("tgt", "own_anti_req", "own_aff_pref_w", "own_anti_pref_w")
+# final rows of the storage block and the term block
+STORE_ROWS = ("vg_used", "ssd_used", "hdd_used")
+TERM_ROWS = TERM_FIELDS + ("group_counts", "group_total", "soft_counts")
 
 # launches per kernel, counted where the wrapper launches it and
 # nowhere else (chip_smoke.py reads them around each path)
-LAUNCHES = {KERNEL_NAME: 0, EXT_KERNEL_NAME: 0, BATCH_KERNEL_NAME: 0}
+LAUNCHES = {name: 0 for name in (
+    KERNEL_NAME, EXT_KERNEL_NAME, STORE_KERNEL_NAME, TERMS_KERNEL_NAME,
+    STORE_TERMS_KERNEL_NAME, BATCH_KERNEL_NAME)}
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_scan.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -92,10 +110,6 @@ class NoCardError(RuntimeError):
 _OUT_OF_SLICE = (
     ("custom", "out-of-tree custom score plugins", "A2"),
     ("sample", 'select_host="sample"', "A2"),
-    ("storage", "open-local storage", "B3"),
-    ("ipa", "inter-pod affinity terms", "B4"),
-    ("hard_spread", "hard topology-spread terms", "B4"),
-    ("soft_spread", "soft topology-spread terms", "B4"),
 )
 
 
@@ -122,9 +136,8 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass
 class FusedPlan:
-    """The kernel's inputs for one batch, int64 in true units. The
-    scalar, GPU and port rows are None when the batch does not use the
-    block."""
+    """The kernel's inputs for one batch, int64 in true units. The rows
+    of an optional block are None when the batch does not use it."""
 
     n: int
     u: int
@@ -133,7 +146,8 @@ class FusedPlan:
     cls_req: torch.Tensor  # [U, 6] req mcpu/mem/eph, nz mcpu/mem, has_request
     feasible: torch.Tensor  # [U, N] bool static feasibility
     cls_tab: torch.Tensor  # [4, U, N] simon, nodeaff, taint, prefolded base
-    # (least, balanced, simon + gpushare, nodeaff, tainttol)
+    # (least, balanced, simon + gpushare, nodeaff, tainttol, spread, ipa,
+    # openlocal): the JAX PallasPlan's `w` order
     weights: tuple
     has_pins: bool
     # extended scalar resources, K kinds
@@ -148,6 +162,52 @@ class FusedPlan:
     # of word p >> 5)
     port_init: Optional[torch.Tensor] = None  # [W, N] occupied ports
     port_cls: Optional[torch.Tensor] = None  # [2, U, W] want, conflict
+    # open-local storage (B3): capacities with invalid slots at 0, SSD /
+    # HDD devices ascending by capacity, volume sizes 0-padded (device
+    # volumes ascending)
+    vg_cap: Optional[torch.Tensor] = None  # [V, N]
+    vg_init: Optional[torch.Tensor] = None  # [V, N] requested
+    ssd_cap: Optional[torch.Tensor] = None  # [Ds, N]
+    ssd_init: Optional[torch.Tensor] = None  # [Ds, N] uint8 allocated
+    hdd_cap: Optional[torch.Tensor] = None  # [Dh, N]
+    hdd_init: Optional[torch.Tensor] = None  # [Dh, N] uint8
+    has_storage: Optional[torch.Tensor] = None  # [N] uint8
+    cls_lvm: Optional[torch.Tensor] = None  # [U, Lv] in declaration order
+    cls_ssd: Optional[torch.Tensor] = None  # [U, Sv]
+    cls_hdd: Optional[torch.Tensor] = None  # [U, Hv]
+    cls_wants: Optional[torch.Tensor] = None  # [U] uint8
+    # inter-pod affinity + topology spread (B4): T term rows, A
+    # required-affinity group rows, Ch hard and Cs soft constraint
+    # instances; value-space rows offset by t_off / g_off / s_off
+    topo: Optional[torch.Tensor] = None  # [T, N] int32 value id, -1 = no key
+    t_off: Optional[torch.Tensor] = None  # [T + 1]
+    # match, carry_anti_req, carry_pref_comb (HARD_POD_AFFINITY_WEIGHT x
+    # required + preferred affinity), carry_anti_pref_w, carry_aff_pref_w
+    t_cls: Optional[torch.Tensor] = None  # [5, U, T]
+    cls_rows: Optional[torch.Tensor] = None  # [U, R] int32, -1 pad
+    g_topo: Optional[torch.Tensor] = None  # [A, N] int32
+    g_off: Optional[torch.Tensor] = None  # [A + 1]
+    g_match: Optional[torch.Tensor] = None  # [U, A] uint8 class matches the group
+    cls_grows: Optional[torch.Tensor] = None  # [U, Gm] int32, -1 pad
+    cls_gid: Optional[torch.Tensor] = None  # [U] int32, -1 = no required affinity
+    g_self: Optional[torch.Tensor] = None  # [U] uint8 class matches its own group
+    h_row: Optional[torch.Tensor] = None  # [Ch] int32 term row
+    h_skew: Optional[torch.Tensor] = None  # [Ch] maxSkew
+    h_self: Optional[torch.Tensor] = None  # [Ch, U] uint8
+    h_cand: Optional[torch.Tensor] = None  # [Ch, N] uint8 candidate nodes
+    cls_hrows: Optional[torch.Tensor] = None  # [U, Hm] int32, -1 pad
+    s_row: Optional[torch.Tensor] = None  # [Cs] int32 term row
+    s_host: Optional[torch.Tensor] = None  # [Cs] uint8 hostname key
+    s_skew: Optional[torch.Tensor] = None  # [Cs] maxSkew
+    s_q: Optional[torch.Tensor] = None  # [Cs, N] uint8 qualifying nodes
+    cls_srows: Optional[torch.Tensor] = None  # [U, Sm] int32, -1 pad
+    s_haskeys: Optional[torch.Tensor] = None  # [U, N] uint8
+    s_off: Optional[torch.Tensor] = None  # [Cs + 1]
+    log_tab: Optional[torch.Tensor] = None  # [N + 1] f64 log(k + 2)
+    t_init: Optional[torch.Tensor] = None  # [4, VT] TERM_FIELDS
+    g_init: Optional[torch.Tensor] = None  # [VA] group counts
+    gt_init: Optional[torch.Tensor] = None  # [A] group totals
+    s_init: Optional[torch.Tensor] = None  # [VS] soft counts
 
     @property
     def device(self) -> torch.device:
@@ -166,6 +226,14 @@ class FusedPlan:
         return self.port_init is not None
 
     @property
+    def has_store(self) -> bool:
+        return self.vg_cap is not None
+
+    @property
+    def has_terms(self) -> bool:
+        return self.topo is not None
+
+    @property
     def ext(self) -> bool:
         """Whether any of the B2 blocks is on."""
         return self.has_scal or self.has_gpu or self.has_ports
@@ -178,9 +246,18 @@ class FusedPlan:
         return FusedPlan(**moved)
 
 
+def _score_weights(features):
+    """The batch's ScoreWeights (the default profile's when unset)."""
+    from ..scheduler.schedconfig import DEFAULT_SCORE_WEIGHTS, ScoreWeights
+
+    w = features.weights
+    return DEFAULT_SCORE_WEIGHTS if w is None else ScoreWeights(*w)
+
+
 def _weights(w) -> tuple:
     return (int(w.least), int(w.balanced), int(w.simon) + int(w.gpushare),
-            int(w.nodeaff), int(w.tainttol))
+            int(w.nodeaff), int(w.tainttol), int(w.spread), int(w.ipa),
+            int(w.openlocal))
 
 
 def pack_port_words(mask_tn: np.ndarray) -> np.ndarray:
@@ -194,15 +271,57 @@ def pack_port_words(mask_tn: np.ndarray) -> np.ndarray:
     return words.view(np.int32)
 
 
-def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
-    """The kernel plan from the numpy ClusterStatic + PodBatch +
-    DynamicState (ops/encode.py). Raises OutOfSliceError for a batch
-    that needs a block the kernel does not have."""
-    from ..scheduler.schedconfig import DEFAULT_SCORE_WEIGHTS, ScoreWeights
+def _ragged(topo: np.ndarray):
+    """The value-space offsets of a [R, N] value-id table: row r holds
+    values 0..max(topo[r]), its counts start at off[r]. Every
+    value-space array is one longer than off[-1]: the spare slot keeps
+    the gather of a row without values in range."""
+    topo = np.asarray(topo)
+    nv = (topo.max(axis=1, initial=-1).astype(np.int64) + 1 if topo.size
+          else np.zeros(topo.shape[0], np.int64))
+    off = np.zeros(topo.shape[0] + 1, dtype=np.int64)
+    np.cumsum(nv, out=off[1:])
+    return off
 
-    check_in_slice(features)
-    w = features.weights
-    w = DEFAULT_SCORE_WEIGHTS if w is None else ScoreWeights(*w)
+
+def _dense_to_value(dense: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """[R, V] counts (row r's values at columns 0..) -> ragged value
+    space."""
+    out = np.zeros(int(off[-1]) + 1, dtype=np.int64)
+    dense = np.asarray(dense, dtype=np.int64)
+    for r in range(len(off) - 1):
+        k = int(off[r + 1] - off[r])
+        out[off[r]:off[r] + k] = dense[r, :k]
+    return out
+
+
+def _node_to_value(node_space: np.ndarray, topo: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """[R, N] node-space counts (the count at each node's own value, as
+    the XLA scan carries them) -> ragged value space."""
+    out = np.zeros(int(off[-1]) + 1, dtype=np.int64)
+    node_space = np.asarray(node_space, dtype=np.int64)
+    topo = np.asarray(topo)
+    for r in range(topo.shape[0]):
+        has = topo[r] >= 0
+        out[off[r] + topo[r, has]] = node_space[r, has]
+    return out
+
+
+def value_to_node(value_space, topo, off) -> np.ndarray:
+    """Ragged value space -> [R, N] node space (0 where the key is
+    missing): the XLA scan's ScanState layout."""
+    vs = np.asarray(value_space, dtype=np.int64)
+    topo = np.asarray(topo).astype(np.int64)
+    off = np.asarray(off, dtype=np.int64)
+    g = vs[off[:-1, None] + np.maximum(topo, 0)]
+    return np.where(topo >= 0, g, 0)
+
+
+def _base_arrays(cluster, batch, dyn, features) -> dict:
+    """The base and B2 plan rows from node, class and state arrays with
+    the encoder's names (ops/encode.py ClusterStatic / PodBatch /
+    DynamicState, or the JAX package's ScanStatic / ScanState)."""
+    w = _score_weights(features)
     a = np.asarray
     i64 = np.int64
     base = (a(batch.image_score, dtype=i64) * int(w.image)
@@ -218,8 +337,6 @@ def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
         cls_tab=np.stack([a(batch.simon_raw, i64), a(batch.nodeaff_raw, i64),
                           a(batch.taint_intol, i64), base]),
     )
-    n = int(cluster.n)
-    u = int(a(batch.req_mcpu).shape[0])
     if features.scalars:
         arrays.update(
             scal_alloc=a(cluster.scalar_alloc, i64),
@@ -239,29 +356,181 @@ def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
             port_cls=np.stack([pack_port_words(a(batch.want_ports, bool).T).T,
                                pack_port_words(a(batch.conflict_ports, bool).T).T]),
         )
-    return FusedPlan(
-        n=n, u=u, weights=_weights(w),
-        has_pins=bool(features.pins),
-        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in arrays.items()},
+    if features.storage:
+        arrays.update(_storage_arrays(
+            vg_cap=a(cluster.vg_cap, i64) * a(cluster.vg_valid, i64),
+            vg_used=a(dyn.vg_used, i64),
+            ssd_cap=a(cluster.ssd_cap, i64) * a(cluster.ssd_valid, i64),
+            ssd_used=a(dyn.ssd_used, bool),
+            hdd_cap=a(cluster.hdd_cap, i64) * a(cluster.hdd_valid, i64),
+            hdd_used=a(dyn.hdd_used, bool),
+            has_storage=a(cluster.has_storage, bool),
+            lvm=a(batch.lvm_sizes, i64), ssd=a(batch.ssd_sizes, i64),
+            hdd=a(batch.hdd_sizes, i64), wants=a(batch.wants_storage, bool),
+        ))
+    return arrays
+
+
+def _storage_arrays(vg_cap, vg_used, ssd_cap, ssd_used, hdd_cap, hdd_used,
+                    has_storage, lvm, ssd, hdd, wants) -> dict:
+    """Storage plan rows from [N, slot] node arrays (invalid slots with
+    capacity 0: a positive volume never fits them, which is the XLA
+    scan's valid mask for every volume that counts) and [U, slot]
+    class arrays. The kernel walks each media's devices once per pod,
+    which needs each class's positive device volumes in ascending order
+    (the encoder sorts them so): then every volume lands past the one
+    before it."""
+    for name, sizes in (("ssd", ssd), ("hdd", hdd)):
+        for row in sizes:
+            pos = row[row > 0]
+            if (np.diff(pos) < 0).any():
+                raise ValueError(f"{name} volume sizes of a class are not ascending")
+    return dict(
+        vg_cap=vg_cap.T, vg_init=vg_used.T,
+        ssd_cap=ssd_cap.T, ssd_init=ssd_used.T.astype(np.uint8),
+        hdd_cap=hdd_cap.T, hdd_init=hdd_used.T.astype(np.uint8),
+        has_storage=has_storage.astype(np.uint8),
+        cls_lvm=lvm, cls_ssd=ssd, cls_hdd=hdd, cls_wants=wants.astype(np.uint8),
     )
+
+
+def _term_arrays(topo, match, c_anti, c_comb, c_panti, c_paff, cls_rows, g_topo,
+                 group_of_row, match_all, cls_grows, cls_gid, h_row, h_self, h_skew,
+                 h_cand, cls_hrows, s_row, s_host, s_skew, s_q, cls_srows, s_haskeys,
+                 init) -> dict:
+    """Term plan rows from the term tables' static arrays ([T, U] class
+    columns as ops/terms.py builds them) and `init(off, g_off, s_off)`,
+    which returns the value-space initial state (t_init [4, VT], g_init,
+    gt_init, s_init)."""
+    a = np.asarray
+    i64 = np.int64
+    topo = a(topo, np.int32)
+    n = topo.shape[1]
+    g_topo = a(g_topo, np.int32)
+    s_row = a(s_row, np.int32)
+    t_off, g_off, s_off = _ragged(topo), _ragged(g_topo), _ragged(topo[s_row])
+    cls_gid = a(cls_gid, np.int32)
+    match_all = a(match_all, bool)
+    t_init, g_init, gt_init, s_init = init(t_off, g_off, s_off)
+    return dict(
+        topo=topo, t_off=t_off,
+        t_cls=np.stack([a(x, i64).T for x in (match, c_anti, c_comb, c_panti, c_paff)]),
+        cls_rows=a(cls_rows, np.int32),
+        g_topo=g_topo, g_off=g_off,
+        g_match=match_all[a(group_of_row, np.int64)].T.astype(np.uint8),
+        cls_grows=a(cls_grows, np.int32), cls_gid=cls_gid,
+        g_self=match_all[np.maximum(cls_gid, 0), np.arange(len(cls_gid))].astype(np.uint8),
+        h_row=a(h_row, np.int32), h_skew=a(h_skew, i64),
+        h_self=a(h_self, bool).astype(np.uint8), h_cand=a(h_cand, bool).astype(np.uint8),
+        cls_hrows=a(cls_hrows, np.int32),
+        s_row=s_row, s_host=a(s_host, bool).astype(np.uint8), s_skew=a(s_skew, i64),
+        s_q=a(s_q, bool).astype(np.uint8), cls_srows=a(cls_srows, np.int32),
+        s_haskeys=a(s_haskeys, bool).astype(np.uint8), s_off=s_off,
+        # log(sz + 2) of the soft-spread weight, as a host f64 table
+        # (pallas_scan.py builds the same one): kernel and plain read it
+        log_tab=np.log(np.arange(n + 1, dtype=np.float64) + 2.0),
+        t_init=t_init, g_init=g_init, gt_init=gt_init, s_init=s_init,
+    )
+
+
+def _terms_from_tables(t) -> dict:
+    """Term plan rows from the encoder's TermTables (value-space init)."""
+    from .terms import combined_pref_carry, combined_pref_init
+
+    def init(t_off, g_off, s_off):
+        return (
+            np.stack([_dense_to_value(x, t_off) for x in (
+                t.init_tgt, t.init_own_anti_req, combined_pref_init(t),
+                t.init_own_anti_pref_w)]),
+            _dense_to_value(t.init_group_counts, g_off),
+            np.asarray(t.init_group_counts, np.int64).sum(axis=1),
+            _dense_to_value(t.init_soft_counts, s_off),
+        )
+
+    return _term_arrays(
+        t.topo_val, t.match, t.carry_anti_req, combined_pref_carry(t),
+        t.carry_anti_pref_w, t.carry_aff_pref_w, t.cls_rows,
+        np.asarray(t.topo_val)[np.asarray(t.group_rows)], t.group_of_row, t.match_all,
+        t.cls_group_rows, t.cls_group_id, t.h_row, t.h_self, t.h_max_skew,
+        t.h_cand_nodes, t.cls_h_rows, t.s_row, t.s_is_host, t.s_max_skew, t.s_q,
+        t.cls_s_rows, t.cls_s_haskeys, init)
+
+
+def _tensor(v: np.ndarray, device) -> torch.Tensor:
+    v = np.ascontiguousarray(v)
+    if not v.flags.writeable:  # a view of another framework's buffer
+        v = v.copy()
+    return torch.from_numpy(v).to(device)
+
+
+def _make_plan(arrays: dict, n: int, u: int, weights: tuple, has_pins: bool,
+               device) -> FusedPlan:
+    return FusedPlan(n=n, u=u, weights=weights, has_pins=has_pins,
+                     **{k: _tensor(v, device) for k, v in arrays.items()})
+
+
+def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
+    """The kernel plan from the numpy ClusterStatic + PodBatch +
+    DynamicState (ops/encode.py). Raises OutOfSliceError for a batch
+    that needs a block the kernel does not have."""
+    check_in_slice(features)
+    arrays = _base_arrays(cluster, batch, dyn, features)
+    if features.terms:
+        arrays.update(_terms_from_tables(batch.terms))
+    return _make_plan(arrays, int(cluster.n), int(np.asarray(batch.req_mcpu).shape[0]),
+                      _weights(_score_weights(features)), bool(features.pins), device)
+
+
+def plan_from_scan_arrays(static, state, features, device="cpu") -> FusedPlan:
+    """The port's plan from the JAX package's XLA-scan inputs: its
+    ScanStatic and ScanState (any objects with their fields, as numpy
+    arrays or array-likes) and its ScanFeatures. The node-space term
+    state (count at each node's own value) becomes value space, so the
+    port and the XLA scan run on the very same arrays."""
+    check_in_slice(features)
+    a = np.asarray
+    arrays = _base_arrays(static, static, state, features)
+    if features.terms:
+        topo = a(static.topo_val)
+
+        def init(t_off, g_off, s_off):
+            return (
+                np.stack([_node_to_value(getattr(state, f), topo, t_off)
+                          for f in TERM_FIELDS]),
+                _node_to_value(state.group_counts, a(static.g_topo_val), g_off),
+                a(state.group_total, np.int64),
+                _node_to_value(state.soft_counts, topo[a(static.s_row)], s_off),
+            )
+
+        arrays.update(_term_arrays(
+            topo, static.term_match, static.carry_anti_req, static.carry_pref_comb,
+            static.carry_anti_pref_w, static.carry_aff_pref_w, static.cls_rows,
+            static.g_topo_val, static.group_of_row, static.match_all,
+            static.cls_group_rows, static.cls_group_id, static.h_row, static.h_self,
+            static.h_max_skew, static.h_cand_nodes, static.cls_h_rows, static.s_row,
+            static.s_is_host, static.s_max_skew, static.s_q, static.cls_s_rows,
+            static.cls_s_haskeys, init))
+    return _make_plan(arrays, int(a(static.alloc_mcpu).shape[0]),
+                      int(a(static.req_mcpu).shape[0]), _weights(_score_weights(features)),
+                      bool(features.pins), device)
 
 
 def plan_from_jax_arrays(jplan, device="cpu") -> FusedPlan:
     """The port's plan from the numpy arrays of a JAX package
     PallasPlan (any object with its fields): un-pad the (R, 128) node
     tiles, expand the class-row dedup map, multiply the GCD-scaled
-    memory and ephemeral quantities back into true units, and unpack
-    the scalar, GPU and port rows. The PallasPlan keeps no scale for
-    the scalar kinds and GPU memory, so those rows stay in its per-kind
-    GCD units; the fit, device choice and commit are linear in them,
-    so placements are unchanged."""
-    for field, what, item in (
-        ("terms", "inter-pod affinity / topology-spread terms", "B4"),
-        ("store", "open-local storage", "B3"),
-    ):
-        if getattr(jplan, field, None) is not None:
-            raise OutOfSliceError(what, item)
+    memory, ephemeral and storage quantities back into true units, and
+    unpack the scalar, GPU, port and storage rows. The PallasPlan keeps
+    no scale for the scalar kinds and GPU memory, so those rows stay in
+    its per-kind GCD units; the fit, device choice and commit are
+    linear in them, so placements are unchanged. Its term block is a
+    lossy TPU prefolding (bitplanes, double-single logs, deduplicated
+    tiles): a plan with terms comes from plan_from_scan_arrays."""
+    if getattr(jplan, "terms", None) is not None:
+        raise ValueError(
+            "a PallasPlan's term block cannot be unfolded; build the plan "
+            "from the XLA scan's arrays with plan_from_scan_arrays"
+        )
     n, u = int(jplan.n), int(jplan.u)
     i64 = np.int64
 
@@ -279,7 +548,6 @@ def plan_from_jax_arrays(jplan, device="cpu") -> FusedPlan:
     cs = np.asarray(jplan.class_scalars).astype(i64)
     cls_req = np.stack([cs[:, 0], cs[:, 1] * jplan.s_mem, cs[:, 2] * jplan.s_eph,
                         cs[:, 3], cs[:, 4] * jplan.s_nzmem, cs[:, 5]], axis=1)
-    w = tuple(jplan.w)
     arrays = dict(
         alloc=np.stack([nodes(jplan.alloc_mcpu), nodes(jplan.alloc_mem_s, jplan.s_mem),
                         nodes(jplan.alloc_eph_s, jplan.s_eph), nodes(jplan.alloc_pods)]),
@@ -320,12 +588,30 @@ def plan_from_jax_arrays(jplan, device="cpu") -> FusedPlan:
                                np.asarray(jplan.confl_w).reshape(u, pw)]
                               ).astype(np.int32),
         )
-    return FusedPlan(
-        n=n, u=u, weights=(w[0], w[1], w[2], w[3], w[4]),
-        has_pins=bool(jplan.has_pins),
-        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in arrays.items()},
-    )
+    st = getattr(jplan, "store", None)
+    if st is not None:
+        # caps, init usage and volume sizes are in units of the plan's
+        # collective GCD; `storow` only indexes its host score tables,
+        # so each node's own capacity tiles are the un-deduplicated rows
+        s = int(st.scale)
+        cfg = st.cfg
+
+        def slots(tiles, scale=1):
+            return rows(tiles).astype(i64) * scale  # [slot, N]
+
+        def sizes(flat, k_slots):
+            return np.asarray(flat).astype(i64).reshape(u, k_slots) * s
+
+        arrays.update(_storage_arrays(
+            vg_cap=slots(st.vg_cap_s, s).T, vg_used=slots(st.ivg0, s).T,
+            ssd_cap=slots(st.ssd_cap_s, s).T, ssd_used=slots(st.issd0).T != 0,
+            hdd_cap=slots(st.hdd_cap_s, s).T, hdd_used=slots(st.ihdd0).T != 0,
+            has_storage=nodes(st.has_store) != 0,
+            lvm=sizes(st.lvm_mi, cfg.lv), ssd=sizes(st.ssd_mi, cfg.sv),
+            hdd=sizes(st.hdd_mi, cfg.hv), wants=np.asarray(st.wants_u).reshape(u) != 0,
+        ))
+    w = tuple(int(x) for x in jplan.w)
+    return _make_plan(arrays, n, u, w, bool(jplan.has_pins), device)
 
 
 def _scenario_inputs(plan: FusedPlan, class_of_pod, scenarios):
@@ -367,18 +653,276 @@ def _scenario_inputs(plan: FusedPlan, class_of_pod, scenarios):
     )
 
 
-def _final(plan: FusedPlan, state, scal, gpu, ports) -> dict:
-    """One scenario's final state: the six base rows, plus
-    `used_scalar` [K, N], `gpu_used` [G, N] and `ports_used` [W, N]
-    (words) for the blocks the plan has."""
-    out = {name: state[k] for k, name in enumerate(STATE_FIELDS)}
-    if plan.has_scal:
-        out["used_scalar"] = scal
-    if plan.has_gpu:
-        out["gpu_used"] = gpu
-    if plan.has_ports:
-        out["ports_used"] = ports
+def _final(s: int, state, blocks: dict) -> dict:
+    """Scenario s's final state: the six base rows, plus `used_scalar`
+    [K, N], `gpu_used` [G, N], `ports_used` [W, N] (words), the storage
+    rows `vg_used` [V, N], `ssd_used` / `hdd_used` [D, N] (uint8) and
+    the value-space term rows (TERM_ROWS) for the blocks the plan has.
+    `blocks` maps each such row name to its [S, ...] tensor."""
+    out = {name: state[s, k] for k, name in enumerate(STATE_FIELDS)}
+    out.update({name: rows[s] for name, rows in blocks.items()})
     return out
+
+
+def _state_blocks(plan: FusedPlan, scal, gpu, ports, store, terms) -> dict:
+    """The [S, ...] tensors of each final row past the base six."""
+    blocks = {}
+    if plan.has_scal:
+        blocks["used_scalar"] = scal
+    if plan.has_gpu:
+        blocks["gpu_used"] = gpu
+    if plan.has_ports:
+        blocks["ports_used"] = ports
+    if plan.has_store:
+        blocks.update(zip(STORE_ROWS, store))
+    if plan.has_terms:
+        t_state, g_state, gt_state, s_state = terms
+        blocks.update({f: t_state[:, k] for k, f in enumerate(TERM_FIELDS)})
+        blocks.update(group_counts=g_state, group_total=gt_state, soft_counts=s_state)
+    return blocks
+
+
+def _class_slots(table: torch.Tensor) -> list:
+    """Per class, the non-negative entries of a [U, slots] -1-padded
+    table, in slot order."""
+    return [[int(x) for x in row if x >= 0] for row in table.cpu().tolist()]
+
+
+class _PlainStore:
+    """The storage block of the plain version: XLA scan semantics
+    (_local_storage_eval) vectorised over [scenario, node]."""
+
+    def __init__(self, plan: FusedPlan, s_n: int):
+        self.vg_cap = plan.vg_cap
+        self.ssd_cap, self.hdd_cap = plan.ssd_cap, plan.hdd_cap
+        self.vg = plan.vg_init.unsqueeze(0).repeat(s_n, 1, 1)
+        self.ssd = plan.ssd_init.bool().unsqueeze(0).repeat(s_n, 1, 1)
+        self.hdd = plan.hdd_init.bool().unsqueeze(0).repeat(s_n, 1, 1)
+        self.has = plan.has_storage.bool()[None, :]
+        self.lvm = plan.cls_lvm.cpu().tolist()
+        self.ssd_sizes = plan.cls_ssd.cpu().tolist()
+        self.hdd_sizes = plan.cls_hdd.cpu().tolist()
+        self.wants = plan.cls_wants.cpu().tolist()
+
+    @staticmethod
+    def _fit_devices(cap, used, sizes):
+        """First fit of the volumes onto free devices in device order:
+        (ok, take [S, D, N] bool, frac f64, count)."""
+        take = torch.zeros_like(used)
+        s_n, _, n = used.shape
+        ok = torch.ones((s_n, n), dtype=torch.bool, device=used.device)
+        frac = torch.zeros((s_n, n), dtype=torch.float64, device=used.device)
+        cnt = torch.zeros((s_n, n), dtype=torch.int64, device=used.device)
+        for size in sizes:
+            if size <= 0:
+                continue
+            elig = ~used & ~take & (cap[None] >= size)
+            first = elig & (elig.long().cumsum(dim=1) == 1)
+            ok_i = elig.any(dim=1)
+            take |= first
+            chosen_cap = (first.long() * cap[None]).sum(dim=1)
+            frac = frac + torch.where(
+                ok_i, float(size) / chosen_cap.clamp(min=1).double(), 0.0)
+            cnt += ok_i.long()
+            ok &= ok_i
+        return ok, take, frac, cnt
+
+    def eval(self, u: int):
+        """(ok, raw, vg_take, ssd_take, hdd_take) of class u at every
+        node, or None when the class asks for no storage."""
+        if not self.wants[u]:
+            return None
+        big = torch.iinfo(torch.int64).max
+        cap = self.vg_cap[None]
+        take = torch.zeros_like(self.vg)
+        lvm_ok = torch.ones_like(self.has.expand(self.vg.shape[0], -1))
+        for size in self.lvm[u]:
+            if size <= 0:
+                continue
+            free = cap - self.vg - take
+            elig = free >= size
+            key = torch.where(elig, free, big)
+            best = elig & (key == key.amin(dim=1, keepdim=True))
+            best &= best.long().cumsum(dim=1) == 1  # lowest VG index on ties
+            take += best.long() * size
+            lvm_ok &= elig.any(dim=1)
+        s_ok, s_take, s_frac, s_cnt = self._fit_devices(
+            self.ssd_cap, self.ssd, self.ssd_sizes[u])
+        h_ok, h_take, h_frac, h_cnt = self._fit_devices(
+            self.hdd_cap, self.hdd, self.hdd_sizes[u])
+        touched = take > 0
+        lvm_frac = torch.zeros(lvm_ok.shape, dtype=torch.float64, device=take.device)
+        for v in range(take.shape[1]):  # slot order, as the kernel adds
+            lvm_frac = lvm_frac + torch.where(
+                touched[:, v],
+                take[:, v].double() / self.vg_cap[v].clamp(min=1).double(), 0.0)
+        lvm_cnt = touched.sum(dim=1)
+        lvm_score = torch.where(
+            lvm_cnt > 0, (lvm_frac / lvm_cnt.clamp(min=1).double() * 10).long(), 0)
+        dev_cnt = s_cnt + h_cnt
+        dev_score = torch.where(
+            dev_cnt > 0, ((s_frac + h_frac) / dev_cnt.clamp(min=1).double() * 10).long(), 0)
+        ok = self.has & lvm_ok & s_ok & h_ok
+        raw = torch.where(self.has, lvm_score + dev_score, 0)
+        return ok, raw, take, s_take, h_take
+
+    def commit(self, sel, ev) -> None:
+        if ev is None:
+            return
+        _ok, _raw, take, s_take, h_take = ev
+        self.vg += sel[:, None, :] * take
+        self.ssd |= sel.bool()[:, None, :] & s_take
+        self.hdd |= sel.bool()[:, None, :] & h_take
+
+    def final(self):
+        return self.vg, self.ssd.to(torch.uint8), self.hdd.to(torch.uint8)
+
+
+class _PlainTerms:
+    """The inter-pod affinity and topology-spread block of the plain
+    version: XLA scan semantics (_terms_eval, _terms_commit, the IPA
+    normalisation) vectorised over [scenario, node], with the counts in
+    value space."""
+
+    def __init__(self, plan: FusedPlan, s_n: int):
+        self.p = plan
+        self.topo = plan.topo.long()
+        self.g_topo = plan.g_topo.long()
+        self.s_topo = self.topo[plan.s_row.long()]
+        self.t_off = plan.t_off
+        self.g_off = plan.g_off
+        self.s_off = plan.s_off
+        self.ts = plan.t_init.unsqueeze(0).repeat(s_n, 1, 1)  # [S, 4, VT]
+        self.gs = plan.g_init.unsqueeze(0).repeat(s_n, 1)
+        self.gt = plan.gt_init.unsqueeze(0).repeat(s_n, 1)
+        self.ss = plan.s_init.unsqueeze(0).repeat(s_n, 1)
+        self.t_cls = plan.t_cls  # [5, U, T]
+        self.rows = _class_slots(plan.cls_rows)
+        self.grows = _class_slots(plan.cls_grows)
+        self.hrows = _class_slots(plan.cls_hrows)
+        self.srows = _class_slots(plan.cls_srows)
+        self.gid = plan.cls_gid.cpu().tolist()
+        self.g_self = plan.g_self.cpu().tolist()
+        self.tab = plan.t_cls.cpu().tolist()  # [5][U][T]
+        self.t_off_h = plan.t_off.cpu().tolist()
+        self.g_off_h = plan.g_off.cpu().tolist()
+        self.s_off_h = plan.s_off.cpu().tolist()
+        self.h_row = plan.h_row.cpu().tolist()
+        self.h_skew = plan.h_skew.cpu().tolist()
+        self.h_self = plan.h_self.cpu().tolist()
+        self.s_row = plan.s_row.cpu().tolist()
+        self.s_host = plan.s_host.cpu().tolist()
+        self.s_skew = plan.s_skew.cpu().tolist()
+
+    def _at(self, state, off: int, vals):
+        """state[:, off + vals] with 0 where vals < 0 — [S, N]."""
+        got = state[:, off + vals.clamp(min=0)]
+        return torch.where(vals[None, :] >= 0, got, 0)
+
+    def filter(self, u: int, valid_b):
+        """(ok [S, N], ipa raw [S, N]) of class u: the InterPodAffinity
+        filter and raw score and the hard-spread filter."""
+        p = self.p
+        s_n, n = valid_b.shape
+        dev = valid_b.device
+        ok = torch.ones((s_n, n), dtype=torch.bool, device=dev)
+        raw = torch.zeros((s_n, n), dtype=torch.int64, device=dev)
+        m_u, anti_u, _comb, panti_u, paff_u = (self.tab[k][u] for k in range(5))
+        for r in self.rows[u]:
+            vals = self.topo[r]
+            off = self.t_off_h[r]
+            tgt = self._at(self.ts[:, 0], off, vals)
+            own_anti = self._at(self.ts[:, 1], off, vals)
+            own_paff = self._at(self.ts[:, 2], off, vals)
+            own_panti = self._at(self.ts[:, 3], off, vals)
+            if m_u[r]:
+                ok &= ~(own_anti > 0)  # satisfyExistingPodsAntiAffinity
+            if anti_u[r] > 0:
+                ok &= ~(tgt > 0)  # satisfyPodAntiAffinity
+            raw += (paff_u[r] - panti_u[r]) * tgt + m_u[r] * (own_paff - own_panti)
+        if self.gid[u] >= 0:  # satisfyPodAffinity
+            keys_ok = torch.ones_like(ok)
+            exist = torch.ones_like(ok)
+            total = torch.zeros(s_n, dtype=torch.int64, device=dev)
+            for a in self.grows[u]:
+                vals = self.g_topo[a]
+                gc = self._at(self.gs, self.g_off_h[a], vals)
+                keys_ok &= (vals >= 0)[None, :]
+                exist &= gc > 0
+                total += self.gt[:, a]
+            boot = (total == 0) & bool(self.g_self[u])
+            ok &= keys_ok & (exist | boot[:, None])
+        big = torch.iinfo(torch.int64).max
+        for h in self.hrows[u]:  # hard topology spread
+            r = self.h_row[h]
+            vals = self.topo[r]
+            cnt = self._at(self.ts[:, 0], self.t_off_h[r], vals)
+            cand = p.h_cand[h].bool()[None, :] & valid_b
+            minc = torch.where(cand, cnt, big).amin(dim=1)
+            minc = torch.where(cand.any(dim=1), minc, 0)
+            cnt_eff = torch.where(cand & (vals >= 0)[None, :], cnt, 0)
+            skew = cnt_eff + self.h_self[h][u] - minc[:, None]
+            ok &= (skew <= self.h_skew[h]) & (vals >= 0)[None, :]
+        return ok, raw
+
+    def soft(self, u: int, feas):
+        """The normalised soft-spread score [S, N] of class u over the
+        final feasible set, or None when the class has no soft
+        constraint (every node then scores MAX_SCORE: a constant)."""
+        if not self.srows[u]:
+            return None
+        p = self.p
+        eligible = feas & p.s_haskeys[u].bool()[None, :]
+        acc = torch.zeros(eligible.shape, dtype=torch.float64, device=feas.device)
+        for c in self.srows[u]:  # slot order, as the kernel adds
+            vals = self.s_topo[c]
+            if self.s_host[c]:
+                sz = eligible.sum(dim=1)
+                cnt = self._at(self.ts[:, 0], self.t_off_h[self.s_row[c]], vals)
+            else:
+                nv = self.s_off_h[c + 1] - self.s_off_h[c]
+                idx = torch.where(eligible & (vals >= 0)[None, :], vals[None, :], nv)
+                present = torch.zeros((feas.shape[0], nv + 1), dtype=torch.int64,
+                                      device=feas.device)
+                present.scatter_(1, idx, 1)
+                sz = present[:, :nv].sum(dim=1)
+                cnt = self._at(self.ss, self.s_off_h[c], vals)
+            weight = p.log_tab[sz]
+            acc = acc + (cnt.double() * weight[:, None] + float(self.s_skew[c] - 1))
+        raw = acc.long()
+        big = torch.iinfo(torch.int64).max
+        mx = torch.where(eligible, raw, -big).amax(dim=1, keepdim=True)
+        mn = torch.where(eligible, raw, big).amin(dim=1, keepdim=True)
+        norm = torch.where(mx == 0, MAX_SCORE,
+                           MAX_SCORE * (mx + mn - raw) // mx.clamp(min=1))
+        out = torch.where(eligible, norm, 0)
+        return torch.where(eligible.any(dim=1, keepdim=True), out, 0)
+
+    def commit(self, u: int, place) -> None:
+        """AddPod of class u at each scenario's placement [S] (ignored
+        where negative): one add per term, group and soft row."""
+        ok = place >= 0
+        at = place.clamp(min=0)
+        t_n = self.topo.shape[0]
+        vals = self.topo[:, at].T  # [S, T]
+        okv = ((vals >= 0) & ok[:, None]).long()
+        idx = self.t_off[:t_n][None, :] + vals.clamp(min=0)
+        for k in range(4):
+            self.ts[:, k].scatter_add_(1, idx, self.t_cls[k, u][None, :] * okv)
+        a_n = self.g_topo.shape[0]
+        gv = self.g_topo[:, at].T  # [S, A]
+        okg = ((gv >= 0) & ok[:, None] & self.p.g_match[u].bool()[None, :]).long()
+        self.gs.scatter_add_(1, self.g_off[:a_n][None, :] + gv.clamp(min=0), okg)
+        self.gt += okg
+        c_n = self.s_topo.shape[0]
+        sv = self.s_topo[:, at].T  # [S, Cs]
+        s_match = self.t_cls[0, u][self.p.s_row.long()] != 0
+        oks = ((sv >= 0) & self.p.s_q[:, at].T.bool() & ok[:, None]
+               & s_match[None, :]).long()
+        self.ss.scatter_add_(1, self.s_off[:c_n][None, :] + sv.clamp(min=0), oks)
+
+    def final(self):
+        return self.ts, self.gs, self.gt, self.ss
 
 
 def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
@@ -402,7 +946,7 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
     scanned = act & (pin < 0)  # [S, P]: pods that run filter and score
     scan_any = scanned.any(axis=0)
     reqs = plan.cls_req.cpu().tolist()
-    w_least, w_bal, w_simon, w_na, w_tt = plan.weights
+    w_least, w_bal, w_simon, w_na, w_tt, w_spread, w_ipa, w_local = plan.weights
     big = torch.iinfo(torch.int64).max
     valid_b = val_t.bool()
     alloc_c, alloc_m, alloc_e, alloc_p = plan.alloc.unbind(0)
@@ -415,6 +959,8 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
     scal = plan.scal_init.unsqueeze(0).repeat(s_n, 1, 1) if plan.has_scal else None
     gpu = plan.gpu_init.unsqueeze(0).repeat(s_n, 1, 1) if plan.has_gpu else None
     ports = plan.port_init.unsqueeze(0).repeat(s_n, 1, 1) if plan.has_ports else None
+    store = _PlainStore(plan, s_n) if plan.has_store else None
+    terms = _PlainTerms(plan, s_n) if plan.has_terms else None
     if plan.has_scal:
         scal_req = plan.scal_req
     if plan.has_gpu:
@@ -428,6 +974,13 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
     host_place_t = out.clone()
     scan_rows = torch.from_numpy(scanned).to(dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def minmax_norm(raw, feas):
+        """Simon / Open-Local NormalizeScore over the feasible set."""
+        hi = torch.where(feas, raw, -big).amax(dim=1, keepdim=True)
+        lo = torch.where(feas, raw, big).amin(dim=1, keepdim=True)
+        rng = hi - lo
+        return torch.where(rng > 0, (raw - lo) * MAX_SCORE // rng.clamp(min=1), zero)
 
     for i in range(p):
         u = cls[i]
@@ -451,6 +1004,8 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
                 take = torch.minimum((gc - prefix).clamp(min=0), cap)
                 found = cap.sum(dim=1) >= gc
             gpu_ok = (gpu_tot[None, :] >= gm) & found
+        # storage takes at every node, from the state before the commit
+        st = store.eval(u) if store is not None else None
         if scan_any[i]:
             feas = plan.feasible[u][None, :] & valid_b & (pods + 1 <= alloc_p)
             if has_req:
@@ -463,6 +1018,11 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
                 feas &= ((ports & confl_w[u][None, :, None]) == 0).all(dim=1)
             if gm > 0:
                 feas &= gpu_ok
+            if st is not None:
+                feas &= st[0]
+            if terms is not None:
+                term_ok, ipa_raw = terms.filter(u, valid_b)
+                feas &= term_ok
             total = plan.cls_tab[3, u].unsqueeze(0).repeat(s_n, 1)
             totc = nz_c + nzc
             totm = nz_m + nzm
@@ -479,13 +1039,7 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
                                   ((1 - (cf - mf).abs()) * MAX_SCORE).long())
                 total += bal * w_bal
             if w_simon:
-                raw = plan.cls_tab[0, u][None, :]
-                hi = torch.where(feas, raw, -big).amax(dim=1, keepdim=True)
-                lo = torch.where(feas, raw, big).amin(dim=1, keepdim=True)
-                rng = hi - lo
-                total += torch.where(
-                    rng > 0, (raw - lo) * MAX_SCORE // rng.clamp(min=1), zero
-                ) * w_simon
+                total += minmax_norm(plan.cls_tab[0, u][None, :], feas) * w_simon
             if w_na:
                 raw = plan.cls_tab[1, u][None, :]
                 mx = torch.where(feas, raw, zero).amax(dim=1, keepdim=True)
@@ -497,6 +1051,24 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
                 total += torch.where(
                     mx > 0, MAX_SCORE - MAX_SCORE * raw // mx.clamp(min=1),
                     MAX_SCORE) * w_tt
+            if st is not None and w_local:
+                # a class without volumes scores 0 everywhere
+                total += minmax_norm(st[1], feas) * w_local
+            if terms is not None:
+                if w_ipa:
+                    # InterPodAffinity NormalizeScore: bounds include 0,
+                    # f64 divide, int64 truncation
+                    masked = torch.where(feas, ipa_raw, zero)
+                    mx = masked.amax(dim=1, keepdim=True).clamp(min=0)
+                    mn = masked.amin(dim=1, keepdim=True).clamp(max=0)
+                    diff = (mx - mn).double()
+                    total += torch.where(
+                        diff > 0,
+                        ((MAX_SCORE * (ipa_raw - mn)).double() / diff.clamp(min=1.0)).long(),
+                        zero) * w_ipa
+                soft = terms.soft(u, feas) if w_spread else None
+                if soft is not None:
+                    total += soft * w_spread
             masked = torch.where(feas, total, torch.iinfo(torch.int64).min)
             chosen = torch.where(feas.any(dim=1), masked.argmax(dim=1), -1)
             place = torch.where(scan_rows[:, i], chosen, host_place_t[:, i].long())
@@ -516,12 +1088,14 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
             ports |= sel[:, None, :].int() * want_w[u][None, :, None]
         if gm > 0:
             gpu += sel[:, None, :] * take * gm
-    return [
-        (out[s], _final(plan, state[s], None if scal is None else scal[s],
-                        None if gpu is None else gpu[s],
-                        None if ports is None else ports[s]))
-        for s in range(s_n)
-    ]
+        if store is not None:
+            store.commit(sel, st)
+        if terms is not None:
+            terms.commit(u, place)
+    blocks = _state_blocks(plan, scal, gpu, ports,
+                           store.final() if store is not None else None,
+                           terms.final() if terms is not None else None)
+    return [(out[s], _final(s, state, blocks)) for s in range(s_n)]
 
 
 def fused_scan_reference(plan: FusedPlan, class_of_pod, active, valid, pinned=None):
@@ -553,7 +1127,7 @@ def build_library() -> Path:
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
            "-o", str(tmp), str(_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     log = res.stdout + res.stderr
     lib.with_suffix(".log").write_text(log)
     if res.returncode != 0:
@@ -564,7 +1138,7 @@ def build_library() -> Path:
 
 # length of the int64 argument vector of fused_scan_launch (the
 # kArg* enum of csrc/fused_scan.cu); checked against the library
-_N_ARGS = 36
+_N_ARGS = 98
 
 
 def _library():
@@ -594,67 +1168,195 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool) -> list:
-    """Launch the kernel over the scenarios of the [S, ...] inputs: one
-    block per scenario when `batch`, else one block (S == 1). Counts the
-    launch under its kernel's name."""
+def block_dims(plan: FusedPlan) -> dict:
+    """The block sizes the kernel takes (0 for a block that is off)."""
+    d = dict(k=0, g=0, w=0, v=0, ds=0, dh=0, lv=0, sv=0, hv=0, t=0, r=0, a=0,
+             gm=0, ch=0, hm=0, cs=0, sm=0, vt=0, va=0, vs=0)
+    if plan.has_scal:
+        d["k"] = plan.scal_alloc.shape[0]
+    if plan.has_gpu:
+        d["g"] = plan.gpu_init.shape[0]
+    if plan.has_ports:
+        d["w"] = plan.port_init.shape[0]
+    if plan.has_store:
+        d.update(v=plan.vg_cap.shape[0], ds=plan.ssd_cap.shape[0],
+                 dh=plan.hdd_cap.shape[0], lv=plan.cls_lvm.shape[1],
+                 sv=plan.cls_ssd.shape[1], hv=plan.cls_hdd.shape[1])
+    if plan.has_terms:
+        d.update(t=plan.topo.shape[0], r=plan.cls_rows.shape[1], a=plan.g_topo.shape[0],
+                 gm=plan.cls_grows.shape[1], ch=plan.h_row.shape[0],
+                 hm=plan.cls_hrows.shape[1], cs=plan.s_row.shape[0],
+                 sm=plan.cls_srows.shape[1], vt=plan.t_init.shape[1],
+                 va=plan.g_init.shape[0], vs=plan.s_init.shape[0])
+    return d
+
+
+def _plan_checks(plan: FusedPlan, d: dict) -> list:
+    n, u = plan.n, plan.u
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    checks = [
+        ("alloc", torch.int64, (4, n)), ("init", i64, (6, n)), ("cls_req", i64, (u, 6)),
+        ("feasible", torch.bool, (u, n)), ("cls_tab", i64, (4, u, n)),
+    ]
+    if plan.has_scal:
+        checks += [("scal_alloc", i64, (d["k"], n)), ("scal_init", i64, (d["k"], n)),
+                   ("scal_req", i64, (u, d["k"]))]
+    if plan.has_gpu:
+        checks += [("gpu_node", i64, (3, n)), ("gpu_init", i64, (d["g"], n)),
+                   ("gpu_cls", i64, (u, 2))]
+    if plan.has_ports:
+        checks += [("port_init", i32, (d["w"], n)), ("port_cls", i32, (2, u, d["w"]))]
+    if plan.has_store:
+        checks += [("vg_cap", i64, (d["v"], n)), ("vg_init", i64, (d["v"], n)),
+                   ("ssd_cap", i64, (d["ds"], n)), ("ssd_init", u8, (d["ds"], n)),
+                   ("hdd_cap", i64, (d["dh"], n)), ("hdd_init", u8, (d["dh"], n)),
+                   ("has_storage", u8, (n,)), ("cls_lvm", i64, (u, d["lv"])),
+                   ("cls_ssd", i64, (u, d["sv"])), ("cls_hdd", i64, (u, d["hv"])),
+                   ("cls_wants", u8, (u,))]
+    if plan.has_terms:
+        t, a, ch, cs = d["t"], d["a"], d["ch"], d["cs"]
+        checks += [
+            ("topo", i32, (t, n)), ("t_off", i64, (t + 1,)), ("t_cls", i64, (5, u, t)),
+            ("cls_rows", i32, (u, d["r"])), ("g_topo", i32, (a, n)),
+            ("g_off", i64, (a + 1,)), ("g_match", u8, (u, a)),
+            ("cls_grows", i32, (u, d["gm"])), ("cls_gid", i32, (u,)), ("g_self", u8, (u,)),
+            ("h_row", i32, (ch,)), ("h_skew", i64, (ch,)), ("h_self", u8, (ch, u)),
+            ("h_cand", u8, (ch, n)), ("cls_hrows", i32, (u, d["hm"])),
+            ("s_row", i32, (cs,)), ("s_host", u8, (cs,)), ("s_skew", i64, (cs,)),
+            ("s_q", u8, (cs, n)), ("cls_srows", i32, (u, d["sm"])),
+            ("s_haskeys", u8, (u, n)), ("s_off", i64, (cs + 1,)),
+            ("log_tab", torch.float64, (n + 1,)), ("t_init", i64, (4, d["vt"])),
+            ("g_init", i64, (d["va"],)), ("gt_init", i64, (a,)), ("s_init", i64, (d["vs"],)),
+        ]
+        # the kernel indexes value space with these: check them here
+        for name, off, total in (("t_off", plan.t_off, d["vt"]), ("g_off", plan.g_off, d["va"]),
+                                 ("s_off", plan.s_off, d["vs"])):
+            if int(off[-1]) >= total:
+                raise ValueError(f"{name} runs past its {total}-entry value space")
+        for name, tab, hi in (("cls_rows", plan.cls_rows, t), ("cls_grows", plan.cls_grows, a),
+                              ("cls_hrows", plan.cls_hrows, ch), ("cls_srows", plan.cls_srows, cs),
+                              ("h_row", plan.h_row, t), ("s_row", plan.s_row, t)):
+            if tab.numel() and int(tab.max()) >= hi:
+                raise ValueError(f"{name} names a row outside [0, {hi})")
+    return [(getattr(plan, name), name, dtype, shape) for name, dtype, shape in checks]
+
+
+def kernel_name(plan: FusedPlan, batch: bool = False) -> str:
+    """The launch counter (and instantiation) a scan of this plan
+    runs under."""
+    if batch:
+        return BATCH_KERNEL_NAME
+    if plan.has_store and plan.has_terms:
+        return STORE_TERMS_KERNEL_NAME
+    if plan.has_store:
+        return STORE_KERNEL_NAME
+    if plan.has_terms:
+        return TERMS_KERNEL_NAME
+    return EXT_KERNEL_NAME if plan.ext else KERNEL_NAME
+
+
+def scratch_bytes(plan: FusedPlan, scenarios: int = 1) -> int:
+    """Bytes one launch allocates per call for its state and scratch
+    (the state copies of the new blocks, the per-node scratch rows and
+    the soft-spread stamps), for `scenarios` scenarios."""
+    d = block_dims(plan)
+    n = plan.n
+    per = n * 8 * (6 + 1 + d["k"] + d["g"]) + n * 4 * d["w"]
+    if plan.has_store:
+        per += n * (8 * 2 * d["v"] + d["ds"] + d["dh"])
+    if plan.has_store or plan.has_terms:
+        per += n * 8 * 3
+    if plan.has_terms:
+        per += 8 * (4 * d["vt"] + d["va"] + d["a"] + 2 * d["vs"] + d["hm"])
+    return per * scenarios
+
+
+def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool):
+    """The kernel's argument vector for the [S, ...] inputs, and the
+    (placements, state, block rows) it writes: outputs and scratch are
+    allocated here, the new blocks' state copied from the plan's init."""
     dev = plan.device
     n, u, p = plan.n, plan.u, cls_t.shape[0]
     s_n = act_t.shape[0]
-    k = plan.scal_alloc.shape[0] if plan.has_scal else 0
-    g = plan.gpu_init.shape[0] if plan.has_gpu else 0
-    w = plan.port_init.shape[0] if plan.has_ports else 0
-    checks = [
-        (plan.alloc, "alloc", torch.int64, (4, n)),
-        (plan.init, "init", torch.int64, (6, n)),
-        (plan.cls_req, "cls_req", torch.int64, (u, 6)),
-        (plan.feasible, "feasible", torch.bool, (u, n)),
-        (plan.cls_tab, "cls_tab", torch.int64, (4, u, n)),
-    ]
-    if plan.has_scal:
-        checks += [(plan.scal_alloc, "scal_alloc", torch.int64, (k, n)),
-                   (plan.scal_init, "scal_init", torch.int64, (k, n)),
-                   (plan.scal_req, "scal_req", torch.int64, (u, k))]
-    if plan.has_gpu:
-        checks += [(plan.gpu_node, "gpu_node", torch.int64, (3, n)),
-                   (plan.gpu_init, "gpu_init", torch.int64, (g, n)),
-                   (plan.gpu_cls, "gpu_cls", torch.int64, (u, 2))]
-    if plan.has_ports:
-        checks += [(plan.port_init, "port_init", torch.int32, (w, n)),
-                   (plan.port_cls, "port_cls", torch.int32, (2, u, w))]
-    for t, name, dtype, shape in checks:
+    d = block_dims(plan)
+    for t, name, dtype, shape in _plan_checks(plan, d):
         _check(t, name, dtype, shape, dev)
 
     def empty(shape, dtype=torch.int64):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    def copies(t):
+        # the kernel copies only the B1/B2 rows from their init
+        return t.unsqueeze(0).repeat(s_n, *([1] * t.dim())).contiguous()
+
+    k, g, w = d["k"], d["g"], d["w"]
     state = empty((s_n, 6, n))
     scal = empty((s_n, k, n)) if plan.has_scal else None
     gpu = empty((s_n, g, n)) if plan.has_gpu else None
     ports = empty((s_n, w, n), torch.int32) if plan.has_ports else None
+    store = ((copies(plan.vg_init), copies(plan.ssd_init), copies(plan.hdd_init))
+             if plan.has_store else None)
+    terms = ((copies(plan.t_init), copies(plan.g_init), copies(plan.gt_init),
+              copies(plan.s_init)) if plan.has_terms else None)
     placements = empty((s_n, p), torch.int32)
+    partial = empty((s_n, max(n, 1)))
+    big = plan.has_store or plan.has_terms
+    aux = empty((s_n, 3, max(n, 1))) if big else None
+    vg_take = empty((s_n, d["v"], n)) if plan.has_store else None
+    stamps = (torch.full((s_n, d["vs"]), -1, dtype=torch.int64, device=dev)
+              if plan.has_terms else None)
+    hmin = empty((s_n, d["hm"])) if plan.has_terms else None
+    vg_s, ssd_s, hdd_s = store if store is not None else (None,) * 3
+    t_s, g_s, gt_s, s_s = terms if terms is not None else (None,) * 4
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    flags = ((8 if batch else 0) | (4 if plan.has_scal else 0)
+             | (2 if plan.has_gpu else 0) | (1 if plan.has_ports else 0)
+             | (16 if plan.has_store else 0) | (32 if plan.has_terms else 0))
+    args = [ptr(t) for t in (
+        plan.alloc, plan.init, plan.feasible, plan.cls_tab, plan.cls_req, cls_t,
+        plan.scal_alloc, plan.scal_init, plan.scal_req,
+        plan.gpu_node, plan.gpu_init, plan.gpu_cls,
+        plan.port_init, plan.port_cls,
+        act_t, pin_t, val_t, state, scal, gpu, ports, partial, placements,
+        plan.vg_cap, plan.ssd_cap, plan.hdd_cap, plan.has_storage,
+        plan.cls_lvm, plan.cls_ssd, plan.cls_hdd, plan.cls_wants,
+        vg_s, ssd_s, hdd_s, vg_take,
+        plan.topo, plan.t_off, plan.t_cls, plan.cls_rows, plan.g_topo, plan.g_off,
+        plan.g_match, plan.cls_grows, plan.cls_gid, plan.g_self,
+        plan.h_row, plan.h_skew, plan.h_self, plan.h_cand, plan.cls_hrows,
+        plan.s_row, plan.s_host, plan.s_skew, plan.s_q, plan.cls_srows,
+        plan.s_haskeys, plan.s_off, plan.log_tab,
+        t_s, g_s, gt_s, s_s, stamps, hmin, aux,
+    )] + [n, u, p, k, g, w,
+          d["v"], d["ds"], d["dh"], d["lv"], d["sv"], d["hv"],
+          d["t"], d["r"], d["a"], d["gm"], d["ch"], d["hm"], d["cs"], d["sm"],
+          d["vt"], d["va"], d["vs"],
+          *plan.weights, s_n, flags]
+    assert len(args) == _N_ARGS
+    blocks = _state_blocks(plan, scal, gpu, ports, store, terms)
+    # the scratch rides along so that it outlives the call's enqueue
+    return args, (placements, state, blocks, (partial, aux, vg_take, stamps, hmin))
+
+
+def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool) -> list:
+    """Launch the kernel over the scenarios of the [S, ...] inputs: one
+    block per scenario when `batch`, else one block (S == 1). Counts the
+    launch under its kernel's name."""
+    dev = plan.device
+    s_n, p = act_t.shape[0], cls_t.shape[0]
+    args, (placements, state, blocks, _scratch) = _launch_inputs(
+        plan, cls_t, act_t, val_t, pin_t, batch)
+    name = kernel_name(plan, batch)
     if p == 0:
-        state.copy_(plan.init.expand(s_n, 6, n))
-        for out, init in ((scal, plan.scal_init), (gpu, plan.gpu_init),
-                          (ports, plan.port_init)):
-            if out is not None:
-                out.copy_(init.expand_as(out))
+        state.copy_(plan.init.expand_as(state))
+        for key, init in (("used_scalar", plan.scal_init), ("gpu_used", plan.gpu_init),
+                          ("ports_used", plan.port_init)):
+            if key in blocks:
+                blocks[key].copy_(init.expand_as(blocks[key]))
     else:
-        partial = empty((s_n, max(n, 1)))
-
-        def ptr(t):
-            return 0 if t is None else t.data_ptr()
-
-        flags = ((8 if batch else 0) | (4 if plan.has_scal else 0)
-                 | (2 if plan.has_gpu else 0) | (1 if plan.has_ports else 0))
-        args = [ptr(t) for t in (
-            plan.alloc, plan.init, plan.feasible, plan.cls_tab, plan.cls_req, cls_t,
-            plan.scal_alloc, plan.scal_init, plan.scal_req,
-            plan.gpu_node, plan.gpu_init, plan.gpu_cls,
-            plan.port_init, plan.port_cls,
-            act_t, pin_t, val_t, state, scal, gpu, ports, partial, placements,
-        )] + [n, u, p, k, g, w, *plan.weights, s_n, flags]
-        assert len(args) == _N_ARGS
         argv = (ctypes.c_int64 * _N_ARGS)(*args)
         # the kernel runs after this returns; tensors freed here go back
         # to the caching allocator on this stream, which orders any
@@ -662,17 +1364,10 @@ def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool) -> list:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = _library().fused_scan_launch(argv, _N_ARGS, stream)
-        name = (BATCH_KERNEL_NAME if batch
-                else EXT_KERNEL_NAME if plan.ext else KERNEL_NAME)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
         LAUNCHES[name] += 1
-    return [
-        (placements[s], _final(plan, state[s], None if scal is None else scal[s],
-                               None if gpu is None else gpu[s],
-                               None if ports is None else ports[s]))
-        for s in range(s_n)
-    ]
+    return [(placements[s], _final(s, state, blocks)) for s in range(s_n)]
 
 
 def _device_of(plan: FusedPlan) -> str:
@@ -684,9 +1379,9 @@ def _device_of(plan: FusedPlan) -> str:
 
 def run_fused_scan(plan: FusedPlan, class_of_pod, active, valid, pinned=None):
     """Run one scan. Returns (placements[P] int32, final state dict of
-    [N] int64 rows keyed by STATE_FIELDS, plus the B2 rows the plan
-    has), on the plan's device. A plan on the CPU takes the plain
-    version; a plan on a CUDA device takes the kernel or raises."""
+    [N] int64 rows keyed by STATE_FIELDS, plus the rows of the blocks
+    the plan has), on the plan's device. A plan on the CPU takes the
+    plain version; a plan on a CUDA device takes the kernel or raises."""
     if _device_of(plan) == "cpu":
         return fused_scan_reference(plan, class_of_pod, active, valid, pinned)
     inputs = _scenario_inputs(plan, class_of_pod, [(active, valid, pinned)])
@@ -709,7 +1404,7 @@ def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios):
 def kernel_label(plan: FusedPlan) -> str:
     """What a single scan of this plan runs, for the `batch-kernel`
     trace note."""
-    name = EXT_KERNEL_NAME if plan.ext else KERNEL_NAME
+    name = kernel_name(plan)
     if plan.device.type == "cuda":
         return f"cuda-{name}"
     return f"torch-plain-{name} ({plan.device.type})"
@@ -729,16 +1424,25 @@ __all__ = [
     "LAUNCHES",
     "NoCardError",
     "OutOfSliceError",
+    "STORE_KERNEL_NAME",
+    "STORE_TERMS_KERNEL_NAME",
+    "TERMS_KERNEL_NAME",
+    "TERM_ROWS",
     "build_library",
+    "block_dims",
     "build_plan",
     "check_in_slice",
     "fused_scan_batch_reference",
     "fused_scan_reference",
     "kernel_label",
+    "kernel_name",
     "pack_port_words",
     "plan_from_jax_arrays",
+    "plan_from_scan_arrays",
     "reset_launch_counts",
     "resolve_device",
     "run_fused_scan",
     "run_fused_scan_batch",
+    "scratch_bytes",
+    "value_to_node",
 ]

@@ -240,10 +240,11 @@ class CapacitySweep:
         used_m = final["used_mem"].cpu().numpy()
         cpu_util = 100.0 * float(used_c[v].sum()) / denom_c
         mem_util = 100.0 * float(used_m[v].sum()) / denom_m
-        # open-local storage is not in the kernel yet (build_plan raises
-        # for it), so the batch never grows VG usage: the init is final
+        # the scan's final VG usage ([V, N]); a plan without the storage
+        # block never grows it, so there the init is final
         vg_cap = np.asarray(self.cluster_enc.vg_cap)
-        vg_used = np.asarray(self.dyn.vg_used)
+        vg_used = (final["vg_used"].cpu().numpy().T if "vg_used" in final
+                   else np.asarray(self.dyn.vg_used))
         denom_vg = max(int(vg_cap[v].sum()), 1)
         vg_util = 100.0 * float(vg_used[v].sum()) / denom_vg
         return ProbeResult(

@@ -769,8 +769,8 @@ def simulate(
     is checked between apps and between serial pod commits; on expiry
     or SIGINT the raised ExecutionHalted names the boundary. With
     engine="cuda" the scan runs on `device` (None = the card; raises
-    when there is none); a batch outside the kernel's base plan raises
-    OutOfSliceError."""
+    when there is none); a batch outside the kernel's blocks (custom
+    score plugins, select_host="sample") raises OutOfSliceError."""
     sim = Simulator(
         engine=engine,
         use_greed=use_greed,

@@ -15,8 +15,10 @@ the committed prefix masked off instead of re-encoding the shrinking
 remainder.
 
 On a CUDA device the scan is the hand-written kernel; on the CPU it is
-the kernel's plain PyTorch version. A batch outside the kernel's base
-plan raises OutOfSliceError: there is no other scan to fall back to.
+the kernel's plain PyTorch version. A batch outside the kernel's blocks
+(custom score plugins, select_host="sample") raises OutOfSliceError:
+there is no other scan to fall back to. Storage classes replay through
+the oracle's general bind, pod by pod (simple_commit_mask).
 """
 
 from __future__ import annotations

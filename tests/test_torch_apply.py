@@ -3,11 +3,14 @@ apply/applier.py -> parallel/sweep.py -> the fused-scan kernels' plain
 versions on the CPU) against the JAX package's, exactly:
 
 - `apply --format json --device cpu` prints the same bytes as the JAX
-  package's `apply --format json` (its XLA scan on the CPU) on
+  package's `apply --format json` (its XLA scan on the CPU) on the
+  repo's quickstart example/simon-config.yaml (a Helm chart, inter-pod
+  anti-affinity and open-local storage), on
   example/simon-gpushare-config.yaml and on small synthetic configs
   where the planner must add nodes (base plan, GPU-share, hostPorts
-  plus extended resources, a daemonset, a priority workload routed to
-  the serial loop, the serial engine);
+  plus extended resources, a daemonset, open-local storage with
+  anti-affinity, a MaxVG cap that decides the count, a priority
+  workload routed to the serial loop, the serial engine);
 - the sweep's probes, pairs and many-count batches agree with each
   other and with the JAX sweep;
 - without a card the default device exits 2 with the "needs a GPU"
@@ -31,6 +34,8 @@ from open_simulator_tpu_torch.models.workloads import reset_name_counter as port
 from open_simulator_tpu_torch.ops import fused_scan
 
 GPUSHARE = "example/simon-gpushare-config.yaml"
+QUICKSTART = "example/simon-config.yaml"
+GI = 1 << 30
 
 
 def _node(name, cpu="4", mem="8Gi", extra=None, gpus=0, taint=False):
@@ -87,8 +92,11 @@ def _daemonset(name, cpu="200m"):
     }
 
 
-def _config(root, nodes, apps, new_node, cluster_extra=(), chart=False, kube=False):
-    """Write a simon Config and its dirs under `root`; returns its path."""
+def _config(root, nodes, apps, new_node, cluster_extra=(), chart=False, kube=False,
+            files=None):
+    """Write a simon Config and its dirs under `root`; returns its path.
+    `files` maps paths under `root` to their text (a node's open-local
+    storage JSON beside it, for one)."""
     cluster_dir = root / "cluster"
     cluster_dir.mkdir()
     for i, obj in enumerate(list(nodes) + list(cluster_extra)):
@@ -110,6 +118,8 @@ def _config(root, nodes, apps, new_node, cluster_extra=(), chart=False, kube=Fal
         nn.mkdir()
         (nn / "node.yaml").write_text(yaml.safe_dump(new_node))
         spec["newNode"] = str(nn)
+    for rel, text in (files or {}).items():
+        (root / rel).write_text(text)
     cfg = root / "cfg.yaml"
     cfg.write_text(yaml.safe_dump({"apiVersion": "simon/v1alpha1", "kind": "Config",
                                    "metadata": {"name": "t"}, "spec": spec}))
@@ -156,11 +166,65 @@ def _synthetic(kind):
         nodes = [_node(f"n{i}") for i in range(2)]
         apps = [("web", [_deploy("web", 12)])]
         return nodes, apps, _node("template"), [_daemonset("agent")]
+    if kind == "storage-anti":
+        return _storage_case(vg_gi=20, anti=True, replicas=5)
     if kind == "priority":
         nodes = [_node(f"n{i}") for i in range(2)]
         apps = [("web", [_deploy("web", 9, priority=100), _deploy("lo", 4, priority=1)])]
         return nodes, apps, _node("template"), []
     raise KeyError(kind)
+
+
+_SC_LVM = {"apiVersion": "storage.k8s.io/v1", "kind": "StorageClass",
+           "metadata": {"name": "open-local-lvm"}, "provisioner": "local.csi.aliyun.com",
+           "parameters": {"volumeType": "LVM"}, "volumeBindingMode": "WaitForFirstConsumer"}
+
+
+def _storage_json(vg_gi):
+    import json
+
+    return json.dumps({"vgs": [{"name": "pool", "capacity": str(vg_gi * GI),
+                                "requested": "0"}], "devices": []})
+
+
+def _storage_case(vg_gi, anti, replicas):
+    """Two nodes with one `vg_gi` GiB VG each, a StatefulSet of open-local
+    LVM volumeClaimTemplates (8 GiB), with or without hostname
+    anti-affinity, and a Deployment; the new node has the same VG. The
+    storage JSON files ride in the cluster and new-node dirs."""
+    nodes = [_node(f"n{i}") for i in range(2)]
+    spec = {"containers": [{"name": "kv", "image": "kv",
+                            "resources": {"requests": {"cpu": "500m", "memory": "1Gi"}}}]}
+    if anti:
+        spec["affinity"] = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"app": "kv"}},
+             "topologyKey": "kubernetes.io/hostname"}]}}
+    sts = {"apiVersion": "apps/v1", "kind": "StatefulSet",
+           "metadata": {"name": "kv", "namespace": "cap", "labels": {"app": "kv"}},
+           "spec": {"replicas": replicas, "serviceName": "kv",
+                    "selector": {"matchLabels": {"app": "kv"}},
+                    "template": {"metadata": {"labels": {"app": "kv"}}, "spec": spec},
+                    "volumeClaimTemplates": [{"metadata": {"name": "data"}, "spec": {
+                        "accessModes": ["ReadWriteOnce"], "storageClassName": "open-local-lvm",
+                        "resources": {"requests": {"storage": "8Gi"}}}}]}}
+    apps = [("kv", [sts, _deploy("web", 3, cpu="500m")])]
+    files = {f"cluster/n{i}.json": _storage_json(vg_gi) for i in range(2)}
+    files["newnode/template.json"] = _storage_json(vg_gi)
+    return nodes, apps, _node("template"), [_SC_LVM], files
+
+
+def test_quickstart_json_is_byte_identical():
+    """The repo's quickstart: a Helm chart, a StatefulSet with pod
+    anti-affinity, plain YAML apps and open-local LVM volumes on the
+    demo cluster; the planner adds one node."""
+    (jrc, jout), (prc, pout) = _both(QUICKSTART, "--format", "json")
+    assert jrc == prc == 0
+    assert pout == jout
+    import json
+
+    doc = json.loads(pout)
+    assert doc["success"] and doc["newNodeCount"] == 1
+    assert not doc["unscheduledPods"]
 
 
 def test_gpushare_example_json_is_byte_identical():
@@ -182,10 +246,10 @@ def test_gpushare_example_table_is_identical():
 
 
 @pytest.mark.parametrize("kind", ["base", "gpushare", "ports-scalars", "daemonset",
-                                  "priority"])
+                                  "priority", "storage-anti"])
 def test_synthetic_plan_json_is_byte_identical(kind, tmp_path):
-    nodes, apps, new_node, extra = _synthetic(kind)
-    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    nodes, apps, new_node, extra, *files = _synthetic(kind)
+    cfg = _config(tmp_path, nodes, apps, new_node, extra, files=files[0] if files else None)
     (jrc, jout), (prc, pout) = _both(cfg, "--format", "json")
     assert (prc, pout) == (jrc, jout)
     import json
@@ -226,12 +290,39 @@ def test_default_device_needs_a_card(monkeypatch):
 
 @pytest.mark.parametrize("what,item", [("chart", "A1f"), ("kube", "A1e")])
 def test_out_of_slice_config_names_its_roadmap_item(what, item, tmp_path):
+    """kubeConfig clusters are out of slice and name their item. Helm
+    charts (A1f) are ported: a chart app that is no chart fails as the
+    JAX CLI fails it, and names no ROADMAP item."""
     nodes, apps, new_node, _ = _synthetic("base")
     cfg = _config(tmp_path, nodes, apps, new_node,
                   chart=what == "chart", kube=what == "kube")
     rc, out, err = _run(port_cli.main, port_reset,
                         ["apply", "-f", cfg, "--device", "cpu"])
+    if what == "chart":
+        jrc, jout, jerr = _run(jax_cli.main, jax_reset, ["apply", "-f", cfg])
+        assert (rc, out) == (jrc, jout) and rc != 0
+        assert "ROADMAP.md" not in err and err.strip().splitlines()[-1:] == \
+            jerr.strip().splitlines()[-1:]
+        return
     assert rc == 2 and f"ROADMAP.md {item}" in err
+
+
+def test_max_vg_cap_decides_the_count(tmp_path, monkeypatch):
+    """With MaxVG=50 the planner needs two new nodes for the VG usage
+    alone (32 GiB of volumes: 53% of three nodes' 60 GiB, 40% of four's
+    80 GiB); without the cap none. The cap reads the scan's final VG
+    usage, as the JAX package's sweep does."""
+    import json
+
+    nodes, apps, new_node, extra, files = _storage_case(vg_gi=20, anti=False, replicas=4)
+    cfg = _config(tmp_path, nodes, apps, new_node, extra, files=files)
+    (jrc, jout), (prc, pout) = _both(cfg, "--format", "json")
+    assert (prc, pout) == (jrc, jout) and json.loads(pout)["newNodeCount"] == 0
+    monkeypatch.setenv("MaxVG", "50")
+    (jrc, jout), (prc, pout) = _both(cfg, "--format", "json")
+    assert (prc, pout) == (jrc, jout) and prc == 0
+    doc = json.loads(pout)
+    assert doc["success"] and doc["newNodeCount"] == 2
 
 
 def test_out_of_slice_planner_options_raise():

@@ -179,3 +179,85 @@ def test_batch_rejects_bad_scenarios():
     with pytest.raises(ValueError, match="shape"):
         fused_scan.run_fused_scan_batch(
             plan, batch.class_of_pod, [(np.ones(5, bool), np.ones(4, bool), None)])
+
+
+def _store_terms_case():
+    """The affinity stress slice (anti-affinity, hard and soft spread,
+    preferred affinity) with open-local VGs on two nodes of three and
+    LVM volumes, extended resources and hostPorts on some pods, and one
+    pin: every block of the kernel in one plan."""
+    import json
+
+    from open_simulator_tpu.testing import build_affinity_stress
+    from open_simulator_tpu_torch.models import workloads as wl
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.scheduler.core import _sort_app_pods
+
+    gi = 1 << 30
+    nodes, stss = build_affinity_stress(n_nodes=18, n_sts=4, replicas=6, zones=3)
+    for i, node in enumerate(nodes):
+        if i % 3:
+            node["metadata"].setdefault("annotations", {})["simon/node-local-storage"] = \
+                json.dumps({"vgs": [{"name": "a", "capacity": str(60 * gi), "requested": "0"},
+                                    {"name": "b", "capacity": str(25 * gi), "requested": "0"}],
+                            "devices": [{"name": "/dev/s", "capacity": str(100 * gi),
+                                         "mediaType": "ssd", "isAllocated": "false"}]})
+        node["status"]["allocatable"]["example.com/accel"] = "2"
+    wl.reset_name_counter()
+    res = ResourceTypes()
+    res.stateful_sets = stss
+    pods = _sort_app_pods(wl.generate_valid_pods_from_app("t", res, nodes))
+    rng = np.random.RandomState(3)
+    for k, pod in enumerate(pods):
+        pod["metadata"] = copy.deepcopy(pod["metadata"])
+        pod["spec"] = copy.deepcopy(pod["spec"])
+        r = rng.randint(4)
+        if r == 0:
+            pod["metadata"].setdefault("annotations", {})["simon/pod-local-storage"] = \
+                json.dumps({"volumes": [{"kind": "LVM", "size": str(20 * gi),
+                                         "scName": "open-local-lvm"},
+                                        {"kind": "SSD", "size": str(50 * gi),
+                                         "scName": "open-local-device-ssd"}]})
+        elif r == 1:
+            pod["spec"]["containers"][0]["resources"]["requests"]["example.com/accel"] = "1"
+        elif r == 2:
+            pod["spec"]["containers"][0]["ports"] = [{"containerPort": 80,
+                                                      "hostPort": 8000 + k % 2}]
+    pods[2]["spec"]["nodeName"] = nodes[4]["metadata"]["name"]
+    return nodes, pods
+
+
+def test_batch_with_storage_and_terms_equals_singles_and_xla():
+    """B6 with the storage and term blocks on: each scenario of one
+    batch equals its own single scan, and the XLA scan of the JAX
+    package on that scenario's masks (placements, base rows, VG usage,
+    device bits and every term row in node space)."""
+    import jax.numpy as jnp
+
+    from open_simulator_tpu.ops import scan as scan_ops
+    from open_simulator_tpu.ops.encode import to_scan_state, to_scan_static
+    from test_torch_terms import node_space
+
+    nodes, pods = _store_terms_case()
+    plan = fused_scan.build_plan(*_encode(PORT_PKG, nodes, pods))
+    assert plan.has_store and plan.has_terms and plan.has_scal and plan.has_ports
+    assert plan.has_pins
+    cluster, batch, dyn, features = _encode(JAX_PKG, nodes, pods)
+    n, p = len(nodes), len(pods)
+    scen = _scenarios(n, p, batch.pinned_node, 12)
+    got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen)
+    static, init = to_scan_static(cluster, batch), to_scan_state(dyn, batch)
+    for row, (act, val, pin) in zip(got, scen):
+        _assert_same(row, fused_scan.run_fused_scan(plan, batch.class_of_pod, act, val,
+                                                    pinned=pin))
+        ref, ref_state = scan_ops.run_scan_masked(
+            static, init, jnp.asarray(batch.class_of_pod), jnp.asarray(pin),
+            jnp.asarray(val), jnp.asarray(act), features=features)
+        placements, final = row
+        np.testing.assert_array_equal(placements.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(final["vg_used"].numpy().T, np.asarray(ref_state.vg_used))
+        np.testing.assert_array_equal(final["ssd_used"].numpy().T.astype(bool),
+                                      np.asarray(ref_state.ssd_used))
+        for k, v in node_space(plan, final).items():
+            np.testing.assert_array_equal(v, np.asarray(getattr(ref_state, k)), err_msg=k)
+    assert not np.array_equal(got[0][0].numpy(), got[1][0].numpy())

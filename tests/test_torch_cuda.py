@@ -209,3 +209,165 @@ def test_cuda_batch_kernel_equals_batch_plain(b2):
     assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
     for g, r in zip(got, ref):
         _same(g, r)
+
+
+GI = 1 << 30
+
+
+def _storage_anno(rng, vgs_max):
+    import json
+
+    vgs = [{"name": f"vg{k}", "capacity": str(int(rng.choice([3, 7, 50, 100, 200])) * GI),
+            "requested": str(int(rng.randint(0, 3)) * GI)}
+           for k in range(1 + rng.randint(vgs_max))]
+    devs = [{"name": f"/dev/s{d}", "capacity": str(int(rng.choice([40, 80, 120])) * GI),
+             "mediaType": "ssd", "isAllocated": "true" if rng.rand() < 0.1 else "false"}
+            for d in range(rng.randint(4))]
+    devs += [{"name": f"/dev/h{d}", "capacity": str(int(rng.choice([200, 500])) * GI),
+              "mediaType": "hdd", "isAllocated": "false"} for d in range(rng.randint(3))]
+    return json.dumps({"vgs": vgs, "devices": devs})
+
+
+def _volumes(rng):
+    import json
+
+    shapes = [[("LVM", 1)], [("LVM", 5), ("LVM", 2)], [("LVM", 8), ("LVM", 4), ("LVM", 1)],
+              [("SSD", 30), ("SSD", 60)], [("HDD", 150)], [("LVM", 3), ("SSD", 20), ("HDD", 10)]]
+    vols = shapes[rng.randint(len(shapes))]
+    return json.dumps({"volumes": [{"kind": k, "size": str(s * GI),
+                                    "scName": f"open-local-{k.lower()}"} for k, s in vols]})
+
+
+def _b3_scenario(n_nodes, n_pods, seed, vgs_max):
+    """Nodes with 1..vgs_max VGs (up to 6: past the Pallas plan's cap),
+    0-3 SSDs and 0-2 HDDs (90% of them with storage); pods with LVM,
+    SSD and HDD volumes or none, some pinned."""
+    rng = np.random.RandomState(seed)
+    nodes = []
+    for i in range(n_nodes):
+        node = make_fake_node(f"node-{i}", "16", "64Gi")
+        if rng.rand() < 0.9:
+            node["metadata"].setdefault("annotations", {})["simon/node-local-storage"] = \
+                _storage_anno(rng, vgs_max)
+        nodes.append(node)
+    pods = []
+    for i in range(n_pods):
+        pod = make_fake_pod(f"p-{i}", "default", ["250m", "500m", "1"][rng.randint(3)], "1Gi")
+        if rng.rand() < 0.8:
+            pod["metadata"].setdefault("annotations", {})["simon/pod-local-storage"] = \
+                _volumes(rng)
+        if rng.rand() < 0.03:
+            pod["spec"]["nodeName"] = f"node-{rng.randint(n_nodes)}"
+        pods.append(pod)
+    return nodes, pods
+
+
+def _b4_scenario(n_nodes, n_sts, replicas, zones, seed, storage=False):
+    """The affinity stress (hostname anti-affinity, hard zone spread,
+    soft hostname spread, preferred zone affinity) plus a rack key with
+    a second soft constraint and a required zone affinity group on some
+    workloads; with `storage`, VGs on two nodes of three and volumes on
+    a quarter of the pods. A few pods pinned."""
+    from open_simulator_tpu.testing import build_affinity_stress
+    from open_simulator_tpu_torch.models import workloads as wl
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.scheduler.core import _sort_app_pods
+
+    rng = np.random.RandomState(seed)
+    nodes, stss = build_affinity_stress(n_nodes=n_nodes, n_sts=n_sts, replicas=replicas,
+                                        zones=zones)
+    for i, node in enumerate(nodes):
+        node["metadata"]["labels"]["rack"] = f"r{i % 7}"
+        if storage and i % 3:
+            node["metadata"].setdefault("annotations", {})["simon/node-local-storage"] = \
+                _storage_anno(rng, 3)
+    for s, obj in enumerate(stss):
+        spec = obj["spec"]["template"]["spec"]
+        if s % 4 == 1:
+            spec["topologySpreadConstraints"].append({
+                "maxSkew": 3, "topologyKey": "rack", "whenUnsatisfiable": "ScheduleAnyway",
+                "labelSelector": {"matchLabels": {"app": obj["metadata"]["name"]}}})
+        if s % 5 == 3:
+            spec["affinity"]["podAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": [
+                {"labelSelector": {"matchLabels": {"app": stss[0]["metadata"]["name"]}},
+                 "topologyKey": "zone"}]}
+    wl.reset_name_counter()
+    res = ResourceTypes()
+    res.stateful_sets = stss
+    pods = _sort_app_pods(wl.generate_valid_pods_from_app("t", res, nodes))
+    for pod in pods:
+        if storage and rng.rand() < 0.25:
+            pod["metadata"] = copy.deepcopy(pod["metadata"])
+            pod["metadata"].setdefault("annotations", {})["simon/pod-local-storage"] = \
+                _volumes(rng)
+        if rng.rand() < 0.02:
+            pod["spec"] = copy.deepcopy(pod["spec"])
+            pod["spec"]["nodeName"] = nodes[rng.randint(n_nodes)]["metadata"]["name"]
+    return nodes, pods
+
+
+# (scenario function, kernel, node_frac, pod_frac): several nodes per thread in the
+# wide cases
+BLOCK_CASES = {
+    "b3-small": (lambda: _b3_scenario(30, 400, 10, 6), fused_scan.STORE_KERNEL_NAME, 1.0, 1.0),
+    "b3-wide-masked": (lambda: _b3_scenario(2500, 1500, 11, 6), fused_scan.STORE_KERNEL_NAME,
+                       0.9, 0.95),
+    "b4-small": (lambda: _b4_scenario(40, 12, 6, 4, 12), fused_scan.TERMS_KERNEL_NAME,
+                 1.0, 1.0),
+    "b4-wide-masked": (lambda: _b4_scenario(2500, 24, 40, 16, 13),
+                       fused_scan.TERMS_KERNEL_NAME, 0.9, 0.95),
+    "b3-b4-wide": (lambda: _b4_scenario(2100, 16, 40, 8, 14, storage=True),
+                   fused_scan.STORE_TERMS_KERNEL_NAME, 0.95, 1.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
+def test_cuda_store_terms_kernel_equals_plain(name):
+    """B3 and B4 (and both in one plan): placements and every final row,
+    base, storage and value-space term state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    build, kernel, nf, pf = BLOCK_CASES[name]
+    nodes, pods = build()
+    plan, batch = _plan(nodes, pods)
+    assert fused_scan.kernel_name(plan) == kernel and plan.has_pins
+    rng = np.random.RandomState(len(pods))
+    args = (batch.class_of_pod, rng.rand(len(pods)) < pf, rng.rand(len(nodes)) < nf)
+    ref = fused_scan.fused_scan_reference(plan.to("cuda"), *args, pinned=batch.pinned_node)
+    before = fused_scan.LAUNCHES[kernel]
+    got = fused_scan.run_fused_scan(plan.to("cuda"), *args, pinned=batch.pinned_node)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[kernel] == before + 1
+    _same(got, ref)
+    assert (ref[0] >= 0).sum() > len(pods) // 4
+
+
+@pytest.mark.cuda
+def test_cuda_batch_kernel_with_storage_and_terms_equals_batch_plain():
+    """B6 with both new blocks: per-scenario node masks, inactive pods
+    and pin rows, several nodes per thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    nodes, pods = _b4_scenario(2100, 16, 30, 8, 15, storage=True)
+    n_nodes, n_pods = len(nodes), len(pods)
+    plan, batch = _plan(nodes, pods)
+    plan = plan.to("cuda")
+    assert plan.has_store and plan.has_terms
+    rng = np.random.RandomState(16)
+    last_off = np.ones(n_nodes, bool)
+    last_off[int(n_nodes * 0.9):] = False
+    pin = np.asarray(batch.pinned_node)
+    scen = [
+        (np.ones(n_pods, bool), np.ones(n_nodes, bool), pin),
+        (np.ones(n_pods, bool), last_off, pin),
+        (rng.rand(n_pods) < 0.8, np.arange(n_nodes) % 7 != 0, pin),
+        (np.ones(n_pods, bool), rng.rand(n_nodes) < 0.5, np.where(pin % 2 == 0, pin, -1)),
+    ]
+    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen)
+    before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
+    got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
+    for g, r in zip(got, ref):
+        _same(g, r)

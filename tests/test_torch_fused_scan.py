@@ -205,18 +205,27 @@ def test_plan_from_jax_arrays_equals_build_plan():
 ])
 def test_out_of_slice_features_raise(flag):
     """A feature outside the kernel raises OutOfSliceError naming its
-    ROADMAP.md item. The B2 blocks (GPU-share, hostPorts, scalars) are
-    inside the kernel: they turn their plan rows on instead."""
+    ROADMAP.md item. The B2 blocks (GPU-share, hostPorts, scalars), the
+    storage block and the term block are inside the kernel: they turn
+    their plan rows on instead."""
     cluster, batch, dyn, features = _encode(PORT_PKG, _nodes(3, 40), _pods(5, 41))
     features = features._replace(**{flag: True})
-    block = {"gpu": "has_gpu", "ports": "has_ports", "scalars": "has_scal"}.get(flag)
+    block = {"gpu": "has_gpu", "ports": "has_ports", "scalars": "has_scal",
+             "storage": "has_store", "ipa": "has_terms", "hard_spread": "has_terms",
+             "soft_spread": "has_terms"}.get(flag)
     if block is not None:
         if flag == "scalars":
             cluster.scalar_alloc = np.ones((1, cluster.n), dtype=np.int64)
             dyn.used_scalar = np.zeros((1, cluster.n), dtype=np.int64)
             batch.req_scalar = np.zeros((batch.u, 1), dtype=np.int64)
         plan = fused_scan.build_plan(cluster, batch, dyn, features)
-        assert getattr(plan, block) and plan.ext
+        assert getattr(plan, block)
+        assert plan.ext == (flag in ("gpu", "ports", "scalars"))
+        # the block's rows change no placement of a batch that does not use it
+        args = (batch.class_of_pod, np.ones(5, bool), np.ones(3, bool))
+        base = fused_scan.build_plan(*_encode(PORT_PKG, _nodes(3, 40), _pods(5, 41)))
+        np.testing.assert_array_equal(fused_scan.run_fused_scan(plan, *args)[0].numpy(),
+                                      fused_scan.run_fused_scan(base, *args)[0].numpy())
         return
     with pytest.raises(OutOfSliceError) as err:
         fused_scan.build_plan(cluster, batch, dyn, features)

@@ -21,16 +21,15 @@ bad = sorted(k for k in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 assert "yaml" not in sys.modules, "PyYAML imported at module load"
-for want in ("parallel.sweep", "apply.applier", "apply.report", "cli"):
+for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.chart"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
-# the apply path end to end in a fresh interpreter: the CLI plans the
-# example GPU-share config on the CPU and no JAX module gets loaded
+# the apply path end to end in a fresh interpreter: the CLI plans an
+# example config on the CPU and no JAX module gets loaded
 _APPLY = r"""
 import runpy, sys
-sys.argv = ["cli", "apply", "-f", "example/simon-gpushare-config.yaml",
-            "--format", "json", "--device", "cpu"]
+sys.argv = ["cli", "apply", "-f", sys.argv[1], "--format", "json", "--device", "cpu"]
 try:
     runpy.run_module("open_simulator_tpu_torch.cli", run_name="__main__")
 except SystemExit as e:
@@ -50,12 +49,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert n_mods >= 30
 
 
-def test_apply_path_imports_no_jax():
+def _apply(config):
     out = subprocess.run(
-        [sys.executable, "-c", _APPLY], capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", _APPLY, config], capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr
     assert '"success": true' in out.stdout
+
+
+def test_apply_path_imports_no_jax():
+    _apply("example/simon-gpushare-config.yaml")
+
+
+def test_quickstart_apply_path_imports_no_jax():
+    """The quickstart, with its Helm chart (models.chart), open-local
+    storage and anti-affinity (the B3 and B4 plan rows)."""
+    _apply("example/simon-config.yaml")
 
 
 def test_chip_smoke_imports_no_jax():

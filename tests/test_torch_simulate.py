@@ -160,7 +160,11 @@ def test_demo_cluster_web_deployment():
 
 
 def test_out_of_slice_batch_raises():
+    """A custom score plugin is outside the kernel (A2) and raises; an
+    inter-pod anti-affinity batch, outside it before B4, now runs and
+    places as the JAX package does."""
     from open_simulator_tpu_torch.ops.fused_scan import OutOfSliceError
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
 
     nodes, pods = build_scenario(5, 10)
     pods[3]["spec"]["affinity"] = {"podAntiAffinity": {
@@ -169,8 +173,24 @@ def test_out_of_slice_batch_raises():
             "topologyKey": "kubernetes.io/hostname",
         }],
     }}
-    with pytest.raises(OutOfSliceError, match="inter-pod affinity.*B4"):
-        _run(PORT_PKG, {"nodes": nodes}, [("a", {"pods": pods})])
+    _assert_same({"nodes": nodes}, [("a", {"pods": pods})])
+
+    class Prefer(SchedulerPlugin):
+        name = "prefer-even"
+        normalize = "default"
+
+        def filter(self, pod, node):
+            return True
+
+        def score(self, pod, node):
+            return int(node["metadata"]["name"][-1]) % 2
+
+    default_registry.register(Prefer())
+    try:
+        with pytest.raises(OutOfSliceError, match="custom score plugins.*A2"):
+            _run(PORT_PKG, {"nodes": nodes}, [("a", {"pods": pods})])
+    finally:
+        default_registry.unregister("prefer-even")
 
 
 def test_sample_select_host_raises():
