@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit, no `ok` line):
 
-1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a) and
-   print each instantiation's registers and spills;
+1. build the CUDA kernels from the checkout's two sources (one nvcc for
+   each, sm_90a, started together) and print each instantiation's
+   registers and spills;
 2. B1 on the default scenario (10,000 nodes x 20,000 pods in 5 classes,
    seed 0 — every 11th node tainted, one class with a nodeSelector, one
    with tolerations): the kernel and its plain PyTorch version on the
@@ -63,13 +64,29 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     nodes in 16 zones, the `hello` chart, the stress at 50 replicas, an
     LVM StatefulSet and a Deployment that fits only new nodes) that
     must plan the JAX package's count. Every scan either plan ran (its
-    single probes and its pairs) == the batch plain version.
+    single probes and its pairs) == the batch plain version;
+12. B7, the streaming-bandwidth probe: its entry point `run()` at the
+    TPU tool's four sizes (8, 16, 32 and 64 MiB of int32 state) with
+    the launch counter at 0, the kernel == its plain version exactly at
+    each size, the 64 MiB size timed beside the plain version, its
+    bound and one `torch.amax` over the same bytes; then a scan-step
+    probe (the six int64 state rows of B1 at 10,000 nodes, 20,000
+    steps) in microseconds a step;
+13. A2, the eager torch scan: `simulate(engine="cuda",
+    select_host="sample")` with a min-max custom score plugin on the
+    default scenario's 10,000 nodes, with the counters at 0: it runs on
+    the torch scan on CUDA tensors (the trace notes) and launches no
+    fused kernel, equals the same call with `device="cpu"` (placements,
+    node status, unscheduled reasons, the RNG's 607-word history) and
+    the JAX package's digest (tools/jax_sample_answer.py).
 
 Cuts that keep the script near 8 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
 do not depend on the later pods): phase 4b 5,000 pods; phase 5's plain
 check the first 5,000 pods; phase 6's the first 30,000 of each of the
-plan's scans; phase 7b 2,000 pods; phase 9's the first 4,000 pods.
+plan's scans; phase 7b 2,000 pods; phase 9's the first 4,000 pods;
+phase 13's pods 2,000 of the default scenario's 20,000 (the torch scan
+is an eager loop of some hundred launches a pod step).
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line, and `{"ok": true, "device": {...}}`. It imports nothing of
@@ -132,6 +149,23 @@ PLAN_REPLICAS = 50
 PLAN_KV_REPLICAS = 1_000
 PLAN_HEAVY_REPLICAS = 100
 JAX_PLAN_ANSWER = 50
+# phase 12: B7, the streaming probe at the TPU tool's four sizes, and a
+# scan-step probe: the six int64 state rows of B1 at 10,000 nodes
+# (480,000 bytes, 936 rows of 128 int32 lanes at block_rows 8) for
+# 20,000 steps, beside B1's 38 us a pod step on one block
+PROBE_BYTES = 6 * 8 * N_NODES
+PROBE_BLOCK_ROWS = 8
+PROBE_STEPS = 20_000
+# phase 13: A2, the eager torch scan, on the default scenario's 10,000
+# nodes with its pods cut from 20,000, a custom min-max score plugin and
+# select_host="sample" on a GoRand(A2_SEED) stream; JAX_SAMPLE_ANSWER is
+# the digest (a2_digest) of the JAX package's simulate(engine="tpu") on
+# the same inputs, from tools/jax_sample_answer.py (its XLA scan on a
+# CPU)
+A2_PODS = 2_000
+A2_SEED = 7
+A2_APP = "a2"
+JAX_SAMPLE_ANSWER = "4812b742297bc9d0f0a42fb91eddcc08d8f41de149ce0bacd2d1cd2403f14a9f"
 # bytes/s of HBM and the non-tensor f32 rate of one H100 SXM (NVIDIA
 # data sheet); the scan's int64/f64 work has no faster path than that
 HBM_BYTES_PER_S = 3.35e12
@@ -1102,6 +1136,187 @@ def phase11(gpu) -> None:
           f"counts [{gpu}]", flush=True)
 
 
+def print_stream_build(lib):
+    """Registers and spills of stream_kernel from nvcc's report."""
+    entry = False
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "entry function" in line:
+            entry = "stream_kernel" in line
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"  ptxas stream_kernel: {line.strip()}")
+
+
+def phase12(gpu) -> dict:
+    """B7: the tool's entry point at its four sizes with the counter at
+    0, each size's kernel == plain exactly, the 64 MiB size timed beside
+    its plain version, its bound and one PyTorch reduction over the same
+    bytes; then the scan-step probe."""
+    import torch
+
+    from open_simulator_tpu_torch.tools import stream_bench as sb
+
+    l2 = sb.l2_bytes(0)
+    sb.reset_launch_counts()
+    rates = {mb: sb.run(mb, sb.tool_steps(mb)) for mb in sb.SIZES_MB}
+    torch.cuda.synchronize()
+    launches = sb.LAUNCHES[sb.KERNEL_NAME]
+    if launches < len(sb.SIZES_MB):
+        raise AssertionError(f"phase 12: run() launched {sb.KERNEL_NAME} {launches} times")
+    res = {"launches": launches, "max_abs_err": 0}
+    for mb in sb.SIZES_MB:
+        steps = sb.tool_steps(mb)
+        state = sb.make_state(mb, device="cuda")
+        nbytes = state.numel() * 4
+        regime = "in L2 after the first step" if nbytes <= l2 else "from device memory"
+        got = sb.run_stream(state, steps)
+        want, plain_ms = cuda_ms(lambda: sb.stream_reference(state, steps))
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"phase 12: {mb} MiB kernel != plain, max abs err {err}")
+        print(f"phase 12: state {mb} MiB ({nbytes} bytes, {regime}; L2 {l2} bytes), "
+              f"{steps} steps: run() {rates[mb]:.1f} GB/s; kernel == plain exactly "
+              f"(plain {plain_ms:.1f} ms) [{gpu}]", flush=True)
+        if mb == max(sb.SIZES_MB):
+            times = [cuda_ms(lambda: sb.run_stream(state, steps))[1] for _ in range(3)]
+            expanded = state.unsqueeze(0).expand(steps, -1, -1)
+            torch.amax(expanded, dim=1)  # warm
+            _out, lib_ms = cuda_ms(lambda: torch.amax(expanded, dim=1))
+            bound_ms = nbytes * steps / HBM_BYTES_PER_S * 1e3
+            res.update(ms=statistics.median(times), plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by="bytes")
+            print(f"phase 12: {mb} MiB x {steps} steps: kernel {res['ms']:.3f} ms (median "
+                  f"of 3: {[round(t, 3) for t in times]}) = "
+                  f"{nbytes * steps / res['ms'] / 1e6:.1f} GB/s, plain {plain_ms:.1f} ms, "
+                  f"torch.amax over the expanded state {lib_ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms by bytes [{gpu}]", flush=True)
+        del state, got, want
+
+    state = sb.make_state(PROBE_BYTES / 2**20, PROBE_BLOCK_ROWS, device="cuda")
+    if state.numel() * 4 != PROBE_BYTES - PROBE_BYTES % (PROBE_BLOCK_ROWS * 512):
+        raise AssertionError(f"phase 12: probe state {tuple(state.shape)}")
+    sb.run_stream(state, 10)  # warm
+    got, probe_ms = cuda_ms(lambda: sb.run_stream(state, PROBE_STEPS))
+    want = sb.stream_reference(state, PROBE_STEPS)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"phase 12: scan-step probe kernel != plain, max abs err {err}")
+    res["probe_us"] = probe_ms * 1e3 / PROBE_STEPS
+    print(f"phase 12: scan-step probe, {state.shape[0]} rows ({state.numel() * 4} bytes) x "
+          f"{PROBE_STEPS} steps over every SM with a grid barrier a step: {probe_ms:.3f} ms = "
+          f"{res['probe_us']:.3f} us a step (B1: 38 us a pod step on one block); kernel == "
+          f"plain [{gpu}]", flush=True)
+    return res
+
+
+def a2_inputs():
+    """Phase 13's nodes and pods: the default scenario, pods cut."""
+    return build_scenario(N_NODES, A2_PODS)
+
+
+def a2_plugin(base):
+    """Phase 13's custom score plugin on `base` (either package's
+    SchedulerPlugin): a score of five levels from the node's zone and
+    the pod's class, normalised min-max, so many nodes tie."""
+    class ZoneClass(base):
+        name = "zone-class"
+        normalize = "minmax"
+
+        def score(self, pod, node):
+            zone = int(node["metadata"]["labels"]["zone"][1:])
+            return (zone + len(pod["metadata"]["labels"]["cls"])) % 5
+
+    return ZoneClass()
+
+
+def a2_view(result, rng):
+    """What phase 13 compares: every node's pods in order, the
+    unscheduled pods with their reasons, and the RNG's 607-word history."""
+    return {
+        "nodes": [[ns.node["metadata"]["name"], [p["metadata"]["name"] for p in ns.pods]]
+                  for ns in result.node_status],
+        "unscheduled": [[u.pod["metadata"]["name"], u.reason] for u in result.unscheduled_pods],
+        "rng": [str(w) for w in rng.history()],
+    }
+
+
+def a2_digest(view) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(view, sort_keys=True).encode()).hexdigest()
+
+
+def phase13(gpu) -> dict:
+    """A2: simulate(engine="cuda", select_host="sample") with a custom
+    plugin on the torch scan, on the card with the counters at 0, then
+    the same call on the CPU and the JAX package's digest."""
+    import copy
+
+    import torch
+
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.scheduler.core import AppResource, simulate
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+    from open_simulator_tpu_torch.utils.gorand import GoRand
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    nodes, pods = a2_inputs()
+
+    def run(device):
+        cluster = ResourceTypes()
+        cluster.nodes = copy.deepcopy(nodes)
+        app = ResourceTypes()
+        app.pods = copy.deepcopy(pods)
+        reset_name_counter()
+        GLOBAL.reset()
+        rng = GoRand(A2_SEED)
+        if device is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = simulate(cluster, [AppResource(A2_APP, app)], engine="cuda", device=device,
+                          select_host="sample", rng=rng)
+        if device is None:
+            torch.cuda.synchronize()
+        return {"view": a2_view(result, rng), "s": time.perf_counter() - t0,
+                "notes": dict(GLOBAL.notes), "scan_s": GLOBAL.phase_seconds("engine/scan"),
+                "placed": sum(len(ns.pods) for ns in result.node_status),
+                "unscheduled": len(result.unscheduled_pods)}
+
+    plugin = a2_plugin(SchedulerPlugin)
+    default_registry.register(plugin)
+    try:
+        fused_scan.reset_launch_counts()
+        card = run(None)
+        launches = dict(fused_scan.LAUNCHES)
+        cpu = run("cpu")
+    finally:
+        default_registry.unregister(plugin.name)
+    want_note = 'torch-scan (custom score plugins and select_host="sample")'
+    for label, r, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        notes = r["notes"]
+        if notes.get("batch-kernel") != want_note or notes.get("scan-device") != dev:
+            raise AssertionError(f"phase 13 ({label}): notes {notes}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 13: the torch scan's batch launched a kernel: {launches}")
+    if card["view"] != cpu["view"]:
+        raise AssertionError("phase 13: the card's placements, reasons or RNG history differ "
+                             "from the CPU run's")
+    digest = a2_digest(card["view"])
+    if digest != JAX_SAMPLE_ANSWER:
+        raise AssertionError(f"phase 13: digest {digest}, the JAX package's is "
+                             f"{JAX_SAMPLE_ANSWER}")
+    p = len(pods)
+    card_us, cpu_us = card["scan_s"] * 1e6 / p, cpu["scan_s"] * 1e6 / p
+    print(f"phase 13 (A2, {N_NODES} nodes x {p} pods, sample + a min-max custom plugin): "
+          f"simulate(engine='cuda') on the card == device='cpu' (placements, node status, "
+          f"{card['unscheduled']} unscheduled with reasons, the RNG's 607 words) == the JAX "
+          f"package's digest {digest[:16]}; fused launches {launches}; card {card['s']:.3f} s "
+          f"end to end, engine/scan {card['scan_s'] * 1e3:.1f} ms = {card_us:.1f} us a pod "
+          f"step (the CPU: {cpu['s']:.3f} s, {cpu_us:.1f} us a step) [{gpu}]", flush=True)
+    return {"card_us": card_us, "cpu_us": cpu_us}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1110,17 +1325,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.tools import stream_bench
+    from open_simulator_tpu_torch.utils import nvcc
 
     t_start = time.perf_counter()
     gpu = card()
     print(f"card: {gpu}", flush=True)
 
-    # ---- phase 1: build
+    # ---- phase 1: build both sources, their compilers started together
     t0 = time.perf_counter()
-    lib = fused_scan.build_library()
-    print(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.2f} s [{gpu}]",
-          flush=True)
+    lib, stream_lib = nvcc.build_libraries([fused_scan.SOURCE, stream_bench.SOURCE])
+    print(f"phase 1: built {lib.name} and {stream_lib.name} in "
+          f"{time.perf_counter() - t0:.2f} s [{gpu}]", flush=True)
     print_build(lib)
+    print_stream_build(stream_lib)
 
     # ---- phase 2: B1 kernel vs plain on the card
     t0 = time.perf_counter()
@@ -1224,6 +1442,12 @@ def main() -> int:
 
     # ---- phase 11: the slice's path through the CLI
     phase11(gpu)
+
+    # ---- phase 12: B7, the streaming probe through its entry point
+    stream = phase12(gpu)
+
+    # ---- phase 13: A2, the torch scan under simulate()
+    phase13(gpu)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
     def entry(name, replaces, launches, res):
@@ -1248,6 +1472,9 @@ def main() -> int:
               terms["launches"], terms),
         entry(f"{fused_scan.TERMS_KERNEL_NAME} at {B5_NODES} nodes",
               "open_simulator_tpu/ops/pallas_scan.py:1914", streamed["launches"], streamed),
+        dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
+                   stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
+             library_ms=stream["library_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -19,7 +19,8 @@ collapses into dense arrays:
 
 Dynamic state (requested resources, pod counts, port usage, GPU usage)
 is read off the oracle by `encode_dynamic` and becomes the fused
-scan's initial state (ops/fused_scan.py).
+scan's initial state (ops/fused_scan.py), or, through `to_scan_static`
+/ `to_scan_state`, the eager torch scan's (ops/scan.py).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..utils.memo import IdentityMemo, register_cache
 from .profiles import freeze as _freeze
 from .profiles import node_profiles_cached as _shared_node_profiles
 from .profiles import uses_match_fields as _uses_match_fields
-from .terms import TermTables, build_term_tables
+from .terms import TermTables, build_term_tables, combined_pref_carry, combined_pref_init
 from ..scheduler.oracle import (
     Oracle,
     _pod_host_ports,
@@ -831,7 +832,9 @@ def features_of(static, pinned_node, weights=None,
     the per-class arrays named below (numpy arrays or CPU tensors) —
     the same result as features_of_batch on the encodings it was built
     from."""
-    a = np.asarray
+    def a(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
     return ScanFeatures(
         sample=sample,
         weights=weights,
@@ -882,6 +885,162 @@ def features_of_batch(cluster: ClusterStatic, batch: PodBatch, weights=None,
                 (int(w) for w in batch.custom_weight),
             )
         ),
+    )
+
+
+def _scan_tensor(x, device):
+    """A host array as a scan tensor: integers int64, flags bool."""
+    import torch
+
+    x = np.asarray(x)
+    if x.dtype != np.bool_ and x.dtype.kind in "iu":
+        x = x.astype(np.int64)
+    return torch.as_tensor(x, device=device)
+
+
+def to_scan_static(cluster: ClusterStatic, batch: PodBatch, device="cpu"):
+    """Assemble the torch scan's ScanStatic (ops/scan.py) on `device`
+    from the host encodings: the one place its input layout is defined.
+    Integers become int64 tensors, flags bool."""
+    from . import scan as scan_ops
+
+    def t(x):
+        return _scan_tensor(x, device)
+
+    n, g = cluster.n, max(cluster.g, 1)
+    dev_valid = np.arange(g)[None, :] < np.asarray(cluster.gpu_count)[:, None]
+    tt = batch.terms
+    return scan_ops.ScanStatic(
+        alloc_mcpu=t(cluster.alloc_mcpu),
+        alloc_mem=t(cluster.alloc_mem),
+        alloc_eph=t(cluster.alloc_eph),
+        alloc_pods=t(cluster.alloc_pods),
+        scalar_alloc=t(cluster.scalar_alloc),
+        gpu_per_dev=t(cluster.gpu_per_dev),
+        gpu_total=t(cluster.gpu_total),
+        gpu_count=t(cluster.gpu_count),
+        dev_valid=t(dev_valid.reshape(n, g)),
+        vg_cap=t(cluster.vg_cap),
+        vg_valid=t(cluster.vg_valid),
+        has_storage=t(cluster.has_storage),
+        ssd_cap=t(cluster.ssd_cap),
+        ssd_valid=t(cluster.ssd_valid),
+        hdd_cap=t(cluster.hdd_cap),
+        hdd_valid=t(cluster.hdd_valid),
+        static_feasible=t(batch.static_feasible),
+        simon_raw=t(batch.simon_raw),
+        nodeaff_raw=t(batch.nodeaff_raw),
+        taint_intol=t(batch.taint_intol),
+        avoid_score=t(batch.avoid_score),
+        image_score=t(batch.image_score),
+        req_mcpu=t(batch.req_mcpu),
+        req_mem=t(batch.req_mem),
+        req_eph=t(batch.req_eph),
+        req_scalar=t(batch.req_scalar),
+        has_request=t(batch.has_request),
+        nz_mcpu=t(batch.nz_mcpu),
+        nz_mem=t(batch.nz_mem),
+        gpu_mem=t(batch.gpu_mem),
+        gpu_cnt=t(batch.gpu_cnt),
+        want_ports=t(batch.want_ports),
+        conflict_ports=t(batch.conflict_ports),
+        lvm_sizes=t(batch.lvm_sizes),
+        ssd_sizes=t(batch.ssd_sizes),
+        hdd_sizes=t(batch.hdd_sizes),
+        wants_storage=t(batch.wants_storage),
+        topo_val=t(tt.topo_val),
+        term_match=t(tt.match),
+        carry_anti_req=t(tt.carry_anti_req),
+        carry_aff_pref_w=t(tt.carry_aff_pref_w),
+        carry_pref_comb=t(combined_pref_carry(tt)),
+        carry_anti_pref_w=t(tt.carry_anti_pref_w),
+        cls_rows=t(tt.cls_rows),
+        group_of_row=t(tt.group_of_row),
+        match_all=t(tt.match_all),
+        cls_group_rows=t(tt.cls_group_rows),
+        cls_group_id=t(tt.cls_group_id),
+        h_row=t(tt.h_row),
+        h_self=t(tt.h_self),
+        h_max_skew=t(tt.h_max_skew),
+        h_cand_nodes=t(tt.h_cand_nodes),
+        cls_h_rows=t(tt.cls_h_rows),
+        s_row=t(tt.s_row),
+        s_is_host=t(tt.s_is_host),
+        s_max_skew=t(tt.s_max_skew),
+        s_q=t(tt.s_q),
+        cls_s_rows=t(tt.cls_s_rows),
+        cls_s_haskeys=t(tt.cls_s_haskeys),
+        g_topo_val=t(tt.topo_val[tt.group_rows]),
+        s_topo_val=t(tt.topo_val[tt.s_row]),
+        s_val_onehot=t(_soft_value_onehot(tt)),
+        custom_raw=t(batch.custom_raw),
+        custom_mode=t(batch.custom_mode),
+        custom_weight=t(batch.custom_weight),
+    )
+
+
+def _soft_value_onehot(t) -> np.ndarray:
+    """[Cs, Vs, N] static value one-hot for the soft-spread distinct-
+    domain count (scan.py soft_score). Hostname rows stay all-zero —
+    their domain count is the eligible-node count (s_is_host branch) —
+    so Vs is bounded by the small non-hostname vocab, not N."""
+    s_tv = t.topo_val[t.s_row]  # [Cs, N]
+    if not (t.cls_s_rows >= 0).any():
+        # no real soft constraint: Cs=1 is pure padding whose s_row
+        # points at row 0; a hostname row 0 must not blow Vs up to N
+        return np.zeros((s_tv.shape[0], 1, s_tv.shape[1]), dtype=bool)
+    nonhost = ~t.s_is_host
+    vs = 1
+    if nonhost.any():
+        mx = int(s_tv[nonhost].max(initial=-1))
+        vs = max(mx + 1, 1)
+    out = np.zeros((s_tv.shape[0], vs, s_tv.shape[1]), dtype=bool)
+    for c_i in range(s_tv.shape[0]):
+        if not nonhost[c_i]:
+            continue
+        vals = s_tv[c_i]
+        mask = vals >= 0
+        out[c_i, vals[mask], np.nonzero(mask)[0]] = True
+    return out
+
+
+def _value_to_node_space(init_v: np.ndarray, topo: np.ndarray) -> np.ndarray:
+    """[R, V] value-space counts -> [R, N] node-space (count at each
+    node's own value; 0 where the key is missing)."""
+    g = np.take_along_axis(init_v, np.maximum(topo, 0).astype(np.int64), axis=1)
+    return np.where(topo >= 0, g, 0)
+
+
+def to_scan_state(dyn: DynamicState, batch: PodBatch, device="cpu"):
+    """The torch scan's initial ScanState on `device` (term counts in
+    node space); rng_hist is left None for the engine to fill."""
+    from . import scan as scan_ops
+
+    def t(x):
+        return _scan_tensor(x, device)
+
+    tt = batch.terms
+    tv = tt.topo_val
+    return scan_ops.ScanState(
+        used_mcpu=t(dyn.used_mcpu),
+        used_mem=t(dyn.used_mem),
+        used_eph=t(dyn.used_eph),
+        used_scalar=t(dyn.used_scalar),
+        nz_mcpu=t(dyn.nz_mcpu),
+        nz_mem=t(dyn.nz_mem),
+        pod_cnt=t(dyn.pod_cnt),
+        ports_used=t(dyn.ports_used),
+        gpu_used=t(dyn.gpu_used),
+        vg_used=t(dyn.vg_used),
+        ssd_used=t(dyn.ssd_used),
+        hdd_used=t(dyn.hdd_used),
+        tgt=t(_value_to_node_space(tt.init_tgt, tv)),
+        own_anti_req=t(_value_to_node_space(tt.init_own_anti_req, tv)),
+        own_aff_pref_w=t(_value_to_node_space(combined_pref_init(tt), tv)),
+        own_anti_pref_w=t(_value_to_node_space(tt.init_own_anti_pref_w, tv)),
+        group_counts=t(_value_to_node_space(tt.init_group_counts, tv[tt.group_rows])),
+        group_total=t(tt.init_group_counts.sum(axis=1)),
+        soft_counts=t(_value_to_node_space(tt.init_soft_counts, tv[tt.s_row])),
     )
 
 

@@ -53,16 +53,13 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass, fields
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils import nvcc
 
 MAX_SCORE = 100
 INACTIVE = -2
@@ -85,8 +82,7 @@ LAUNCHES = {name: 0 for name in (
     KERNEL_NAME, EXT_KERNEL_NAME, STORE_KERNEL_NAME, TERMS_KERNEL_NAME,
     STORE_TERMS_KERNEL_NAME, BATCH_KERNEL_NAME)}
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCE = nvcc.CSRC / "fused_scan.cu"
 _LIB = None
 
 
@@ -106,19 +102,36 @@ class NoCardError(RuntimeError):
     """An entry point was asked for the card and there is none."""
 
 
-# (ScanFeatures flag, what it is, ROADMAP.md item that ports it)
-_OUT_OF_SLICE = (
-    ("custom", "out-of-tree custom score plugins", "A2"),
-    ("sample", 'select_host="sample"', "A2"),
+class NotInKernelError(ValueError):
+    """A batch the fused kernel does not carry was given to build_plan.
+    The engine routes such a batch to the eager torch scan (ops/scan.py)
+    by its features, before it builds a plan."""
+
+
+# (ScanFeatures flag, what it is): batches the kernel does not carry;
+# the torch scan carries them, as the JAX package's XLA scan carries
+# what its Pallas plan rejects
+_NOT_IN_KERNEL = (
+    ("custom", "custom score plugins"),
+    ("sample", 'select_host="sample"'),
 )
 
 
-def check_in_slice(features) -> None:
-    """Raise OutOfSliceError when the batch needs a block the kernel
-    does not have yet."""
-    for flag, what, item in _OUT_OF_SLICE:
-        if getattr(features, flag, False):
-            raise OutOfSliceError(what, item)
+def torch_scan_reason(features) -> Optional[str]:
+    """Why the batch runs on the torch scan and not on the kernel, or
+    None when the kernel carries it."""
+    found = [what for flag, what in _NOT_IN_KERNEL if getattr(features, flag, False)]
+    return " and ".join(found) or None
+
+
+def check_in_kernel(features) -> None:
+    """Raise NotInKernelError for a batch the kernel does not carry."""
+    reason = torch_scan_reason(features)
+    if reason is not None:
+        raise NotInKernelError(
+            f"{reason}: not in the fused kernel; the torch scan "
+            "(ops/scan.py run_scan_masked) carries them"
+        )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -471,9 +484,9 @@ def _make_plan(arrays: dict, n: int, u: int, weights: tuple, has_pins: bool,
 
 def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
     """The kernel plan from the numpy ClusterStatic + PodBatch +
-    DynamicState (ops/encode.py). Raises OutOfSliceError for a batch
-    that needs a block the kernel does not have."""
-    check_in_slice(features)
+    DynamicState (ops/encode.py). Raises NotInKernelError for a batch
+    the kernel does not carry (custom score plugins, sample)."""
+    check_in_kernel(features)
     arrays = _base_arrays(cluster, batch, dyn, features)
     if features.terms:
         arrays.update(_terms_from_tables(batch.terms))
@@ -487,7 +500,7 @@ def plan_from_scan_arrays(static, state, features, device="cpu") -> FusedPlan:
     arrays or array-likes) and its ScanFeatures. The node-space term
     state (count at each node's own value) becomes value space, so the
     port and the XLA scan run on the very same arrays."""
-    check_in_slice(features)
+    check_in_kernel(features)
     a = np.asarray
     arrays = _base_arrays(static, static, state, features)
     if features.terms:
@@ -1104,38 +1117,6 @@ def fused_scan_reference(plan: FusedPlan, class_of_pod, active, valid, pinned=No
     return fused_scan_batch_reference(plan, class_of_pod, [(active, valid, pinned)])[0]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_library() -> Path:
-    """Compile csrc/fused_scan.cu for sm_90a into build/torch_kernels/,
-    keyed by a hash of the source, unless that library exists. Returns
-    its path. The compiler's register and spill report is kept beside
-    it (`.log`)."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _BUILD_DIR / f"fused_scan_{key}.so"
-    if lib.exists():
-        return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    log = res.stdout + res.stderr
-    lib.with_suffix(".log").write_text(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, lib)
-    return lib
-
-
 # length of the int64 argument vector of fused_scan_launch (the
 # kArg* enum of csrc/fused_scan.cu); checked against the library
 _N_ARGS = 98
@@ -1144,7 +1125,8 @@ _N_ARGS = 98
 def _library():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
+        # compiled for sm_90a into build/torch_kernels/ at first use
+        lib = ctypes.CDLL(str(nvcc.build_library(SOURCE)))
         lib.fused_scan_arg_count.argtypes = []
         lib.fused_scan_arg_count.restype = ctypes.c_int64
         if lib.fused_scan_arg_count() != _N_ARGS:
@@ -1423,15 +1405,15 @@ __all__ = [
     "KERNEL_NAME",
     "LAUNCHES",
     "NoCardError",
+    "NotInKernelError",
     "OutOfSliceError",
     "STORE_KERNEL_NAME",
     "STORE_TERMS_KERNEL_NAME",
     "TERMS_KERNEL_NAME",
     "TERM_ROWS",
-    "build_library",
     "block_dims",
     "build_plan",
-    "check_in_slice",
+    "check_in_kernel",
     "fused_scan_batch_reference",
     "fused_scan_reference",
     "kernel_label",
@@ -1444,5 +1426,6 @@ __all__ = [
     "run_fused_scan",
     "run_fused_scan_batch",
     "scratch_bytes",
+    "torch_scan_reason",
     "value_to_node",
 ]

@@ -18,8 +18,10 @@ then pods with tolerations first.
 The `engine` argument selects the scheduling backend:
 - "cuda" (the default): the fused sequential-commit scan
   (ops/fused_scan.py) on `device` — the card unless the caller names
-  another; `device="cpu"` runs the kernel's plain PyTorch version. It
-  must agree with the oracle placement-for-placement.
+  another; `device="cpu"` runs the kernel's plain PyTorch version. A
+  batch with custom score plugins or select_host="sample" runs on the
+  eager torch scan (ops/scan.py) on the same device. It must agree
+  with the oracle placement-for-placement.
 - "oracle": the serial Python reference implementation
 """
 
@@ -128,8 +130,10 @@ class Simulator:
         # (the priority-scan escape predicate reads the same flag)
         self.enable_preemption = enable_preemption
         # selectHost tie rule (oracle.py module docstring): "sample"
-        # runs on the serial oracle only; the fused scan raises
-        # OutOfSliceError for it
+        # rides the eager torch scan (ops/scan.py) — the Go math/rand
+        # stream is carried in the scan state and handed back to the
+        # oracle after each batch, so serial fallbacks (priority
+        # escapes) continue the exact sequence
         self.select_host = select_host
         self.rng = rng  # custom sample-mode rng (oracle.py contract)
         # HTTP extenders are host RPC per pod: they force the serial
@@ -301,6 +305,7 @@ class Simulator:
         # optimistically and drops to the serial oracle per escape, not
         # per batch (_schedule_pods_priority). Dense-priority workloads
         # that place cleanly cost one scan, same as zero-priority ones.
+        from .engine import SampleRngOverflow
         from .preemption import batch_priorities
         from ..utils.trace import GLOBAL
 
@@ -308,6 +313,14 @@ class Simulator:
         # would invalidate / miss every later placement the batched scan
         # committed (plugins.py: needs_serial)
         scan_ok = self.engine_kind == "cuda" and not self.oracle.registry.needs_serial
+        if scan_ok and self.oracle.select_host == "sample":
+            # the scan carries the Go ALFG stream via the rng's
+            # history()/set_history(); a CUSTOM rng satisfying only the
+            # documented `.intn(n)` contract (oracle.py) cannot ride it
+            # — and a non-Go generator would diverge from the scan's
+            # hard-coded recurrence — so those stay on the serial path
+            rng = self.oracle._rng
+            scan_ok = hasattr(rng, "history") and hasattr(rng, "set_history")
         if scan_ok and prios is None:
             if groups is not None:
                 # per-GROUP resolution broadcast to pods (ExpandIndex:
@@ -334,8 +347,21 @@ class Simulator:
             )
         if priority_free:
             GLOBAL.note("engine", "batch")
-            failed, _ = self._scan_and_commit(pods, groups=groups)
+            try:
+                failed, _ = self._scan_and_commit(pods, groups=groups)
+            except SampleRngOverflow:
+                # a sample-mode draw exceeded the in-scan rejection
+                # bound (p < 1e-17 per draw); nothing was committed, so
+                # the serial oracle reruns the batch with exact
+                # unbounded rejection semantics
+                GLOBAL.note("engine", "serial-oracle (sample rng overflow)")
+                failed, _ = self._schedule_pods_oracle(pods)
         elif scan_ok and len(pods) >= MIN_SCAN_RUN:
+            # (sample mode included: an escape DISCARDS the scanned
+            # tail, whose Go-RNG draws the scan already consumed — the
+            # scan exports per-pod consumption and _scan_and_commit
+            # REWINDS the stream to the escape point, so the serial
+            # escape and the re-dispatch continue the exact sequence)
             failed = self._schedule_pods_priority(pods, prios, groups=groups)
         else:
             GLOBAL.note("engine", "serial-oracle")
@@ -393,6 +419,7 @@ class Simulator:
         handshake)."""
         import numpy as np
 
+        from .engine import SampleRngOverflow
         from .preemption import tier_escape_mask
         from ..obs.explain import EXPLAIN
         from ..utils.trace import GLOBAL
@@ -427,11 +454,18 @@ class Simulator:
                 EXPLAIN.set_context(
                     engine="priority-scan", scan_round=rounds, tiers=n_tiers
                 )
-            f, escape_at = self._scan_and_commit(
-                pods, armed=armed, policy_gate=policy_gate,
-                prios=prios, start=start, reuse_batch=rounds > 1,
-                groups=groups,
-            )
+            try:
+                f, escape_at = self._scan_and_commit(
+                    pods, armed=armed, policy_gate=policy_gate,
+                    prios=prios, start=start, reuse_batch=rounds > 1,
+                    groups=groups,
+                )
+            except SampleRngOverflow:
+                # nothing from this round committed (the engine raises
+                # before replay); the remainder drops to the serial
+                # tail below, whose rejection loop is unbounded
+                GLOBAL.note("priority-scan-sample-overflow", p - start)
+                break
             failed.extend(f)
             if escape_at is None:
                 start = p
@@ -640,6 +674,12 @@ class Simulator:
                         continue
                     escape_at = i
                     break
+        if escape_at is not None and self.oracle.select_host == "sample":
+            # the scan consumed Go-RNG draws for the DISCARDED tail
+            # too: rewind the stream to just before the escaped pod so
+            # its serial cycle (and the re-dispatch after it) continue
+            # the exact serial sequence
+            eng.rewind_sample_rng(int(pos_of[escape_at]))
         failed: List[UnscheduledPod] = []
         stop = p if escape_at is None else escape_at
         with profiled("engine/replay"):
@@ -769,8 +809,8 @@ def simulate(
     is checked between apps and between serial pod commits; on expiry
     or SIGINT the raised ExecutionHalted names the boundary. With
     engine="cuda" the scan runs on `device` (None = the card; raises
-    when there is none); a batch outside the kernel's blocks (custom
-    score plugins, select_host="sample") raises OutOfSliceError."""
+    when there is none): the fused kernel, or the eager torch scan for
+    a batch with custom score plugins or select_host="sample"."""
     sim = Simulator(
         engine=engine,
         use_greed=use_greed,

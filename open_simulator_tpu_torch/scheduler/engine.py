@@ -15,10 +15,13 @@ the committed prefix masked off instead of re-encoding the shrinking
 remainder.
 
 On a CUDA device the scan is the hand-written kernel; on the CPU it is
-the kernel's plain PyTorch version. A batch outside the kernel's blocks
-(custom score plugins, select_host="sample") raises OutOfSliceError:
-there is no other scan to fall back to. Storage classes replay through
-the oracle's general bind, pod by pod (simple_commit_mask).
+the kernel's plain PyTorch version. A batch the kernel does not carry
+(custom score plugins, select_host="sample") is routed by its features,
+before anything runs, to the eager torch scan (ops/scan.py) on the same
+device, as the JAX engine routes it to its XLA scan; the trace notes
+`torch-scan (<reason>)`. That is routing by input, not a fallback: a
+kernel that fails raises. Storage classes replay through the oracle's
+general bind, pod by pod (simple_commit_mask).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..ops.encode import (
     ClusterStatic,
@@ -35,14 +39,23 @@ from ..ops.encode import (
     features_of_batch,
 )
 from ..ops.fused_scan import resolve_device
+from ..runtime.errors import GuardError
 from .oracle import Oracle
 
-__all__ = ["TorchEngine"]
+__all__ = ["SampleRngOverflow", "TorchEngine"]
 
 # per-class summary integers above this magnitude lose int64 headroom
 # in the bulk scatter-add; such classes (a >2^55-byte request is ~36 PB
 # — malformed input, not a workload) take the per-pod commit path
 _BULK_MAX_ABS = 1 << 55
+
+
+class SampleRngOverflow(GuardError, RuntimeError):
+    """A sample-mode Intn draw needed more rejection retries than the
+    torch scan's bound (ops/scan.py _RNG_KMAX; p < 1e-17 per draw).
+    Raised BEFORE any commit is replayed, so the caller
+    (core._schedule_pods) can rerun the batch on the serial oracle,
+    whose rejection loop is unbounded."""
 
 
 class TorchEngine:
@@ -66,6 +79,14 @@ class TorchEngine:
         self._batch_pods: Optional[List[dict]] = None
         self._features = None
         self._bulk_tbl = None
+        # the torch scan's static tensors, reused across masked rounds
+        # until a ClusterStatic rebuild (GPU alloc epoch)
+        self._scan_static = None
+        self._scan_static_cluster = None
+        # sample mode: (pre-round rng history, per-pod consumed-word
+        # cumsum) of the last scan; rewind_sample_rng uses it when a
+        # priority-scan escape discards the scanned tail
+        self._last_rng = None
 
     def cluster_static(self) -> ClusterStatic:
         # keyed on (node count, alloc epoch): a bind that mutates node
@@ -97,6 +118,7 @@ class TorchEngine:
             self._last_simple = simple_commit_mask(batch, bool(oracle.extenders))
             self._class_commit_info = ClassCommitCache()
             self._bulk_tbl = None
+            self._scan_static = None
             sample = getattr(oracle, "select_host", "first-max") == "sample"
             self._features = features_of_batch(
                 cluster, batch,
@@ -116,15 +138,19 @@ class TorchEngine:
         from ..utils.trace import GLOBAL, phase, profiled
 
         batch = self._batch
+        reason = fused_scan.torch_scan_reason(self._features)
         with phase("engine/encode"):
             cluster = self.cluster_static()
             node_valid = (
                 np.ones(cluster.n, bool) if valid is None else np.asarray(valid, bool)
             )
             dyn = encode_dynamic(self.oracle, cluster)
-            plan = fused_scan.build_plan(
-                cluster, batch, dyn, self._features, device=self.device
-            )
+            if reason is None:
+                plan = fused_scan.build_plan(
+                    cluster, batch, dyn, self._features, device=self.device
+                )
+        if reason is not None:
+            return self._torch_scan(cluster, dyn, active, node_valid, reason)
         GLOBAL.note("batch-kernel", fused_scan.kernel_label(plan))
         with profiled("engine/scan"):
             out, _final = fused_scan.run_fused_scan(
@@ -135,6 +161,67 @@ class TorchEngine:
                 pinned=batch.pinned_node,
             )
             return out.cpu().numpy()  # waits for the device
+
+    def _torch_scan(self, cluster, dyn, active, node_valid, reason) -> np.ndarray:
+        """scan_active for a batch the kernel does not carry: the eager
+        torch scan (ops/scan.py) on the engine's device. Under sample
+        the oracle's Go RNG history goes in and the advanced history is
+        written back, so the serial path continues the exact stream."""
+        from ..ops import scan as scan_ops
+        from ..ops.encode import to_scan_static, to_scan_state
+        from ..utils.trace import GLOBAL, phase, profiled
+
+        oracle = self.oracle
+        batch = self._batch
+        sample = bool(self._features.sample)
+        with phase("engine/encode"):
+            if self._scan_static is None or self._scan_static_cluster is not cluster:
+                self._scan_static = to_scan_static(cluster, batch, device=self.device)
+                self._scan_static_cluster = cluster
+            init = to_scan_state(dyn, batch, device=self.device)
+            if sample:
+                hist0 = oracle._rng.history()
+                init = init._replace(rng_hist=torch.as_tensor(
+                    np.array(hist0, dtype=np.uint64).view(np.int64), device=self.device))
+        GLOBAL.note("batch-kernel", f"torch-scan ({reason})")
+        GLOBAL.note("scan-device", self.device.type)
+        with profiled("engine/scan"):
+            placements, final = scan_ops.run_scan_masked(
+                self._scan_static, init, batch.class_of_pod, batch.pinned_node,
+                node_valid, np.asarray(active, bool), features=self._features,
+            )
+            if sample:
+                placements, consumed = placements
+            out = placements.cpu().numpy()  # waits for the device
+        if sample:
+            if bool(final.rng_overflow):
+                # oracle state is untouched (commits replay only after
+                # this returns); core catches this and reruns serially
+                raise SampleRngOverflow(
+                    "sample-mode RNG rejection overflow; rerunning the "
+                    "batch on the serial oracle"
+                )
+            self._last_rng = (hist0, np.cumsum(consumed.cpu().numpy()))
+            oracle._rng.set_history(
+                [int(x) for x in final.rng_hist.cpu().numpy().view(np.uint64)]
+            )
+        return out
+
+    def rewind_sample_rng(self, batch_pos: int) -> None:
+        """Reposition the oracle's sample-mode stream to where it stood
+        BEFORE the last scanned round's pod at `batch_pos` consumed its
+        draws. A priority-scan escape discards every scanned placement
+        from the escape point on and reschedules those pods, so their
+        draws must be un-consumed: the pre-round history advanced by the
+        consumed-word prefix is exactly that position
+        (gorand.advance_history). Masked-off pods consume zero words."""
+        if self._last_rng is None:
+            return
+        from ..utils.gorand import advance_history
+
+        hist0, consumed_cum = self._last_rng
+        k = int(consumed_cum[batch_pos - 1]) if batch_pos > 0 else 0
+        self.oracle._rng.set_history(advance_history(hist0, k))
 
     def commit_host(self, pod: dict, node_idx: int):
         """Replay one placement into oracle state (same binding code the

@@ -371,3 +371,107 @@ def test_cuda_batch_kernel_with_storage_and_terms_equals_batch_plain():
     assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
     for g, r in zip(got, ref):
         _same(g, r)
+
+
+# ---- B7: the streaming-bandwidth probe ------------------------------------
+
+# (rows, steps, kind): fewer rows than blocks, a ragged last slice per
+# block, sums that wrap int32, and all-INT32_MIN lanes (the floor)
+STREAM_CASES = {
+    "few-rows": (40, 7, "tool"),
+    "ragged-slices": (2100, 5, "full"),
+    "wraps": (4096, 9, "high"),
+    "floor": (300, 3, "floor"),
+    "scan-step-probe": (936, 2000, "tool"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+def test_cuda_stream_kernel_equals_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from open_simulator_tpu_torch.tools import stream_bench
+
+    rows, steps, kind = STREAM_CASES[name]
+    rng = np.random.RandomState(rows)
+    vals = {
+        "tool": lambda: rng.randint(0, 1 << 20, (rows, 128)),
+        "full": lambda: rng.randint(-(2**31), 2**31 - 1, (rows, 128), dtype=np.int64),
+        "high": lambda: rng.randint(1 << 29, 1 << 30, (rows, 128)),
+        "floor": lambda: np.full((rows, 128), -(2**31)),
+    }[kind]().astype(np.int32)
+    state = torch.as_tensor(vals, device="cuda")
+    before = stream_bench.LAUNCHES[stream_bench.KERNEL_NAME]
+    got = stream_bench.run_stream(state, steps)
+    torch.cuda.synchronize()
+    assert stream_bench.LAUNCHES[stream_bench.KERNEL_NAME] == before + 1
+    want = stream_bench.stream_reference(state.cpu(), steps)
+    assert torch.equal(got.cpu(), want)
+
+
+# ---- A2: the eager torch scan on the card ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [False, True])
+def test_cuda_torch_scan_equals_cpu(sample):
+    """The torch scan on CUDA tensors against the same scan on the CPU:
+    every block (GPU-share, storage, terms, ports, scalars, pins), a
+    custom plugin, scenario masks and, with sample, the Go-RNG stream:
+    placements, consumed words and every final row, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import build_fuzz_scenario
+    from open_simulator_tpu_torch.ops import scan as scan_ops
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+    from open_simulator_tpu_torch.utils.gorand import GoRand
+
+    class NameScore(SchedulerPlugin):
+        name = "cuda-name-score"
+        normalize = "minmax"
+
+        def score(self, pod, node):
+            return sum(map(ord, node["metadata"]["name"])) % 13
+
+    nodes, pods = build_fuzz_scenario(300, 600, seed=21)
+    gi = 1 << 30
+    for node in nodes[::5]:
+        cap = node["status"].setdefault("capacity", dict(node["status"]["allocatable"]))
+        cap["alibabacloud.com/gpu-count"] = "4"
+        cap["alibabacloud.com/gpu-mem"] = str(64 * gi)
+    for pod in pods[3::17]:
+        if not pod["spec"].get("nodeName"):
+            pod["metadata"] = dict(pod["metadata"], annotations={
+                **(pod["metadata"].get("annotations") or {}),
+                "alibabacloud.com/gpu-mem": str(8 * gi), "alibabacloud.com/gpu-count": "1"})
+    default_registry.register(NameScore())
+    try:
+        oracle = Oracle(copy.deepcopy(nodes))
+        cluster = enc.encode_cluster(oracle)
+        batch = enc.encode_batch(oracle, cluster, copy.deepcopy(pods))
+        dyn = enc.encode_dynamic(oracle, cluster)
+    finally:
+        default_registry.unregister("cuda-name-score")
+    features = enc.features_of_batch(cluster, batch, sample=sample)
+    assert features.custom and features.gpu and features.storage and features.ipa
+    rng = np.random.RandomState(22)
+    valid, active = rng.rand(cluster.n) < 0.9, rng.rand(batch.p) < 0.95
+    hist = np.array(GoRand(9).history(), dtype=np.uint64).view(np.int64)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        init = enc.to_scan_state(dyn, batch, device=dev)
+        if sample:
+            init = init._replace(rng_hist=torch.as_tensor(hist, device=dev))
+        out, final = scan_ops.run_scan_masked(
+            enc.to_scan_static(cluster, batch, device=dev), init, batch.class_of_pod,
+            batch.pinned_node, valid, active, features=features)
+        if sample:
+            out = torch.stack(out)
+        runs.append((out.cpu(), {k: v.cpu() for k, v in final._asdict().items()
+                                 if v is not None}))
+    (want, want_rows), (got, got_rows) = runs
+    assert torch.equal(got, want)
+    assert sorted(got_rows) == sorted(want_rows)
+    for key in want_rows:
+        assert torch.equal(got_rows[key], want_rows[key]), key
+    assert (want[0] if sample else want).ge(0).sum() > 300

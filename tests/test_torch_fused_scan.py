@@ -33,7 +33,6 @@ from open_simulator_tpu.testing import (
     with_tolerations,
 )
 from open_simulator_tpu_torch.ops import fused_scan
-from open_simulator_tpu_torch.ops.fused_scan import OutOfSliceError
 
 JAX_PKG = "open_simulator_tpu"
 PORT_PKG = "open_simulator_tpu_torch"
@@ -204,10 +203,11 @@ def test_plan_from_jax_arrays_equals_build_plan():
     "hard_spread", "soft_spread",
 ])
 def test_out_of_slice_features_raise(flag):
-    """A feature outside the kernel raises OutOfSliceError naming its
-    ROADMAP.md item. The B2 blocks (GPU-share, hostPorts, scalars), the
-    storage block and the term block are inside the kernel: they turn
-    their plan rows on instead."""
+    """A feature the kernel does not carry (custom score plugins,
+    sample) makes build_plan raise NotInKernelError naming the torch
+    scan that carries it. The B2 blocks (GPU-share, hostPorts,
+    scalars), the storage block and the term block are inside the
+    kernel: they turn their plan rows on instead."""
     cluster, batch, dyn, features = _encode(PORT_PKG, _nodes(3, 40), _pods(5, 41))
     features = features._replace(**{flag: True})
     block = {"gpu": "has_gpu", "ports": "has_ports", "scalars": "has_scal",
@@ -227,9 +227,9 @@ def test_out_of_slice_features_raise(flag):
         np.testing.assert_array_equal(fused_scan.run_fused_scan(plan, *args)[0].numpy(),
                                       fused_scan.run_fused_scan(base, *args)[0].numpy())
         return
-    with pytest.raises(OutOfSliceError) as err:
+    with pytest.raises(fused_scan.NotInKernelError, match="torch scan") as err:
         fused_scan.build_plan(cluster, batch, dyn, features)
-    assert "ROADMAP.md" in str(err.value) and err.value.item
+    assert fused_scan.torch_scan_reason(features) in str(err.value)
 
 
 def test_plan_rejects_pins_it_was_not_built_for():

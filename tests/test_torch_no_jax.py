@@ -21,7 +21,8 @@ bad = sorted(k for k in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 assert "yaml" not in sys.modules, "PyYAML imported at module load"
-for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.chart"):
+for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.chart",
+             "ops.scan", "tools.stream_bench", "utils.nvcc"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 

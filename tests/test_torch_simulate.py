@@ -160,11 +160,14 @@ def test_demo_cluster_web_deployment():
 
 
 def test_out_of_slice_batch_raises():
-    """A custom score plugin is outside the kernel (A2) and raises; an
-    inter-pod anti-affinity batch, outside it before B4, now runs and
-    places as the JAX package does."""
-    from open_simulator_tpu_torch.ops.fused_scan import OutOfSliceError
+    """A custom score plugin, outside the kernel, and an inter-pod
+    anti-affinity batch, outside it before B4, both run and place as
+    the JAX package does: the custom plugin on the eager torch scan
+    (it raised OutOfSliceError before the torch scan was ported)."""
+    from open_simulator_tpu.scheduler.plugins import SchedulerPlugin as JaxPlugin
+    from open_simulator_tpu.scheduler.plugins import default_registry as jax_registry
     from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
 
     nodes, pods = build_scenario(5, 10)
     pods[3]["spec"]["affinity"] = {"podAntiAffinity": {
@@ -175,30 +178,41 @@ def test_out_of_slice_batch_raises():
     }}
     _assert_same({"nodes": nodes}, [("a", {"pods": pods})])
 
-    class Prefer(SchedulerPlugin):
-        name = "prefer-even"
-        normalize = "default"
+    def prefer(base):
+        class Prefer(base):
+            name = "prefer-even"
+            normalize = "default"
 
-        def filter(self, pod, node):
-            return True
+            def filter(self, pod, node):
+                return True
 
-        def score(self, pod, node):
-            return int(node["metadata"]["name"][-1]) % 2
+            def score(self, pod, node):
+                return int(node["metadata"]["name"][-1]) % 2
 
-    default_registry.register(Prefer())
+        return Prefer()
+
+    default_registry.register(prefer(SchedulerPlugin))
+    jax_registry.register(prefer(JaxPlugin))
     try:
-        with pytest.raises(OutOfSliceError, match="custom score plugins.*A2"):
-            _run(PORT_PKG, {"nodes": nodes}, [("a", {"pods": pods})])
+        GLOBAL.reset()
+        placed, _failed = _assert_same({"nodes": nodes}, [("a", {"pods": pods})])
+        assert GLOBAL.notes["batch-kernel"] == "torch-scan (custom score plugins)"
+        assert any(p for _n, p in placed)
     finally:
         default_registry.unregister("prefer-even")
+        jax_registry.unregister("prefer-even")
 
 
 def test_sample_select_host_raises():
-    from open_simulator_tpu_torch.ops.fused_scan import OutOfSliceError
+    """select_host="sample" runs on the eager torch scan and places as
+    the JAX package's XLA scan does (it raised OutOfSliceError before
+    the torch scan was ported)."""
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
 
     nodes, pods = build_scenario(5, 10)
-    with pytest.raises(OutOfSliceError, match="sample"):
-        _run(PORT_PKG, {"nodes": nodes}, [("a", {"pods": pods})], select_host="sample")
+    GLOBAL.reset()
+    _assert_same({"nodes": nodes}, [("a", {"pods": pods})], select_host="sample")
+    assert GLOBAL.notes["batch-kernel"] == 'torch-scan (select_host="sample")'
 
 
 def test_trace_names_the_plain_version_on_cpu():
