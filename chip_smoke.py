@@ -7,16 +7,20 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
 
 1. build the CUDA kernels from the checkout's two sources (one nvcc for
    each, sm_90a, started together) and print each instantiation's
-   registers and spills;
+   registers and spills; each base and B2 instantiation's static shared
+   memory must be at most what the wrapper counts beside a resident
+   slice;
 2. B1 on the default scenario (10,000 nodes x 20,000 pods in 5 classes,
    seed 0 — every 11th node tainted, one class with a nodeSelector, one
    with tolerations): the kernel and its plain PyTorch version on the
    same plan on the card, identical placements and final int64 state;
-   time both;
+   time both; then the kernel on clusters of 1, 8 and 16 blocks (the
+   private launcher) beside the rule's choice, each == plain, in us a
+   pod step;
 3. the base main path, `simulate(cluster, apps, engine="cuda")`, on that
    scenario with the launch counters at 0: the kernel ran, the trace
-   names it, and all 20,000 pods were placed where phase 2's plain
-   version placed them;
+   names it and its cluster size, and all 20,000 pods were placed where
+   phase 2's plain version placed them;
 4. B2: (a) GPU-share at 1,000 nodes of 8 x 32 Gi devices and 10,000
    pods (4/8/16/32 Gi single-GPU and 16 Gi two-GPU asks), kernel ==
    plain including the per-device GPU rows, then `simulate(engine=
@@ -38,7 +42,7 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
    scenarios, a batch launch of those scenarios must too, and every
    probe pair must equal single-kernel launches; B6's entry in the
    `kernels` line (time by CUDA events, plain time, bound) is that
-   batch launch;
+   batch launch, which then runs again on one block a scenario;
 7. B3 (`fused_scan_store`) on bench.py's storage scenario (10,000 nodes
    with 2 VGs, an SSD and an HDD; 20,000 pods with 1-3 LVM volumes or
    an exclusive device): kernel == plain, placements and every row
@@ -80,7 +84,7 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     node status, unscheduled reasons, the RNG's 607-word history) and
     the JAX package's digest (tools/jax_sample_answer.py).
 
-Cuts that keep the script near 8 minutes (the kernels always run every
+Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
 do not depend on the later pods): phase 4b 5,000 pods; phase 5's plain
 check the first 5,000 pods; phase 6's the first 30,000 of each of the
@@ -89,8 +93,11 @@ phase 13's pods 2,000 of the default scenario's 20,000 (the torch scan
 is an eager loop of some hundred launches a pod step).
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
-`kernels` line, and `{"ok": true, "device": {...}}`. It imports nothing of
-JAX and nothing of the JAX package.
+`kernels` line (B1's and B6's entries carry `cluster`, the cluster size
+their main path ran, and `prev_ms`, the same work on one block a
+scenario, the previous design's shape, timed in this run), and
+`{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -111,7 +118,7 @@ GPU_PODS = 10_000
 MIXED_PODS = 5_000  # phase 4b, cut from 20,000 for the plain loop
 # the plain version's pods in phases 5 and 6: the first this many of
 # each scan (the kernel runs every pod; a scan's first pods do not
-# depend on the later ones), to keep the script near 8 minutes
+# depend on the later ones), to keep the script near 5 minutes
 PHASE5_PLAIN_PODS = 5_000
 CAP_PLAIN_PODS = 30_000
 CAP_NODES = 10_000
@@ -166,6 +173,8 @@ A2_PODS = 2_000
 A2_SEED = 7
 A2_APP = "a2"
 JAX_SAMPLE_ANSWER = "4812b742297bc9d0f0a42fb91eddcc08d8f41de149ce0bacd2d1cd2403f14a9f"
+# phase 2: the cluster sizes B1 runs at beside the rule's choice
+PHASE2_CLUSTERS = (1, 8, 16)
 # bytes/s of HBM and the non-tensor f32 rate of one H100 SXM (NVIDIA
 # data sheet); the scan's int64/f64 work has no faster path than that
 HBM_BYTES_PER_S = 3.35e12
@@ -718,6 +727,8 @@ def max_abs_err(got, want) -> int:
 def kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=3) -> dict:
     """One kernel against its plain version on the same plan on the
     card: identical placements and rows, or the run fails."""
+    import numpy as np
+
     from open_simulator_tpu_torch.ops import fused_scan
 
     args = (plan, batch.class_of_pod, active, valid)
@@ -729,14 +740,45 @@ def kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=3) -> dict:
     if err != 0:
         raise AssertionError(f"{label}: kernel != plain, max abs err {err}")
     b_ms, b_by = bound(plan, batch.class_of_pod, [(active, valid, batch.pinned_node)])
+    name = fused_scan.kernel_name(plan)
     res = {"ms": statistics.median(k_times), "times": k_times, "plain_ms": r_times[0],
            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-           "placements": want[0].cpu().numpy(), "rows": sorted(want[1])}
+           "placements": want[0].cpu().numpy(), "rows": sorted(want[1]), "want": want,
+           "cluster": fused_scan.CLUSTERS[name]}
+    steps = int((np.asarray(active, bool) & (np.asarray(batch.pinned_node) < 0)).sum())
     print(f"{label}: kernel == plain (placements and rows {res['rows']}); kernel "
-          f"{res['ms']:.3f} ms (median of {runs}: {[round(t, 3) for t in k_times]}), "
+          f"{res['ms']:.3f} ms (median of {runs}: {[round(t, 3) for t in k_times]}; cluster "
+          f"{res['cluster']}: {res['ms'] * 1e3 / max(steps, 1):.3f} us a scanned pod step), "
           f"plain {res['plain_ms']:.1f} ms, bound {b_ms:.4f} ms by {b_by} [{gpu}]",
           flush=True)
     return res
+
+
+def cluster_sweep(gpu, plan, batch, active, valid, want) -> dict:
+    """B1 at each of PHASE2_CLUSTERS through the private launcher: each
+    run == the plain version's `want`; ms by CUDA events and us a pod
+    step of each, keyed by the cluster size."""
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    scen = [(active, valid, batch.pinned_node)]
+    steps = int(active.sum())
+    out = {}
+    for c in PHASE2_CLUSTERS:
+        def run():
+            return fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, False, c)[0]
+        run()  # warm: the attribute calls of a new size
+        got, ms = cuda_ms(run)
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"phase 2: cluster {c}: kernel != plain ({err})")
+        shape = fused_scan.launch_shape(plan, c)
+        out[c] = ms
+        rows = ("shared memory, cached" if shape.cached else
+                "shared memory" if shape.resident else "global")
+        print(f"phase 2: cluster {c} (slice {-(-plan.n // c)} nodes, {rows} rows, "
+              f"{shape.smem} bytes): {ms:.3f} ms = {ms * 1e3 / steps:.3f} us a pod step, "
+              f"== plain [{gpu}]", flush=True)
+    return out
 
 
 def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
@@ -773,7 +815,7 @@ def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
     expect = {nm: node_names[i] for nm, i in zip(names, plain_place) if i >= 0}
     if launches[kernel] < 1:
         raise AssertionError(f"{label}: simulate() did not launch {kernel}: {launches}")
-    if note != f"cuda-{kernel}":
+    if note != f"cuda-{kernel} (cluster {fused_scan.CLUSTERS[kernel]})":
         raise AssertionError(f"{label}: batch-kernel note {note!r}")
     if placed != expect:
         raise AssertionError(f"{label}: simulate() placements differ from the checked scan's")
@@ -791,8 +833,13 @@ def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
 def print_build(lib):
     """Registers and spills of each instantiation from nvcc's report:
     flags (batch, scalars, gpu, ports, storage, terms) of
-    fused_scan_kernel<...>."""
+    fused_scan_kernel<...>; then each base and B2 instantiation's static
+    shared memory as the card reports it, which must be at most the
+    wrapper's STATIC_SMEM."""
+    import ctypes
     import re
+
+    from open_simulator_tpu_torch.ops import fused_scan
 
     flags = None
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -801,6 +848,17 @@ def print_build(lib):
             flags = "".join(m.groups())
         elif flags and ("registers" in line or "spill" in line):
             print(f"  ptxas <batch,scal,gpu,ports,store,terms>={flags}: {line.strip()}")
+    sizes = []
+    for flags in range(16):
+        out = ctypes.c_int64(-1)
+        err = fused_scan._library().fused_scan_static_smem(flags, ctypes.byref(out))
+        if err or not 0 < out.value <= fused_scan.STATIC_SMEM:
+            raise AssertionError(f"phase 1: instantiation {flags}: static shared memory "
+                                 f"{out.value} (cudaError {err}), the wrapper counts "
+                                 f"{fused_scan.STATIC_SMEM}")
+        sizes.append(out.value)
+    print(f"phase 1: static shared memory of the 16 base and B2 instantiations "
+          f"{min(sizes)}-{max(sizes)} bytes <= the wrapper's {fused_scan.STATIC_SMEM}")
 
 
 def run_cli(argv, cwd=None):
@@ -963,7 +1021,12 @@ def phase6(gpu) -> dict:
     cut = prefix(scenarios, CAP_PLAIN_PODS)
     want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, cut), 1)
     got, batch_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, cut))
+    batch_cluster = fused_scan.CLUSTERS[fused_scan.BATCH_KERNEL_NAME]
     errs = {"single": 0, "batch": max(max_abs_err(g, w) for g, w in zip(got, want))}
+    # the same launch on one block a scenario (the previous design's shape)
+    fused_scan._run_with_cluster(plan, cls, prefix(cut[:1], 10), True, 1)  # warm
+    one, one_ms = cuda_ms(lambda: fused_scan._run_with_cluster(plan, cls, cut, True, 1))
+    errs["batch"] = max(errs["batch"], max(max_abs_err(g, w) for g, w in zip(one, want)))
     for (kind, o), w in zip(outs, want):
         head = np.asarray(o[0].cpu())[:CAP_PLAIN_PODS] != np.asarray(w[0].cpu())[:CAP_PLAIN_PODS]
         errs[kind] = max(errs[kind], int(head.sum()))
@@ -989,13 +1052,16 @@ def phase6(gpu) -> dict:
     print(f"phase 6: one batch launch of every scan of the plan (counts "
           f"{counts(scenarios)}) {full_ms:.1f} ms == the plan's own scans; their first "
           f"{CAP_PLAIN_PODS} pods (placements of the plan's scans, and one batch launch "
-          f"{batch_ms:.1f} ms, placements and every row) == plain version "
+          f"{batch_ms:.1f} ms, on one block a scenario {one_ms:.1f} ms, placements and every "
+          f"row) == plain version "
           f"({r_times[0]:.1f} ms for all in one call), bound {b_ms:.4f} ms by {b_by}; every "
           f"probe pair == single launches; +{count - 1} fails (lower bound {lower}); one "
           f"probe {statistics.median(single_ms):.1f} ms, one pair launch {pair_ms:.1f} ms "
-          f"(CUDA events, {CAP_PODS} pods x {sweep.n} nodes) [{gpu}]", flush=True)
+          f"(CUDA events, {CAP_PODS} pods x {sweep.n} nodes; clusters of {batch_cluster}) "
+          f"[{gpu}]", flush=True)
     batch_res = {"ms": batch_ms, "plain_ms": r_times[0], "max_abs_err": errs["batch"],
-                 "bound_ms": b_ms, "bound_by": b_by}
+                 "bound_ms": b_ms, "bound_by": b_by, "cluster": batch_cluster,
+                 "prev_ms": one_ms}
     return {"launches": launches, "batch": batch_res, "single_err": errs["single"]}
 
 
@@ -1350,10 +1416,14 @@ def main() -> int:
         raise AssertionError("phase 2: the default scenario must be the base plan")
     p, n = len(names), plan.n
     base = kernel_vs_plain("phase 2", gpu, plan, batch, np.ones(p, bool), np.ones(n, bool))
+    sweep = cluster_sweep(gpu, plan, batch, np.ones(p, bool), np.ones(n, bool),
+                          base.pop("want"))
+    base["prev_ms"] = sweep[1]
 
     # ---- phase 3: the base main path
     base_launches = simulate_path("phase 3", gpu, nodes, pods, names, base["placements"],
                                   fused_scan.KERNEL_NAME)
+    base["cluster"] = fused_scan.CLUSTERS[fused_scan.KERNEL_NAME]
 
     # ---- phase 4: B2
     g_nodes, g_pods = build_gpushare_scenario()
@@ -1397,7 +1467,8 @@ def main() -> int:
         raise AssertionError(f"phase 5: batch kernel != plain ({batch_err}) or != single "
                              f"launches ({single_err})")
     b_bound = bound(plan, cls, scenarios)
-    print(f"phase 5: {len(scenarios)} scenarios in one batch launch == single launches, "
+    print(f"phase 5: clusters of {fused_scan.CLUSTERS[fused_scan.BATCH_KERNEL_NAME]} blocks; "
+          f"{len(scenarios)} scenarios in one batch launch == single launches, "
           f"and over their first {PHASE5_PLAIN_PODS} pods == batch plain; batch kernel "
           f"{statistics.median(b_times):.3f} ms (median of 3: "
           f"{[round(t, 3) for t in b_times]}), {len(scenarios)} single launches "
@@ -1460,12 +1531,13 @@ def main() -> int:
 
     print(gpu)  # nvidia-smi's own line: name, power limit
     print(json.dumps({"kernels": [
-        entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
-              base_launches, base),
+        dict(entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
+                   base_launches, base), cluster=base["cluster"], prev_ms=base["prev_ms"]),
         entry(fused_scan.EXT_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1961",
               ext_launches, ext),
-        entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
-              cap["launches"][fused_scan.BATCH_KERNEL_NAME], cap["batch"]),
+        dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
+                   cap["launches"][fused_scan.BATCH_KERNEL_NAME], cap["batch"]),
+             cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"]),
         entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
               store["launches"], store),
         entry(fused_scan.TERMS_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2106",

@@ -51,46 +51,92 @@
 // kinds, devices, port words, VGs, volumes, term rows, classes or spread
 // constraints.
 //
-// kBatch runs one independent scenario per block (blockIdx.x): each
-// block reads the shared plan and its own active/pinned/valid rows and
+// kBatch runs one independent scenario per thread-block cluster: each
+// cluster reads the shared plan and its own active/pinned/valid rows and
 // keeps its own state rows, term counts and scratch, so S capacity
-// probes run in one launch at about the wall time of one (one scan
-// occupies one SM).
+// probes run in one launch at about the wall time of one.
 //
 // What bounds it on an H100: the scan is a serial chain of P pod steps.
 // Every step depends on the previous step's commit, so the steps cannot
-// overlap, and each step is block-wide reductions (__syncthreads
-// barriers) around passes over the node axis. Per step the block reads
-// the six int64 state rows, four allocatable rows, the feasible byte
-// row, the node mask and four int64 class rows: about 110 bytes per
-// node, 1.1 MB at 10,000 nodes, which one SM pulls from L2 (it does not
-// fit in that SM's L1). The arithmetic, about 50 integer and f64
-// operations per node, is small beside that. The storage block adds its
-// VG and device rows and about 10 operations per VG a volume and 8 per
-// device a node; the term block adds the class's term rows (a topology
-// value and four counts each) and one barrier per hard-spread slot, per
-// non-hostname soft slot, for the soft min-max and after the commit.
+// overlap, and each step is reductions over the whole node axis (the
+// normalisation bounds, then the first maximum) around passes over it.
+// Per step a scan reads the six int64 state rows, four allocatable rows,
+// the feasible byte row, the node mask and four int64 class rows: about
+// 110 bytes per node, 1.1 MB at 10,000 nodes. The arithmetic, about 50
+// integer and f64 operations per node, is small beside that. On one SM
+// (one block, the design of the storage and term instantiations) a step
+// pulls those bytes from L2 at one SM's rate: 34-38 us at 10,000 nodes.
+// The storage block adds its VG and device rows and about 10 operations
+// per VG a volume and 8 per device a node; the term block adds the
+// class's term rows (a topology value and four counts each) and one
+// barrier per hard-spread slot, per non-hostname soft slot, for the soft
+// min-max and after the commit.
 //
-// What the design does about it: one block of 1024 threads runs the
-// whole pod loop inside the kernel, so a step costs no launch and no
-// host round trip. Thread t owns nodes t, t+1024, ...: it is the only
-// thread that reads or writes those nodes' state, so the per-node
-// commit needs no barrier and the state stays in device memory
-// (L2-resident). Pass 1 computes feasibility, the feasibility-independent
-// scores and the min/max the normalisations need; pass 2 adds the
-// normalised scores and reduces (score, -index) to the first maximum.
-// Each reduction is warp shuffles, one shared-memory exchange and one
-// barrier; consecutive reductions use separate shared buffers so that
-// no extra barrier is needed between them. Pinned and inactive pods
-// skip both passes.
+// What the design does about it. The base and B2 instantiations (kStore =
+// kTerms = false) run one scenario on one cluster of C blocks (C in 1, 2, 4,
+// 8, 16, chosen by the wrapper; 16 is Hopper's non-portable maximum): block
+// r of the cluster owns the contiguous node slice [r*m, min((r+1)*m, N)), m
+// = ceil(N / C), and at kernel start copies its slice's allocatable rows,
+// state rows, node mask and B2 rows into dynamic shared memory, where they
+// stay for the whole pod loop (the wrapper chooses that layout when the
+// slice fits in 227 KB; else the same code reads and writes those rows in
+// place in global memory, through the same pointers). So a step reads only
+// the class's rows (feasible byte and four int64 rows, 1/C of them per SM)
+// from L2 and every other row from shared memory. Inside the slice thread t
+// owns every blockDim-th node, so each thread visits its nodes in increasing
+// order and the per-node commit needs no barrier: the owner thread of the
+// placed node commits, and the next step's pass 1 reads that node from the
+// same thread. Pass 1 computes feasibility, the feasibility-independent
+// scores and the min/max the normalisations need; pass 2 adds the normalised
+// scores and reduces (score, -index) to the first maximum. Where the slice's
+// shared memory has room, it also caches per (class, node) pass 1's part
+// (base + LeastAllocated + BalancedAllocation: a function of the node's
+// state, which only a commit changes) and pass 2's normalised terms (a
+// function of constant class rows and the class's bounds), so that a step
+// recomputes the divisions only for nodes placed on since the class's last
+// step, and for every node only when the class's bounds moved. Each
+// reduction is warp shuffles, one shared-memory exchange and one
+// __syncthreads; then thread q < C of each block r stores the block's values
+// into row r of block q's exchange (a remote store through distributed
+// shared memory), one cluster barrier (barrier.cluster, in hardware, release
+// / acquire) makes every row visible, and every warp of every block folds
+// the C rows of its own copy, lane r taking row r. So a fold costs C remote
+// stores a block, not a remote read from every warp. Every cross-block fold
+// is an int64 max, min, the `any` flag or the (score, -index) argmax, so its
+// result does not depend on the order it is folded in, and every block
+// derives the same placement. Two cluster barriers a step are enough without
+// parity buffers: a block reads its pass-1 rows of step p before it arrives
+// at the pass-2 barrier of step p, and its pass-2 rows before it arrives at
+// the pass-1 barrier of step p + 1, while the next stores into those rows
+// come after those barriers, so no row is written while its block may still
+// read it. Pinned and inactive pods skip both passes and both barriers in
+// every block alike. A final cluster barrier keeps every block resident
+// until the others' last stores into it have landed. With C = 1 the barriers
+// and the exchange drop out and the code is the one-block scan. The storage
+// and term instantiations (kStore / kTerms) keep the one-block design with
+// 1024 threads and state in global memory: their value-space counts are not
+// node-owned, so their commits would need cluster-wide writes.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;  // the most threads a block; kStore / kTerms run exactly this
 constexpr int kWarps = kThreads / 32;
+// threads a block of the base and B2 instantiations: their launch bound,
+// so that a thread may keep up to 128 registers (at 1024 threads it gets
+// 64 and spills), and the block size when the slice's rows stay in global
+// memory; a slice resident in shared memory runs on fewer (the fastest of
+// 128-512 at 10,000 nodes on 16 blocks on an H100; with rows in global
+// memory 512 were the fastest, their loads overlapping across more warps)
+constexpr int kClusterThreads = 512;
+constexpr int kResidentThreads = 384;
+constexpr int kMaxCluster = 16;  // Hopper's non-portable maximum
 constexpr int64_t kMaxScore = 100;
 constexpr int32_t kInactive = -2;
 constexpr int64_t kI64Max = 0x7fffffffffffffffLL;
@@ -113,6 +159,28 @@ __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
   int64_t q = a / b;
   if ((a % b != 0) && (a < 0)) --q;
   return q;
+}
+// The same, exact, without the card's int64 division (a software
+// sequence of some hundred cycles) where the quotient is small: a float
+// estimate of a / b is within 4e-7 of it relatively (two roundings of the
+// operands and __fdividef's two ulp), so below 2^20 it is off by less
+// than one, and one int64 correction of the remainder fixes its floor.
+// Operands past 2^61 (where q * b could overflow) and larger quotients
+// take floordiv.
+__device__ __forceinline__ int64_t floordiv_fast(int64_t a, int64_t b) {
+  constexpr int64_t kLim = 1LL << 61;
+  const float qf = floorf(__fdividef(__ll2float_rn(a), __ll2float_rn(b)));
+  if (a > -kLim && a < kLim && b < kLim && fabsf(qf) < 1048576.0f) {
+    int64_t q = static_cast<int64_t>(qf);
+    const int64_t r = a - q * b;
+    if (r < 0) {
+      --q;
+    } else if (r >= b) {
+      ++q;
+    }
+    return q;
+  }
+  return floordiv(a, b);
 }
 
 __device__ __forceinline__ int64_t warp_max(int64_t v) {
@@ -218,7 +286,7 @@ struct TermArgs {
 
 // The arguments of one launch, gathered on the host from the wrapper's
 // int64 vector. Plan arrays are shared by all scenarios; the
-// per-scenario arrays are [S, ...] with S = gridDim.x for the batch
+// per-scenario arrays are [S, ...] with S = gridDim.x / C for the batch
 // kernel and S = 1 otherwise. Pointers of a block that is off are null.
 struct ScanArgs {
   const int64_t* alloc;         // [4, N]
@@ -252,14 +320,14 @@ struct ScanArgs {
 };
 
 // open-gpu-share filter at one node (scan.py _gpu_allocate's `found`,
-// gated by the node's total GPU memory)
-__device__ __forceinline__ bool gpu_fits(const int64_t* used, int64_t n, int64_t i,
+// gated by the node's total GPU memory); `used` rows have stride ls
+__device__ __forceinline__ bool gpu_fits(const int64_t* used, int64_t ls, int64_t i,
                                          int64_t g_n, int64_t per_dev, int64_t cnt,
                                          int64_t total, int64_t gm, int64_t gc) {
   if (total < gm) return false;
   if (gc == 1) {
     for (int64_t g = 0; g < g_n && g < cnt; ++g) {
-      if (sub_w(per_dev, used[g * n + i]) >= gm) return true;
+      if (sub_w(per_dev, used[g * ls + i]) >= gm) return true;
     }
     return false;
   }
@@ -268,7 +336,7 @@ __device__ __forceinline__ bool gpu_fits(const int64_t* used, int64_t n, int64_t
   int64_t sum = 0;
   if (sum >= gc) return true;
   for (int64_t g = 0; g < g_n && g < cnt; ++g) {
-    const int64_t cap = floordiv(sub_w(per_dev, used[g * n + i]), gm1);
+    const int64_t cap = floordiv(sub_w(per_dev, used[g * ls + i]), gm1);
     if (cap > 0) sum = add_w(sum, cap);
     if (sum >= gc) return true;
   }
@@ -277,32 +345,32 @@ __device__ __forceinline__ bool gpu_fits(const int64_t* used, int64_t n, int64_t
 
 // charge the device choice at the placed node (scan.py commit:
 // gpu_used += take * gpu_mem on that node only)
-__device__ __forceinline__ void gpu_commit(int64_t* used, int64_t n, int64_t i,
+__device__ __forceinline__ void gpu_commit(int64_t* used, int64_t ls, int64_t i,
                                            int64_t g_n, int64_t per_dev, int64_t cnt,
                                            int64_t gm, int64_t gc) {
   if (gc == 1) {
     // tightest fit: strict < keeps the first device on ties
     int64_t best = -1, key = kI64Max;
     for (int64_t g = 0; g < g_n && g < cnt; ++g) {
-      const int64_t avail = sub_w(per_dev, used[g * n + i]);
+      const int64_t avail = sub_w(per_dev, used[g * ls + i]);
       if (avail >= gm && avail < key) {
         key = avail;
         best = g;
       }
     }
-    if (best >= 0) used[best * n + i] = add_w(used[best * n + i], gm);
+    if (best >= 0) used[best * ls + i] = add_w(used[best * ls + i], gm);
     return;
   }
   // two-pointer greedy: take clip(gc - prefix, 0, cap) on each device
   const int64_t gm1 = gm > 1 ? gm : 1;
   int64_t prefix = 0;
   for (int64_t g = 0; g < g_n && g < cnt; ++g) {
-    int64_t cap = floordiv(sub_w(per_dev, used[g * n + i]), gm1);
+    int64_t cap = floordiv(sub_w(per_dev, used[g * ls + i]), gm1);
     cap = cap > 0 ? cap : 0;
     int64_t take = sub_w(gc, prefix);
     take = take > 0 ? take : 0;
     take = take < cap ? take : cap;
-    used[g * n + i] = add_w(used[g * n + i], mul_w(take, gm));
+    used[g * ls + i] = add_w(used[g * ls + i], mul_w(take, gm));
     prefix = add_w(prefix, cap);
   }
 }
@@ -482,7 +550,8 @@ __device__ bool terms_eval(const TermArgs& tm, const int64_t* t_state, const int
 }
 
 template <bool kBatch, bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
-__global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
+__global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThreads, 1)
+    fused_scan_kernel(
     const int64_t* __restrict__ alloc, const int64_t* __restrict__ init,
     const uint8_t* __restrict__ feasible, const int64_t* __restrict__ cls_tab,
     const int64_t* __restrict__ cls_req, const int32_t* __restrict__ class_of_pod,
@@ -495,7 +564,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
     const int64_t* __restrict__ gpu_init, const int64_t* __restrict__ gpu_cls,
     int64_t* __restrict__ gpu_used, const int32_t* __restrict__ port_init,
     const int32_t* __restrict__ port_cls, int32_t* __restrict__ port_used, int64_t k_n,
-    int64_t g_n, int64_t w_n, StoreArgs st, TermArgs tm, int64_t* __restrict__ aux) {
+    int64_t g_n, int64_t w_n, StoreArgs st, TermArgs tm, int64_t* __restrict__ aux,
+    int64_t resident) {
   constexpr bool kBig = kStore || kTerms;
   // pass-1 exchange: simon hi, simon lo, nodeaff max, taint max, any;
   // with kStore / kTerms also storage hi, storage lo, ipa max, ipa min
@@ -506,13 +576,28 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
   // the other reductions of kStore / kTerms, two values each; they
   // alternate between the two buffers (a 1-entry stub elsewhere)
   __shared__ int64_t xbuf[kBig ? 2 : 1][kBig ? 2 : 1][kBig ? kWarps : 1];
+  // the cluster's exchange: block r's pass-1 values (five) and pass-2
+  // (score, index) land in row r of every block's copy
+  __shared__ int64_t xch1[kBig ? 1 : kMaxCluster][5];
+  __shared__ int64_t xch2[kBig ? 1 : kMaxCluster][2];
+  // the slice's per-node rows when `resident`
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int nthr = kBig ? kThreads : (int)blockDim.x;
+  const int nwarps = nthr >> 5;
+  // this block's place in its cluster (one block, rank 0, for kBig)
+  int64_t csize = 1, crank = 0;
+  if constexpr (!kBig) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    csize = cluster.num_blocks();
+    crank = cluster.block_rank();
+  }
   if (kBatch) {
-    // this block's scenario: its masks, pins, state rows and scratch
-    const int64_t sc = blockIdx.x;
+    // this cluster's scenario: its masks, pins, state rows and scratch
+    const int64_t sc = blockIdx.x / csize;
     active += sc * p_n;
     pinned += sc * p_n;
     valid += sc * n;
@@ -539,29 +624,117 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
     }
   }
 
-  const int64_t* alloc_c = alloc + kAllocCpu * n;
-  const int64_t* alloc_m = alloc + kAllocMem * n;
-  const int64_t* alloc_e = alloc + kAllocEph * n;
-  const int64_t* alloc_p = alloc + kAllocPods * n;
-  int64_t* used_c = state + kUsedCpu * n;
-  int64_t* used_m = state + kUsedMem * n;
-  int64_t* used_e = state + kUsedEph * n;
-  int64_t* nz_c = state + kNzCpu * n;
-  int64_t* nz_m = state + kNzMem * n;
-  int64_t* pods = state + kPodCnt * n;
+  // The block's node slice [lo, lo + cnt) and the rows it works on,
+  // indexed by the local node index i (node lo + i). Resident: rows of
+  // stride m in shared memory; else the global rows (stride n) offset by
+  // lo. kBig: the whole node axis in global memory, as one block.
+  const int64_t m = kBig ? n : (n + csize - 1) / csize;
+  const int64_t lo = kBig ? 0 : (crank * m < n ? crank * m : n);
+  const int64_t cnt = kBig ? n : ((lo + m < n ? lo + m : n) - lo);
+  const bool in_smem = !kBig && (resident & 1) != 0;
+  const bool cached = in_smem && (resident & 2) != 0;
+  const int64_t ls = in_smem ? m : n;  // row stride
+  // the per-(class, node) caches when `cached`: pass 1's part (base +
+  // LeastAllocated + BalancedAllocation) and pass 2's normalised terms
+  // [U, m]; each node's last commit step [m]; per class the step of its
+  // last pass 1 and the bounds its cached pass-2 terms were taken with
+  // (lo, hi, nodeaff max, taint max, set) [U, 6]
+  int64_t* c_part = nullptr;
+  int64_t* c_norm = nullptr;
+  int64_t* c_node = nullptr;
+  int64_t* c_cls = nullptr;
+  const int64_t* __restrict__ l_alloc = alloc + lo;
+  int64_t* __restrict__ l_state = state + lo;
+  int64_t* __restrict__ l_part = partial + lo;
+  const uint8_t* __restrict__ l_valid = valid + lo;
+  const int64_t* __restrict__ l_scal_alloc = kScal ? scal_alloc + lo : nullptr;
+  int64_t* __restrict__ l_scal = kScal ? scal_used + lo : nullptr;
+  const int64_t* __restrict__ l_gpu_node = kGpu ? gpu_node + lo : nullptr;
+  int64_t* __restrict__ l_gpu = kGpu ? gpu_used + lo : nullptr;
+  int32_t* __restrict__ l_ports = kPorts ? port_used + lo : nullptr;
+  if (in_smem) {
+    // 8-byte rows first, then the 4-byte port words, then the mask
+    // bytes: every row stays aligned (the wrapper's slice_bytes)
+    int64_t* q = reinterpret_cast<int64_t*>(dyn_smem);
+    int64_t* a_s = q;
+    q += 4 * m;
+    l_state = q;
+    q += 6 * m;
+    l_part = q;
+    q += m;
+    int64_t* sa_s = q;
+    if (kScal) {
+      q += k_n * m;
+      l_scal = q;
+      q += k_n * m;
+    }
+    int64_t* gn_s = q;
+    if (kGpu) {
+      q += 3 * m;
+      l_gpu = q;
+      q += g_n * m;
+    }
+    if (cached) {
+      c_part = q;
+      q += u_n * m;
+      c_norm = q;
+      q += u_n * m;
+      c_node = q;
+      q += m;
+      c_cls = q;
+      q += 6 * u_n;
+    }
+    int32_t* q4 = reinterpret_cast<int32_t*>(q);
+    if (kPorts) {
+      l_ports = q4;
+      q4 += w_n * m;
+    }
+    uint8_t* v_s = reinterpret_cast<uint8_t*>(q4);
+    // the read-only rows of the slice, each node by its owner thread
+    for (int64_t i = tid; i < cnt; i += nthr) {
+      for (int k = 0; k < 4; ++k) a_s[k * m + i] = alloc[k * n + lo + i];
+      v_s[i] = valid[lo + i];
+      if (kScal) {
+        for (int64_t k = 0; k < k_n; ++k) sa_s[k * m + i] = scal_alloc[k * n + lo + i];
+      }
+      if (kGpu) {
+        for (int k = 0; k < 3; ++k) gn_s[k * m + i] = gpu_node[k * n + lo + i];
+      }
+      if (cached) c_node[i] = -1;
+    }
+    if (cached) {
+      // no class has a pass 1 yet (step -1) nor cached pass-2 terms
+      for (int64_t k = tid; k < 6 * u_n; k += nthr) c_cls[k] = k % 6 == 0 ? -1 : 0;
+      __syncthreads();
+    }
+    l_alloc = a_s;
+    l_valid = v_s;
+    l_scal_alloc = sa_s;
+    l_gpu_node = gn_s;
+  }
+  const int64_t* alloc_c = l_alloc + kAllocCpu * ls;
+  const int64_t* alloc_m = l_alloc + kAllocMem * ls;
+  const int64_t* alloc_e = l_alloc + kAllocEph * ls;
+  const int64_t* alloc_p = l_alloc + kAllocPods * ls;
+  int64_t* used_c = l_state + kUsedCpu * ls;
+  int64_t* used_m = l_state + kUsedMem * ls;
+  int64_t* used_e = l_state + kUsedEph * ls;
+  int64_t* nz_c = l_state + kNzCpu * ls;
+  int64_t* nz_m = l_state + kNzMem * ls;
+  int64_t* pods = l_state + kPodCnt * ls;
 
   // each thread copies the initial state of the nodes it owns (the
   // storage and term state arrive initialised from the wrapper)
-  for (int64_t i = tid; i < n; i += kThreads) {
-    for (int k = 0; k < 6; ++k) state[k * n + i] = init[k * n + i];
+  for (int64_t i = tid; i < cnt; i += nthr) {
+    for (int k = 0; k < 6; ++k) l_state[k * ls + i] = init[k * n + lo + i];
     if (kScal) {
-      for (int64_t k = 0; k < k_n; ++k) scal_used[k * n + i] = scal_init[k * n + i];
+      for (int64_t k = 0; k < k_n; ++k) l_scal[k * ls + i] = scal_init[k * n + lo + i];
     }
     if (kGpu) {
-      for (int64_t g = 0; g < g_n; ++g) gpu_used[g * n + i] = gpu_init[g * n + i];
+      for (int64_t g = 0; g < g_n; ++g) l_gpu[g * ls + i] = gpu_init[g * n + lo + i];
     }
     if (kPorts) {
-      for (int64_t v = 0; v < w_n; ++v) port_used[v * n + i] = port_init[v * n + i];
+      for (int64_t v = 0; v < w_n; ++v) l_ports[v * ls + i] = port_init[v * n + lo + i];
     }
   }
   int xb = 0;  // next xbuf buffer: every thread flips it at the same reductions
@@ -591,14 +764,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
     if (!active[p]) {
       place = kInactive;
     } else if (pin >= 0) {
-      // a pin overrides feasibility; outside the node mask it is INACTIVE
+      // a pin overrides feasibility; outside the node mask it is
+      // INACTIVE (every block reads the scenario's global mask alike)
       place = valid[pin] ? pin : kInactive;
     } else {
-      const uint8_t* feas_row = feasible + u * n;
-      const int64_t* simon_row = cls_tab + (kTabSimon * u_n + u) * n;
-      const int64_t* na_row = cls_tab + (kTabNodeAff * u_n + u) * n;
-      const int64_t* tt_row = cls_tab + (kTabTaint * u_n + u) * n;
-      const int64_t* base_row = cls_tab + (kTabBase * u_n + u) * n;
+      const uint8_t* feas_row = feasible + u * n + lo;
+      const int64_t* simon_row = cls_tab + (kTabSimon * u_n + u) * n + lo;
+      const int64_t* na_row = cls_tab + (kTabNodeAff * u_n + u) * n + lo;
+      const int64_t* tt_row = cls_tab + (kTabTaint * u_n + u) * n + lo;
+      const int64_t* base_row = cls_tab + (kTabBase * u_n + u) * n + lo;
 
       // ---- pass 0 (kTerms): the hard-spread minimum of each of the
       // class's constraints over the scenario's candidate nodes
@@ -617,12 +791,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
           const int64_t r = tm.h_row[h];
           const int32_t* vals = tm.topo + r * n;
           const uint8_t* cand = tm.h_cand + h * n;
-          const int64_t* cnt = tm.t_state + tm.t_off[r];
+          const int64_t* cnt_row = tm.t_state + tm.t_off[r];
           int64_t mn = kI64Max, anyc = 0;
-          for (int64_t i = tid; i < n; i += kThreads) {
-            if (cand[i] && valid[i]) {
+          for (int64_t i = tid; i < n; i += nthr) {
+            if (cand[i] && l_valid[i]) {
               const int32_t v = vals[i];
-              const int64_t c = v >= 0 ? cnt[v] : 0;
+              const int64_t c = v >= 0 ? cnt_row[v] : 0;
               mn = c < mn ? c : mn;
               anyc = 1;
             }
@@ -643,26 +817,42 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         if (any_h) __syncthreads();  // the minima are visible to every thread
       }
 
-      // ---- pass 1: filter, state-only scores, normalisation bounds
-      int64_t hi = kNegBig, lo = kI64Max, na_mx = 0, tt_mx = 0, any = 0;
+      // ---- pass 1: filter, state-only scores, normalisation bounds.
+      // Cached, a node's part is recomputed only when the node took a
+      // pod at or after the class's last pass 1 (its inputs are the
+      // node's state, which only a commit changes, and constant rows)
+      int64_t* c_cls_u = cached ? c_cls + u * 6 : nullptr;
+      int64_t* c_part_u = cached ? c_part + u * m : nullptr;
+      const int64_t part_step = cached ? c_cls_u[0] : 0;
+      int64_t hi = kNegBig, lo_s = kI64Max, na_mx = 0, tt_mx = 0, any = 0;
       int64_t st_hi = kNegBig, st_lo = kI64Max, ipa_mx = 0, ipa_mn = 0, elig = 0;
-      for (int64_t i = tid; i < n; i += kThreads) {
-        bool ok = feas_row[i] && valid[i] && add_w(pods[i], 1) <= alloc_p[i];
+      for (int64_t i = tid; i < cnt; i += nthr) {
+        // the node's rows are read up front, so that their loads overlap
+        // instead of following the filter's branches one by one
+        const bool feas_i = feas_row[i] != 0, valid_i = l_valid[i] != 0;
+        const int64_t pods_i = pods[i], cap_i = alloc_p[i];
+        const int64_t ac = alloc_c[i], am = alloc_m[i], ae = alloc_e[i];
+        const int64_t uc = used_c[i], um = used_m[i], ue = used_e[i];
+        const int64_t nzc_i = nz_c[i], nzm_i = nz_m[i];
+        const int64_t base_i = base_row[i];
+        const int64_t simon_i = w.simon ? simon_row[i] : 0;
+        const int64_t na_i = w.nodeaff ? na_row[i] : 0;
+        const int64_t tt_i = w.tainttol ? tt_row[i] : 0;
+        bool ok = feas_i && valid_i && add_w(pods_i, 1) <= cap_i;
         if (ok && has_req) {
-          ok = alloc_c[i] >= add_w(rc, used_c[i]) && alloc_m[i] >= add_w(rm, used_m[i]) &&
-               alloc_e[i] >= add_w(re, used_e[i]);
+          ok = ac >= add_w(rc, uc) && am >= add_w(rm, um) && ae >= add_w(re, ue);
           if (kScal) {
             for (int64_t k = 0; ok && k < k_n; ++k) {
-              ok = scal_alloc[k * n + i] >= add_w(sreq[k], scal_used[k * n + i]);
+              ok = l_scal_alloc[k * ls + i] >= add_w(sreq[k], l_scal[k * ls + i]);
             }
           }
         }
         if (kPorts) {
-          for (int64_t v = 0; ok && v < w_n; ++v) ok = (port_used[v * n + i] & confl_w[v]) == 0;
+          for (int64_t v = 0; ok && v < w_n; ++v) ok = (l_ports[v * ls + i] & confl_w[v]) == 0;
         }
         if (kGpu && ok && gm > 0) {
-          ok = gpu_fits(gpu_used, n, i, g_n, gpu_node[kGpuPerDev * n + i],
-                        gpu_node[kGpuCount * n + i], gpu_node[kGpuTotal * n + i], gm, gc);
+          ok = gpu_fits(l_gpu, ls, i, g_n, l_gpu_node[kGpuPerDev * ls + i],
+                        l_gpu_node[kGpuCount * ls + i], l_gpu_node[kGpuTotal * ls + i], gm, gc);
         }
         int64_t st_raw = 0, ipa_raw = 0;
         if constexpr (kStore) {
@@ -673,22 +863,24 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         }
         if constexpr (kTerms) {
           if (ok) {
-            ok = terms_eval(tm, tm.t_state, tm.g_state, tm.hmin, u, u_n, n, i, valid[i] != 0,
+            ok = terms_eval(tm, tm.t_state, tm.g_state, tm.hmin, u, u_n, n, i, l_valid[i] != 0,
                             g_total, ipa_raw);
           }
         }
         int64_t part = kI64Min;  // marks an infeasible node for pass 2
-        if (ok) {
+        if (ok && cached && c_node[i] < part_step) {
           any = 1;
-          part = base_row[i];
-          const int64_t ac = alloc_c[i], am = alloc_m[i];
-          const int64_t totc = add_w(nz_c[i], nzc), totm = add_w(nz_m[i], nzm);
+          part = c_part_u[i];
+        } else if (ok) {
+          any = 1;
+          part = base_i;
+          const int64_t totc = add_w(nzc_i, nzc), totm = add_w(nzm_i, nzm);
           if (w.least) {
             int64_t lc = (ac > 0 && totc <= ac)
-                             ? floordiv(mul_w(sub_w(ac, totc), kMaxScore), ac > 1 ? ac : 1)
+                             ? floordiv_fast(mul_w(sub_w(ac, totc), kMaxScore), ac > 1 ? ac : 1)
                              : 0;
             int64_t lm = (am > 0 && totm <= am)
-                             ? floordiv(mul_w(sub_w(am, totm), kMaxScore), am > 1 ? am : 1)
+                             ? floordiv_fast(mul_w(sub_w(am, totm), kMaxScore), am > 1 ? am : 1)
                              : 0;
             part = add_w(part, mul_w(floordiv(add_w(lc, lm), 2), w.least));
           }
@@ -704,19 +896,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
             }
             part = add_w(part, mul_w(bal, w.balanced));
           }
+          if (cached) c_part_u[i] = part;
+        }
+        if (ok) {
           if (w.simon) {
-            const int64_t r = simon_row[i];
-            hi = r > hi ? r : hi;
-            lo = r < lo ? r : lo;
+            hi = simon_i > hi ? simon_i : hi;
+            lo_s = simon_i < lo_s ? simon_i : lo_s;
           }
-          if (w.nodeaff) {
-            const int64_t r = na_row[i];
-            na_mx = r > na_mx ? r : na_mx;
-          }
-          if (w.tainttol) {
-            const int64_t r = tt_row[i];
-            tt_mx = r > tt_mx ? r : tt_mx;
-          }
+          if (w.nodeaff) na_mx = na_i > na_mx ? na_i : na_mx;
+          if (w.tainttol) tt_mx = tt_i > tt_mx ? tt_i : tt_mx;
           if constexpr (kStore) {
             aux[kAuxStore * n + i] = st_raw;
             st_hi = st_raw > st_hi ? st_raw : st_hi;
@@ -739,10 +927,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
             }
           }
         }
-        partial[i] = part;
+        l_part[i] = part;
       }
       hi = warp_max(hi);
-      lo = warp_min(lo);
+      lo_s = warp_min(lo_s);
       na_mx = warp_max(na_mx);
       tt_mx = warp_max(tt_mx);
       any = warp_max(any);
@@ -755,7 +943,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
       }
       if (lane == 0) {
         red1[0][warp] = hi;
-        red1[1][warp] = lo;
+        red1[1][warp] = lo_s;
         red1[2][warp] = na_mx;
         red1[3][warp] = tt_mx;
         red1[4][warp] = any;
@@ -768,18 +956,49 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         }
       }
       __syncthreads();
+      // every thread has read part_step: this pass is the class's last
+      if (cached && tid == 0) c_cls_u[0] = p;
       // every warp finishes the reduction itself: no second barrier
-      hi = warp_max(red1[0][lane]);
-      lo = warp_min(red1[1][lane]);
-      na_mx = warp_max(red1[2][lane]);
-      tt_mx = warp_max(red1[3][lane]);
-      any = warp_max(red1[4][lane]);
+      // (lanes past the block's warps hold each fold's identity); in a
+      // cluster only warp 0 needs the block's values, to store them
+      const bool wl = lane < nwarps;
+      if (csize == 1 || warp == 0) {
+        hi = warp_max(wl ? red1[0][lane] : kNegBig);
+        lo_s = warp_min(wl ? red1[1][lane] : kI64Max);
+        na_mx = warp_max(wl ? red1[2][lane] : 0);
+        tt_mx = warp_max(wl ? red1[3][lane] : 0);
+        any = warp_max(wl ? red1[4][lane] : 0);
+      }
       if constexpr (kBig) {
         st_hi = warp_max(red1[5][lane]);
         st_lo = warp_min(red1[6][lane]);
         ipa_mx = warp_max(red1[7][lane]);
         ipa_mn = warp_min(red1[8][lane]);
         elig = warp_sum(red1[9][lane]);
+      }
+      if constexpr (!kBig) {
+        if (csize > 1) {
+          // the cluster's fold: thread q < C stores this block's values
+          // into row `crank` of block q's exchange (distributed shared
+          // memory), one cluster barrier (release / acquire) makes them
+          // visible, then every warp folds the C rows of its own copy
+          const cg::cluster_group cluster = cg::this_cluster();
+          if (tid < csize) {
+            int64_t* x = cluster.map_shared_rank(&xch1[crank][0], tid);
+            x[0] = hi;
+            x[1] = lo_s;
+            x[2] = na_mx;
+            x[3] = tt_mx;
+            x[4] = any;
+          }
+          cluster.sync();
+          const bool cl = lane < csize;
+          hi = warp_max(cl ? xch1[lane][0] : kNegBig);
+          lo_s = warp_min(cl ? xch1[lane][1] : kI64Max);
+          na_mx = warp_max(cl ? xch1[lane][2] : 0);
+          tt_mx = warp_max(cl ? xch1[lane][3] : 0);
+          any = warp_max(cl ? xch1[lane][4] : 0);
+        }
       }
 
       // ---- soft spread (kTerms): per constraint, the distinct
@@ -790,21 +1009,21 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
       if constexpr (kTerms) {
         if (soft_scored) {
           int64_t* acc = aux + kAuxSoft * n;
-          for (int64_t i = tid; i < n; i += kThreads) acc[i] = __double_as_longlong(0.0);
+          for (int64_t i = tid; i < n; i += nthr) acc[i] = __double_as_longlong(0.0);
           for (int64_t j = 0; j < tm.sm_n; ++j) {
             const int64_t c = tm.cls_srows[u * tm.sm_n + j];
             if (c < 0) continue;
             const bool host = tm.s_host[c] != 0;
             int64_t sz = elig;  // a hostname domain is a node
             if (!host) {
-              int64_t cnt = 0;
-              for (int64_t x = tm.s_off[c] + tid; x < tm.s_off[c + 1]; x += kThreads) {
-                cnt += tm.stamps[x] == p;
+              int64_t cnt_v = 0;
+              for (int64_t x = tm.s_off[c] + tid; x < tm.s_off[c + 1]; x += nthr) {
+                cnt_v += tm.stamps[x] == p;
               }
-              cnt = warp_sum(cnt);
+              cnt_v = warp_sum(cnt_v);
               int64_t (*buf)[kWarps] = xbuf[xb];
               xb ^= 1;
-              if (lane == 0) buf[0][warp] = cnt;
+              if (lane == 0) buf[0][warp] = cnt_v;
               __syncthreads();
               sz = warp_sum(buf[0][lane]);
             }
@@ -813,8 +1032,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
             const int64_t r = tm.s_row[c];
             const int32_t* vals = tm.topo + r * n;
             const int64_t* counts = host ? tm.t_state + tm.t_off[r] : tm.s_state + tm.s_off[c];
-            for (int64_t i = tid; i < n; i += kThreads) {
-              if (partial[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
+            for (int64_t i = tid; i < n; i += nthr) {
+              if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
               const int32_t v = vals[i];
               const int64_t k = v >= 0 ? counts[v] : 0;
               const double term = __dadd_rn(__dmul_rn(__ll2double_rn(k), weight), skew1);
@@ -822,8 +1041,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
             }
           }
           int64_t mx = kNegBig, mn = kI64Max;
-          for (int64_t i = tid; i < n; i += kThreads) {
-            if (partial[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
+          for (int64_t i = tid; i < n; i += nthr) {
+            if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
             const int64_t raw = __double2ll_rz(__longlong_as_double(acc[i]));
             acc[i] = raw;
             mx = raw > mx ? raw : mx;
@@ -843,32 +1062,51 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         }
       }
 
-      // ---- pass 2: normalised scores, first maximum
-      const int64_t rng = sub_w(hi, lo);
+      // ---- pass 2: normalised scores, first maximum. The simon,
+      // nodeaff and taint terms depend only on constant class rows and
+      // the bounds: cached, they are taken again only when the class's
+      // bounds moved since its last pass 2, then for every node of the
+      // slice (a sum of wrapping adds: the order does not change it)
+      const int64_t rng = sub_w(hi, lo_s);
       const int64_t st_rng = sub_w(st_hi, st_lo);
       const int64_t ipa_diff = sub_w(ipa_mx, ipa_mn);
+      const bool norm_hit = cached && c_cls_u[5] && c_cls_u[1] == lo_s && c_cls_u[2] == hi &&
+                            c_cls_u[3] == na_mx && c_cls_u[4] == tt_mx;
+      int64_t* c_norm_u = cached ? c_norm + u * m : nullptr;
       int64_t best_s = kI64Min, best_i = kI64Max;
-      for (int64_t i = tid; i < n; i += kThreads) {
-        int64_t total = partial[i];
-        if (total == kI64Min) continue;
-        if (w.simon) {
-          int64_t s = rng > 0 ? floordiv(mul_w(sub_w(simon_row[i], lo), kMaxScore), rng) : 0;
-          total = add_w(total, mul_w(s, w.simon));
+      for (int64_t i = tid; i < cnt; i += nthr) {
+        int64_t total = l_part[i];
+        int64_t norm = 0;
+        if (norm_hit) {
+          if (total == kI64Min) continue;
+          norm = c_norm_u[i];
+        } else {
+          const int64_t simon_i = w.simon ? simon_row[i] : 0;
+          const int64_t na_i = w.nodeaff ? na_row[i] : 0;
+          const int64_t tt_i = w.tainttol ? tt_row[i] : 0;
+          if (total == kI64Min && !cached) continue;
+          if (w.simon) {
+            int64_t s = rng > 0 ? floordiv_fast(mul_w(sub_w(simon_i, lo_s), kMaxScore), rng) : 0;
+            norm = add_w(norm, mul_w(s, w.simon));
+          }
+          if (w.nodeaff) {
+            int64_t s = na_mx > 0 ? floordiv_fast(mul_w(kMaxScore, na_i), na_mx) : 0;
+            norm = add_w(norm, mul_w(s, w.nodeaff));
+          }
+          if (w.tainttol) {
+            int64_t s = tt_mx > 0 ? kMaxScore - floordiv_fast(mul_w(kMaxScore, tt_i), tt_mx)
+                                  : kMaxScore;
+            norm = add_w(norm, mul_w(s, w.tainttol));
+          }
+          if (cached) c_norm_u[i] = norm;
+          if (total == kI64Min) continue;
         }
-        if (w.nodeaff) {
-          int64_t s = na_mx > 0 ? floordiv(mul_w(kMaxScore, na_row[i]), na_mx) : 0;
-          total = add_w(total, mul_w(s, w.nodeaff));
-        }
-        if (w.tainttol) {
-          int64_t s = tt_mx > 0 ? kMaxScore - floordiv(mul_w(kMaxScore, tt_row[i]), tt_mx)
-                                : kMaxScore;
-          total = add_w(total, mul_w(s, w.tainttol));
-        }
+        total = add_w(total, norm);
         if constexpr (kStore) {
           // Open-Local, min-max over the feasible nodes
           if (w.openlocal && wants && st_rng > 0) {
             const int64_t s =
-                floordiv(mul_w(sub_w(aux[kAuxStore * n + i], st_lo), kMaxScore), st_rng);
+                floordiv_fast(mul_w(sub_w(aux[kAuxStore * n + i], st_lo), kMaxScore), st_rng);
             total = add_w(total, mul_w(s, w.openlocal));
           }
         }
@@ -885,7 +1123,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
             int64_t s = 0;
             if (tm.s_haskeys[u * n + i]) {
               s = s_mx == 0 ? kMaxScore
-                            : floordiv(mul_w(kMaxScore, sub_w(add_w(s_mx, s_mn),
+                            : floordiv_fast(mul_w(kMaxScore, sub_w(add_w(s_mx, s_mn),
                                                               aux[kAuxSoft * n + i])),
                                        s_mx > 1 ? s_mx : 1);
             }
@@ -895,7 +1133,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         // nodes are visited in increasing order: strict > keeps the first
         if (best_i == kI64Max || total > best_s) {
           best_s = total;
-          best_i = i;
+          best_i = lo + i;
         }
       }
       warp_argmax(best_s, best_i);
@@ -904,32 +1142,57 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         red2[1][warp] = best_i;
       }
       __syncthreads();
-      best_s = red2[0][lane];
-      best_i = red2[1][lane];
-      warp_argmax(best_s, best_i);
+      if (cached && !norm_hit && tid == 0) {
+        // every thread has read the old bounds: record this pass's
+        c_cls_u[1] = lo_s;
+        c_cls_u[2] = hi;
+        c_cls_u[3] = na_mx;
+        c_cls_u[4] = tt_mx;
+        c_cls_u[5] = 1;
+      }
+      if (csize == 1 || warp == 0) {
+        best_s = wl ? red2[0][lane] : kI64Min;
+        best_i = wl ? red2[1][lane] : kI64Max;
+        warp_argmax(best_s, best_i);
+      }
+      if constexpr (!kBig) {
+        if (csize > 1) {
+          const cg::cluster_group cluster = cg::this_cluster();
+          if (tid < csize) {
+            int64_t* x = cluster.map_shared_rank(&xch2[crank][0], tid);
+            x[0] = best_s;
+            x[1] = best_i;
+          }
+          cluster.sync();
+          const bool cl = lane < csize;
+          best_s = cl ? xch2[lane][0] : kI64Min;
+          best_i = cl ? xch2[lane][1] : kI64Max;
+          warp_argmax(best_s, best_i);
+        }
+      }
       place = any ? best_i : -1;
     }
 
-    if (place >= 0 && (place % kThreads) == tid) {
-      // the owner thread commits; the next step's pass 1 reads these
-      // nodes from the same thread, so no barrier is needed
-      used_c[place] = add_w(used_c[place], rc);
-      used_m[place] = add_w(used_m[place], rm);
-      used_e[place] = add_w(used_e[place], re);
-      nz_c[place] = add_w(nz_c[place], nzc);
-      nz_m[place] = add_w(nz_m[place], nzm);
-      pods[place] = add_w(pods[place], 1);
+    // the owner thread of the placed node commits; the next step's pass
+    // 1 reads that node from the same thread, so no barrier is needed
+    const int64_t j = place - lo;
+    if (place >= 0 && j < cnt && j >= 0 && (j % nthr) == tid) {
+      used_c[j] = add_w(used_c[j], rc);
+      used_m[j] = add_w(used_m[j], rm);
+      used_e[j] = add_w(used_e[j], re);
+      nz_c[j] = add_w(nz_c[j], nzc);
+      nz_m[j] = add_w(nz_m[j], nzm);
+      pods[j] = add_w(pods[j], 1);
+      if (cached) c_node[j] = p;
       if (kScal) {
-        for (int64_t k = 0; k < k_n; ++k) {
-          scal_used[k * n + place] = add_w(scal_used[k * n + place], sreq[k]);
-        }
+        for (int64_t k = 0; k < k_n; ++k) l_scal[k * ls + j] = add_w(l_scal[k * ls + j], sreq[k]);
       }
       if (kPorts) {
-        for (int64_t v = 0; v < w_n; ++v) port_used[v * n + place] |= want_w[v];
+        for (int64_t v = 0; v < w_n; ++v) l_ports[v * ls + j] |= want_w[v];
       }
       if (kGpu && gm > 0) {
-        gpu_commit(gpu_used, n, place, g_n, gpu_node[kGpuPerDev * n + place],
-                   gpu_node[kGpuCount * n + place], gm, gc);
+        gpu_commit(l_gpu, ls, j, g_n, l_gpu_node[kGpuPerDev * ls + j],
+                   l_gpu_node[kGpuCount * ls + j], gm, gc);
       }
       if constexpr (kStore) {
         if (wants) {
@@ -945,7 +1208,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         // node's value; rows are spread over the threads (distinct rows
         // never share a count), then a barrier before the next read
         const int64_t vt = tm.vt_n;
-        for (int64_t r = tid; r < tm.t_n; r += kThreads) {
+        for (int64_t r = tid; r < tm.t_n; r += nthr) {
           const int32_t v = tm.topo[r * n + place];
           if (v < 0) continue;
           const int64_t at = tm.t_off[r] + v;
@@ -954,13 +1217,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
                 add_w(tm.t_state[k * vt + at], tm.t_cls[(k * u_n + u) * tm.t_n + r]);
           }
         }
-        for (int64_t a = tid; a < tm.a_n; a += kThreads) {
+        for (int64_t a = tid; a < tm.a_n; a += nthr) {
           const int32_t v = tm.g_topo[a * n + place];
           if (v < 0 || !tm.g_match[u * tm.a_n + a]) continue;
           tm.g_state[tm.g_off[a] + v] = add_w(tm.g_state[tm.g_off[a] + v], 1);
           tm.gt_state[a] = add_w(tm.gt_state[a], 1);
         }
-        for (int64_t c = tid; c < tm.cs_n; c += kThreads) {
+        for (int64_t c = tid; c < tm.cs_n; c += nthr) {
           const int64_t r = tm.s_row[c];
           const int32_t v = tm.topo[r * n + place];
           if (v < 0 || !tm.s_q[c * n + place] || tm.t_cls[(kTMatch * u_n + u) * tm.t_n + r] == 0) {
@@ -971,41 +1234,145 @@ __global__ void __launch_bounds__(kThreads, 1) fused_scan_kernel(
         __syncthreads();
       }
     }
-    if (tid == 0) placements[p] = (int32_t)place;
+    if (tid == 0 && crank == 0) placements[p] = (int32_t)place;
+  }
+
+  if (in_smem) {
+    // the final state of the slice back to the scenario's rows, each
+    // node by its owner thread
+    for (int64_t i = tid; i < cnt; i += nthr) {
+      for (int k = 0; k < 6; ++k) state[k * n + lo + i] = l_state[k * m + i];
+      if (kScal) {
+        for (int64_t k = 0; k < k_n; ++k) scal_used[k * n + lo + i] = l_scal[k * m + i];
+      }
+      if (kGpu) {
+        for (int64_t g = 0; g < g_n; ++g) gpu_used[g * n + lo + i] = l_gpu[g * m + i];
+      }
+      if (kPorts) {
+        for (int64_t v = 0; v < w_n; ++v) port_used[v * n + lo + i] = l_ports[v * m + i];
+      }
+    }
+  }
+  if constexpr (!kBig) {
+    // no block leaves while another may still store into its exchange
+    if (csize > 1) cg::this_cluster().sync();
   }
 }
 
-using LaunchFn = int (*)(const ScanArgs&, int64_t, cudaStream_t);
+// How one launch is shaped: S scenarios, each on a cluster of `cluster`
+// blocks, with `smem` bytes of dynamic shared memory a block when the
+// slices are resident there (`resident` bit 0; bit 1: with the
+// per-(class, node) caches). The threads a block follow from the
+// instantiation and the layout.
+struct Shape {
+  int64_t scenarios, cluster, resident, smem;
+};
 
-template <bool kBatch, bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
-int launch(const ScanArgs& a, int64_t scenarios, cudaStream_t stream) {
-  fused_scan_kernel<kBatch, kScal, kGpu, kPorts, kStore, kTerms>
-      <<<(unsigned)scenarios, kThreads, 0, stream>>>(
-          a.alloc, a.init, a.feasible, a.cls_tab, a.cls_req, a.class_of_pod, a.active,
-          a.pinned, a.valid, a.state, a.partial, a.placements, a.n, a.u_n, a.p_n, a.w,
-          a.scal_alloc, a.scal_init, a.scal_req, a.scal_state, a.gpu_node, a.gpu_init,
-          a.gpu_cls, a.gpu_state, a.port_init, a.port_cls, a.port_state, a.k_n, a.g_n, a.w_n,
-          a.st, a.tm, a.aux);
-  return static_cast<int>(cudaGetLastError());
+// The shared memory a resident slice of m nodes takes (the wrapper's
+// slice_bytes and cache_bytes): the 8-byte rows (four allocatable, six
+// state, partial, the scalar kinds' allocatable and used, the three GPU
+// node rows and the per-device used), the port words, the node mask;
+// with the caches, two [U, m] rows, the node stamps and [U, 6].
+int64_t slice_bytes(int64_t m, int64_t k_n, int64_t g_n, int64_t w_n, bool scal, bool gpu,
+                    bool ports, int64_t u_n, bool cached) {
+  int64_t rows8 = 4 + 6 + 1;
+  if (scal) rows8 += 2 * k_n;
+  if (gpu) rows8 += 3 + g_n;
+  const int64_t caches = cached ? 8 * ((2 * u_n + 1) * m + 6 * u_n) : 0;
+  return m * (8 * rows8 + (ports ? 4 * w_n : 0) + 1) + caches;
 }
 
-#define FS_LAUNCH_ROW(B)                                                                      \
-  launch<B, false, false, false, false, false>, launch<B, false, false, true, false, false>,  \
-      launch<B, false, true, false, false, false>, launch<B, false, true, true, false, false>, \
-      launch<B, true, false, false, false, false>, launch<B, true, false, true, false, false>, \
-      launch<B, true, true, false, false, false>, launch<B, true, true, true, false, false>
+// What a call to one instantiation does: launch it, ask how many of its
+// clusters of a shape the card holds at once, or ask its static shared
+// memory.
+enum class Ask { kLaunch, kMaxClusters, kStaticSmem };
+
+// One instantiation: do `ask`, the answer into *out. Returns the first
+// cudaError_t of the attribute calls, the query and the launch.
+using RunFn = int (*)(const ScanArgs&, const Shape&, cudaStream_t, Ask, int64_t*);
+
+template <bool kBatch, bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
+int run(const ScanArgs& a, const Shape& sh, cudaStream_t stream, Ask ask, int64_t* out) {
+  constexpr bool kBig = kStore || kTerms;
+  auto* kernel = fused_scan_kernel<kBatch, kScal, kGpu, kPorts, kStore, kTerms>;
+  if (ask == Ask::kStaticSmem) {
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    *out = static_cast<int64_t>(fa.sharedSizeBytes);
+    return static_cast<int>(err);
+  }
+  const bool shape_ok =
+      sh.scenarios >= 1 && (sh.scenarios == 1 || kBatch) && sh.cluster >= 1 &&
+      sh.cluster <= kMaxCluster && (sh.cluster & (sh.cluster - 1)) == 0 && sh.smem >= 0 &&
+      sh.scenarios * sh.cluster <= 0x7fffffff && sh.resident >= 0 && sh.resident <= 3 &&
+      sh.resident != 2 &&
+      // the storage and term instantiations run one 1024-thread block
+      // a scenario with state in global memory
+      (!kBig || (sh.cluster == 1 && !sh.resident && sh.smem == 0)) &&
+      (!sh.resident ||
+       sh.smem >= slice_bytes((a.n + sh.cluster - 1) / sh.cluster, a.k_n, a.g_n, a.w_n, kScal,
+                              kGpu, kPorts, a.u_n, (sh.resident & 2) != 0));
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (sh.cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess && sh.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sh.smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(sh.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(sh.scenarios * sh.cluster));
+  cfg.blockDim = dim3(kBig ? kThreads : (sh.resident ? kResidentThreads : kClusterThreads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(sh.smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (ask == Ask::kMaxClusters) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *out = clusters;
+    return static_cast<int>(err);
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a.alloc, a.init, a.feasible, a.cls_tab, a.cls_req,
+                           a.class_of_pod, a.active, a.pinned, a.valid, a.state, a.partial,
+                           a.placements, a.n, a.u_n, a.p_n, a.w, a.scal_alloc, a.scal_init,
+                           a.scal_req, a.scal_state, a.gpu_node, a.gpu_init, a.gpu_cls,
+                           a.gpu_state, a.port_init, a.port_cls, a.port_state, a.k_n, a.g_n,
+                           a.w_n, a.st, a.tm, a.aux, sh.resident);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+#define FS_RUN_ROW(B)                                                                   \
+  run<B, false, false, false, false, false>, run<B, false, false, true, false, false>,  \
+      run<B, false, true, false, false, false>, run<B, false, true, true, false, false>, \
+      run<B, true, false, false, false, false>, run<B, true, false, true, false, false>, \
+      run<B, true, true, false, false, false>, run<B, true, true, true, false, false>
 
 // the base and B2 instantiations, indexed by batch << 3 | scal << 2 |
 // gpu << 1 | ports
-const LaunchFn kLaunch[16] = {FS_LAUNCH_ROW(false), FS_LAUNCH_ROW(true)};
+const RunFn kRun[16] = {FS_RUN_ROW(false), FS_RUN_ROW(true)};
 // the storage / term instantiations (B2 blocks as runtime branches),
 // indexed by [batch][store | terms << 1 minus 1]
-const LaunchFn kLaunchBig[2][3] = {
-    {launch<false, true, true, true, true, false>, launch<false, true, true, true, false, true>,
-     launch<false, true, true, true, true, true>},
-    {launch<true, true, true, true, true, false>, launch<true, true, true, true, false, true>,
-     launch<true, true, true, true, true, true>},
+const RunFn kRunBig[2][3] = {
+    {run<false, true, true, true, true, false>, run<false, true, true, true, false, true>,
+     run<false, true, true, true, true, true>},
+    {run<true, true, true, true, true, false>, run<true, true, true, true, false, true>,
+     run<true, true, true, true, true, true>},
 };
+
+RunFn run_of(int64_t flags) {
+  if (flags < 0 || flags > 63) return nullptr;
+  const int64_t big = (flags >> 4) & 3;
+  return big ? kRunBig[(flags >> 3) & 1][big - 1] : kRun[flags & 15];
+}
 
 // layout of the int64 argument vector the wrapper passes
 enum {
@@ -1024,7 +1391,7 @@ enum {
   kArgT, kArgR, kArgA, kArgGm, kArgCh, kArgHm, kArgCs, kArgSm, kArgVt, kArgVa, kArgVs,
   kArgWLeast, kArgWBalanced, kArgWSimon, kArgWNodeAff, kArgWTaintTol, kArgWSpread,
   kArgWIpa, kArgWOpenLocal,
-  kArgScenarios, kArgFlags, kArgCount
+  kArgScenarios, kArgFlags, kArgCluster, kArgResident, kArgSmem, kArgCount
 };
 
 template <typename T>
@@ -1040,9 +1407,10 @@ extern "C" int64_t fused_scan_arg_count() { return kArgCount; }
 
 // One launch: `args` holds kArgCount int64 values in the order above
 // (pointers as integers; null for an absent block). flags bit 5 = terms,
-// bit 4 = storage, bit 3 = one block per scenario, bit 2 = scalars, bit
-// 1 = GPU-share, bit 0 = hostPorts. Returns the cudaError_t of the
-// launch (0 = launched).
+// bit 4 = storage, bit 3 = one cluster per scenario, bit 2 = scalars,
+// bit 1 = GPU-share, bit 0 = hostPorts; then the launch's Shape.
+// Returns the first cudaError_t of the attribute calls and the launch
+// (0 = launched).
 extern "C" int fused_scan_launch(const int64_t* args, int64_t n_args, void* stream) {
   if (n_args != kArgCount) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* v = args;
@@ -1139,13 +1507,37 @@ extern "C" int fused_scan_launch(const int64_t* args, int64_t n_args, void* stre
   tm.vt_n = v[kArgVt];
   tm.va_n = v[kArgVa];
   tm.vs_n = v[kArgVs];
-  const int64_t scenarios = v[kArgScenarios];
-  const int64_t flags = v[kArgFlags];
-  if (flags < 0 || flags > 63 || scenarios < 1 || (scenarios > 1 && !(flags & 8))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t big = (flags >> 4) & 3;
-  if (big) return kLaunchBig[(flags >> 3) & 1][big - 1](a, scenarios, s);
-  return kLaunch[flags & 15](a, scenarios, s);
+  const Shape sh{v[kArgScenarios], v[kArgCluster], v[kArgResident], v[kArgSmem]};
+  const RunFn fn = run_of(v[kArgFlags]);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(a, sh, static_cast<cudaStream_t>(stream), Ask::kLaunch, nullptr);
+}
+
+// How many clusters of `cluster` blocks (with `smem` bytes of dynamic
+// shared memory each) of the instantiation `flags` the current card holds
+// at once, for a plan of n nodes, u classes, k scalar kinds, g GPUs and w
+// port words, into *out. Returns the cudaError_t of the attribute calls
+// and the occupancy query.
+extern "C" int fused_scan_max_clusters(int64_t flags, int64_t n, int64_t u_n, int64_t k_n,
+                                       int64_t g_n, int64_t w_n, int64_t scenarios,
+                                       int64_t cluster, int64_t resident, int64_t smem,
+                                       int64_t* out) {
+  const RunFn fn = run_of(flags);
+  if (fn == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a = {};
+  a.n = n;
+  a.u_n = u_n;
+  a.k_n = k_n;
+  a.g_n = g_n;
+  a.w_n = w_n;
+  return fn(a, Shape{scenarios, cluster, resident, smem}, nullptr, Ask::kMaxClusters, out);
+}
+
+// The static shared memory of the instantiation `flags` (its exchange
+// arrays), in bytes, into *out: what the wrapper counts beside a resident
+// slice. Returns the cudaError_t of the query.
+extern "C" int fused_scan_static_smem(int64_t flags, int64_t* out) {
+  const RunFn fn = run_of(flags);
+  if (fn == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(ScanArgs{}, Shape{}, nullptr, Ask::kStaticSmem, out);
 }

@@ -20,7 +20,7 @@ shapes, counted apart:
   topology-spread block, or both (the B2 blocks ride along as runtime
   branches there);
 - `fused_scan_batch`: several (active, valid, pinned) scenarios of one
-  plan in one launch, one block per scenario, with the same flags.
+  plan in one launch, one cluster per scenario, with the same flags.
 
 The semantics are those of the JAX package's XLA scan (ops/scan.py),
 which is conformance-tested against the serial oracle; the TPU kernel's
@@ -35,12 +35,16 @@ the gather `count[off[r] + topo[r, n]]`, a commit one add per row.
 Kernel note. It replaces `pallas_scan._make_kernel` (the `pl.pallas_call`
 in `run_scan_pallas`, resident and streamed term layouts alike) and
 `run_scan_pallas_batch`. On an H100 it is bound by its serial chain: P
-pod steps, each depending on the previous step's commit, each a few
-block-wide barriers around passes over the node axis that read state
-and class rows from L2. The design keeps the whole loop inside one
-launch of one 1024-thread block per scenario, gives every node one
-owner thread, and reduces with warp shuffles and one shared-memory
-exchange per reduction; see the source for the details.
+pod steps, each depending on the previous step's commit, each passes
+over the node axis around reductions over all of it. The base and B2
+instantiations run one scenario on a thread-block cluster of C blocks
+(`cluster_size`: C grows with the node count up to 16 and steps down
+so that a batch's clusters are resident together), each block owning a
+contiguous node slice whose rows stay in its shared memory when they
+fit (`launch_shape`); two cluster barriers a step join the blocks'
+reductions. The storage and term instantiations run one 1024-thread
+block a scenario. Every node has one owner thread; see the source for
+the details.
 
 `fused_scan_batch_reference` is the plain PyTorch version of the same
 function: an eager loop over the pods, one step vectorised over the
@@ -81,6 +85,8 @@ TERM_ROWS = TERM_FIELDS + ("group_counts", "group_total", "soft_counts")
 LAUNCHES = {name: 0 for name in (
     KERNEL_NAME, EXT_KERNEL_NAME, STORE_KERNEL_NAME, TERMS_KERNEL_NAME,
     STORE_TERMS_KERNEL_NAME, BATCH_KERNEL_NAME)}
+# the cluster size of each kernel's last launch
+CLUSTERS = {name: None for name in LAUNCHES}
 
 SOURCE = nvcc.CSRC / "fused_scan.cu"
 _LIB = None
@@ -1119,7 +1125,7 @@ def fused_scan_reference(plan: FusedPlan, class_of_pod, active, valid, pinned=No
 
 # length of the int64 argument vector of fused_scan_launch (the
 # kArg* enum of csrc/fused_scan.cu); checked against the library
-_N_ARGS = 98
+_N_ARGS = 101
 
 
 def _library():
@@ -1136,6 +1142,10 @@ def _library():
             )
         lib.fused_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         lib.fused_scan_launch.restype = ctypes.c_int
+        lib.fused_scan_max_clusters.argtypes = [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+        lib.fused_scan_max_clusters.restype = ctypes.c_int
+        lib.fused_scan_static_smem.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+        lib.fused_scan_static_smem.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -1253,8 +1263,160 @@ def scratch_bytes(plan: FusedPlan, scenarios: int = 1) -> int:
     return per * scenarios
 
 
-def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool):
-    """The kernel's argument vector for the [S, ...] inputs, and the
+# ---- launch shape: one cluster of C blocks a scenario ---------------------
+
+# cluster sizes the kernel takes (16 is Hopper's non-portable maximum)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# shared memory one block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+# the static shared arrays of the base and B2 instantiations, in int64:
+# the pass-1 and pass-2 block exchanges [5][32] and [2][32], the one-entry
+# stub of the storage / term buffers, and the cluster exchanges [16][5]
+# and [16][2] (csrc/fused_scan.cu; the library's fused_scan_static_smem,
+# the compiler's own figure, is held to at most this on the card)
+STATIC_SMEM = 8 * (5 * 32 + 2 * 32 + 1 + 16 * 5 + 16 * 2)
+# the rule's slice: the smallest cluster whose slices hold at most this
+# many nodes, about two a thread of a block
+SLICE_NODES = 640
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """How one launch runs each scenario: on a cluster of `cluster`
+    blocks, each block's node slice in `smem` bytes of dynamic shared
+    memory when `resident`, else in global memory; `cached`, with the
+    per-(class, node) caches of the passes there too. The kernel library
+    sets the threads a block: 1024 for the storage and term
+    instantiations, else 384 for a resident slice and 512 for one in
+    global memory."""
+
+    cluster: int
+    resident: bool
+    smem: int
+    cached: bool = False
+
+    @property
+    def layout(self) -> int:
+        """The kernel's `resident` argument: bit 0 resident, bit 1 cached."""
+        return int(self.resident) | (2 if self.cached else 0)
+
+
+def slices(n: int, cluster: int) -> list:
+    """The node slices [lo, hi) of a cluster's blocks, in rank order:
+    block r owns [r*m, min((r+1)*m, n)) with m = ceil(n / cluster); the
+    last blocks may own none."""
+    m = -(-n // cluster)
+    return [(min(r * m, n), min((r + 1) * m, n)) for r in range(cluster)]
+
+
+def slice_bytes(plan: FusedPlan, m: int) -> int:
+    """Shared memory of a resident slice of m nodes: the 8-byte rows
+    (four allocatable, six state, partial, each scalar kind's
+    allocatable and used, the three GPU node rows and each device's
+    used), the 4-byte port words and the node mask (csrc/fused_scan.cu
+    slice_bytes)."""
+    d = block_dims(plan)
+    rows8 = 4 + 6 + 1
+    if plan.has_scal:
+        rows8 += 2 * d["k"]
+    if plan.has_gpu:
+        rows8 += 3 + d["g"]
+    ports = 4 * d["w"] if plan.has_ports else 0
+    return m * (8 * rows8 + ports + 1)
+
+
+def cache_bytes(plan: FusedPlan, m: int) -> int:
+    """Shared memory of a slice's per-(class, node) caches: pass 1's
+    part and pass 2's normalised terms [U, m], each node's last commit
+    step [m] and six values a class (csrc/fused_scan.cu slice_bytes)."""
+    return 8 * ((2 * plan.u + 1) * m + 6 * plan.u)
+
+
+def _big(plan: FusedPlan) -> bool:
+    return plan.has_store or plan.has_terms
+
+
+def launch_shape(plan: FusedPlan, cluster: int) -> LaunchShape:
+    """The shape of a launch of this plan on clusters of `cluster`
+    blocks: the slices live in shared memory when one fits beside the
+    static arrays, with the passes' caches when those fit too. The
+    storage and term instantiations run one block a scenario; asked for
+    more, this raises."""
+    if _big(plan):
+        if cluster != 1:
+            raise ValueError(f"{kernel_name(plan)} runs one block a scenario: cluster 1, "
+                             f"not {cluster}")
+        return LaunchShape(1, False, 0)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster {cluster} not in {CLUSTER_SIZES}")
+    m = -(-plan.n // cluster)
+    need = slice_bytes(plan, m)
+    if need + STATIC_SMEM > SMEM_PER_BLOCK:
+        return LaunchShape(cluster, False, 0)
+    with_caches = need + cache_bytes(plan, m)
+    if with_caches + STATIC_SMEM <= SMEM_PER_BLOCK:
+        return LaunchShape(cluster, True, with_caches, True)
+    return LaunchShape(cluster, True, need)
+
+
+def cluster_size(n: int, scenarios: int, big: bool, max_active) -> int:
+    """The cluster size of a launch of `scenarios` scans over n nodes.
+    `max_active(c)` is how many clusters of c blocks the card holds at
+    once for this launch. The storage and term instantiations take 1.
+    Else the smallest size whose slices hold at most SLICE_NODES nodes
+    (1 for small n, at most 16), stepped down while the S clusters would
+    not all be resident and a smaller size lets them be; when none does,
+    1 (the most scenarios at once, in waves)."""
+    if big:
+        return 1
+    want = 1
+    while want < CLUSTER_SIZES[-1] and -(-n // want) > SLICE_NODES:
+        want *= 2
+    for c in reversed([c for c in CLUSTER_SIZES if c <= want]):
+        if max_active(c) >= scenarios:
+            return c
+    return 1
+
+
+def _flags(plan: FusedPlan, batch: bool) -> int:
+    return ((8 if batch else 0) | (4 if plan.has_scal else 0)
+            | (2 if plan.has_gpu else 0) | (1 if plan.has_ports else 0)
+            | (16 if plan.has_store else 0) | (32 if plan.has_terms else 0))
+
+
+_MAX_ACTIVE: dict = {}
+
+
+def max_active_clusters(plan: FusedPlan, scenarios: int, batch: bool, cluster: int) -> int:
+    """How many clusters of `cluster` blocks of this plan's
+    instantiation the current card holds at once (the CUDA occupancy
+    query), cached per instantiation and shape."""
+    shape = launch_shape(plan, cluster)
+    d = block_dims(plan)
+    key = (_flags(plan, batch), plan.n, plan.u, d["k"], d["g"], d["w"], scenarios, shape,
+           torch.cuda.current_device())
+    if key not in _MAX_ACTIVE:
+        out = ctypes.c_int64(0)
+        with torch.cuda.device(plan.device):
+            err = _library().fused_scan_max_clusters(
+                *key[:7], shape.cluster, shape.layout, shape.smem, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"{kernel_name(plan, batch)}: the occupancy query of "
+                               f"{shape} failed: cudaError {err}")
+        _MAX_ACTIVE[key] = out.value
+    return _MAX_ACTIVE[key]
+
+
+def choose_cluster(plan: FusedPlan, scenarios: int, batch: bool) -> int:
+    """cluster_size for a launch of this plan on the current card."""
+    return cluster_size(plan.n, scenarios, _big(plan),
+                        lambda c: max_active_clusters(plan, scenarios, batch, c))
+
+
+def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
+                   launch: LaunchShape):
+    """The kernel's argument vector for the [S, ...] inputs in `launch`,
+    and the
     (placements, state, block rows) it writes: outputs and scratch are
     allocated here, the new blocks' state copied from the plan's init."""
     dev = plan.device
@@ -1294,9 +1456,6 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool):
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    flags = ((8 if batch else 0) | (4 if plan.has_scal else 0)
-             | (2 if plan.has_gpu else 0) | (1 if plan.has_ports else 0)
-             | (16 if plan.has_store else 0) | (32 if plan.has_terms else 0))
     args = [ptr(t) for t in (
         plan.alloc, plan.init, plan.feasible, plan.cls_tab, plan.cls_req, cls_t,
         plan.scal_alloc, plan.scal_init, plan.scal_req,
@@ -1316,21 +1475,27 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool):
           d["v"], d["ds"], d["dh"], d["lv"], d["sv"], d["hv"],
           d["t"], d["r"], d["a"], d["gm"], d["ch"], d["hm"], d["cs"], d["sm"],
           d["vt"], d["va"], d["vs"],
-          *plan.weights, s_n, flags]
+          *plan.weights, s_n, _flags(plan, batch),
+          launch.cluster, launch.layout, launch.smem]
     assert len(args) == _N_ARGS
     blocks = _state_blocks(plan, scal, gpu, ports, store, terms)
     # the scratch rides along so that it outlives the call's enqueue
     return args, (placements, state, blocks, (partial, aux, vg_take, stamps, hmin))
 
 
-def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool) -> list:
+def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
+            cluster: Optional[int] = None) -> list:
     """Launch the kernel over the scenarios of the [S, ...] inputs: one
-    block per scenario when `batch`, else one block (S == 1). Counts the
-    launch under its kernel's name."""
+    cluster per scenario when `batch`, else one cluster (S == 1), of the
+    size the rule chooses unless `cluster` names one. Counts the launch
+    under its kernel's name and records the cluster size it ran."""
     dev = plan.device
     s_n, p = act_t.shape[0], cls_t.shape[0]
+    if cluster is None:
+        cluster = choose_cluster(plan, s_n, batch)
+    shape = launch_shape(plan, cluster)
     args, (placements, state, blocks, _scratch) = _launch_inputs(
-        plan, cls_t, act_t, val_t, pin_t, batch)
+        plan, cls_t, act_t, val_t, pin_t, batch, shape)
     name = kernel_name(plan, batch)
     if p == 0:
         state.copy_(plan.init.expand_as(state))
@@ -1347,8 +1512,9 @@ def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool) -> list:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = _library().fused_scan_launch(argv, _N_ARGS, stream)
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            raise RuntimeError(f"{name} launch of {shape} failed: cudaError {err}")
         LAUNCHES[name] += 1
+        CLUSTERS[name] = shape.cluster
     return [(placements[s], _final(s, state, blocks)) for s in range(s_n)]
 
 
@@ -1375,7 +1541,7 @@ def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios):
     (active[P], valid[N], pinned[P] or None). Returns [(placements,
     final), ...] in scenario order — the contract of the JAX package's
     run_scan_pallas_batch. On a CUDA plan all scenarios go in one
-    launch on one stream (one block each); a CPU plan takes the plain
+    launch on one stream (one cluster each); a CPU plan takes the plain
     version."""
     if _device_of(plan) == "cpu":
         return fused_scan_batch_reference(plan, class_of_pod, scenarios)
@@ -1383,12 +1549,27 @@ def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios):
     return _launch(plan, *inputs, batch=True)
 
 
+def _run_with_cluster(plan: FusedPlan, class_of_pod, scenarios, batch: bool,
+                      cluster: int) -> list:
+    """The kernel on a CUDA plan with the cluster size given, not
+    chosen: for holding every size against the plain version
+    (chip_smoke.py, the `cuda` tests). `batch` False takes one scenario.
+    Raises for a size the instantiation does not take."""
+    if _device_of(plan) != "cuda":
+        raise ValueError("the kernel runs on a CUDA plan")
+    if not batch and len(scenarios) != 1:
+        raise ValueError("a single launch takes one scenario")
+    launch_shape(plan, cluster)  # raises before any copy
+    inputs = _scenario_inputs(plan, class_of_pod, scenarios)
+    return _launch(plan, *inputs, batch=batch, cluster=cluster)
+
+
 def kernel_label(plan: FusedPlan) -> str:
     """What a single scan of this plan runs, for the `batch-kernel`
-    trace note."""
+    trace note: on the card the instantiation and its cluster size."""
     name = kernel_name(plan)
     if plan.device.type == "cuda":
-        return f"cuda-{name}"
+        return f"cuda-{name} (cluster {choose_cluster(plan, 1, False)})"
     return f"torch-plain-{name} ({plan.device.type})"
 
 
@@ -1399,11 +1580,14 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BATCH_KERNEL_NAME",
+    "CLUSTERS",
+    "CLUSTER_SIZES",
     "EXT_KERNEL_NAME",
     "FusedPlan",
     "INACTIVE",
     "KERNEL_NAME",
     "LAUNCHES",
+    "LaunchShape",
     "NoCardError",
     "NotInKernelError",
     "OutOfSliceError",
@@ -1412,12 +1596,17 @@ __all__ = [
     "TERMS_KERNEL_NAME",
     "TERM_ROWS",
     "block_dims",
+    "cache_bytes",
     "build_plan",
     "check_in_kernel",
+    "choose_cluster",
+    "cluster_size",
     "fused_scan_batch_reference",
     "fused_scan_reference",
     "kernel_label",
     "kernel_name",
+    "launch_shape",
+    "max_active_clusters",
     "pack_port_words",
     "plan_from_jax_arrays",
     "plan_from_scan_arrays",
@@ -1426,6 +1615,8 @@ __all__ = [
     "run_fused_scan",
     "run_fused_scan_batch",
     "scratch_bytes",
+    "slice_bytes",
+    "slices",
     "torch_scan_reason",
     "value_to_node",
 ]

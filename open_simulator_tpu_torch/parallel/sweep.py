@@ -12,7 +12,7 @@ every candidate count is one scenario of one encoded cluster:
   mask (the reference regenerates them per run)
 - a probe is one masked fused scan (ops/fused_scan.py run_fused_scan);
   two counts (`probe_pair`) or many (`probe_many`) go in ONE launch of
-  the scenario-batch kernel, one block per scenario
+  the scenario-batch kernel, one cluster of blocks per scenario
 
 Ported from the JAX package's parallel/sweep.py with the same search
 shape. There is no engine ladder: on a CUDA plan each probe launches
@@ -270,7 +270,7 @@ class CapacitySweep:
 
     def probe_counts(self, counts: List[int]) -> List[ProbeResult]:
         """Evaluate several counts in ONE launch of the scenario-batch
-        kernel (`fused_scan_batch`), one block per count."""
+        kernel (`fused_scan_batch`), one cluster of blocks per count."""
         from ..utils.trace import phase
 
         scenarios = [self._scenario(c) for c in counts]

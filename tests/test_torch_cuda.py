@@ -1,6 +1,9 @@
 """The CUDA kernel of the GPU port (csrc/fused_scan.cu) against its
 plain PyTorch version, on the card: identical placements and identical
-final int64 state. Marked `cuda`; skips where there is no card.
+final int64 state. The base, B2 and batch cases run at every cluster
+size through the private launcher (`cluster` None is the wrapper's own
+rule, through the public entry points). Marked `cuda`; skips where there
+is no card.
 
 This file imports neither JAX nor the JAX package's scan, so that it
 runs on a machine with a card and no JAX:
@@ -9,6 +12,7 @@ runs on a machine with a card and no JAX:
 """
 
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,17 +32,22 @@ from open_simulator_tpu_torch.ops import fused_scan
 from open_simulator_tpu_torch.scheduler.oracle import Oracle
 
 
-def _scenario(n_nodes, n_pods, seed, pins):
+def _scenario(n_nodes, n_pods, seed, pins, huge=False):
+    """Random nodes (every third tainted) and pods with selectors,
+    tolerations and, with `pins`, nodeName pins. `huge` nodes have
+    30,000-40,000 cores and up to 40 PiB, so the scores' floor divisions
+    see operands past 2^61 (the kernel's int64 path) beside small ones."""
     rng = np.random.RandomState(seed)
     nodes = []
     for i in range(n_nodes):
-        cpu = int(rng.choice([4, 8, 16, 32]))
+        cpu = int(rng.choice([30000, 40000] if huge else [4, 8, 16, 32]))
+        mem = f"{int(rng.choice([1, 40]))}Pi" if huge else f"{cpu * 4}Gi"
         opts = [with_node_labels({"zone": f"z{i % 3}"})]
         if i % 3 == 0:
             opts.append(with_node_taints(
                 [{"key": "dedicated", "value": "infra", "effect": "NoSchedule"}]
             ))
-        nodes.append(make_fake_node(f"node-{i}", f"{cpu}", f"{cpu * 4}Gi", *opts))
+        nodes.append(make_fake_node(f"node-{i}", f"{cpu}", mem, *opts))
     pods = []
     for i in range(n_pods):
         opts = []
@@ -55,39 +64,218 @@ def _scenario(n_nodes, n_pods, seed, pins):
     return nodes, pods
 
 
-# (nodes, pods, seed, pins, node_frac, pod_frac): the larger cases give
-# each of the block's 1024 threads several nodes
+# (nodes, pods, seed, pins, node_frac, pod_frac, huge): the larger cases
+# give each thread several nodes at small cluster sizes; "global-rows"
+# does not fit one block's shared memory at cluster 1; "magnitude" has
+# operands past 2^61
 CASES = {
-    "small": (8, 60, 0, False, 1.0, 1.0),
-    "overload": (4, 200, 1, False, 1.0, 1.0),
-    "masked-pins": (12, 120, 2, True, 0.7, 0.8),
-    "multi-node-threads": (2500, 1500, 3, True, 0.9, 0.95),
-    "overload-wide": (1100, 3000, 4, False, 1.0, 1.0),
+    "small": (8, 60, 0, False, 1.0, 1.0, False),
+    "overload": (4, 200, 1, False, 1.0, 1.0, False),
+    "masked-pins": (12, 120, 2, True, 0.7, 0.8, False),
+    "multi-node-threads": (2500, 1500, 3, True, 0.9, 0.95, False),
+    "overload-wide": (1100, 3000, 4, False, 1.0, 1.0, False),
+    "global-rows": (3000, 600, 5, True, 0.95, 1.0, False),
+    "magnitude": (700, 900, 6, False, 1.0, 1.0, True),
+}
+# cluster sizes the base and B2 cases run at; None = the wrapper's rule
+CLUSTER_CASES = [None, 1, 2, 8, 16]
+_PLAIN = {}
+
+
+def _plain_once(key, fn):
+    """The plain version's result, computed once per case for all the
+    cluster sizes that are held against it."""
+    if key not in _PLAIN:
+        _PLAIN[key] = fn()
+    return _PLAIN[key]
+
+
+def _kernel(plan, cls, scenarios, batch, cluster):
+    """The kernel at `cluster` (None: the public entry point and its
+    rule); checks the launch was counted under the plan's kernel."""
+    name = fused_scan.kernel_name(plan, batch)
+    before = fused_scan.LAUNCHES[name]
+    if cluster is None and batch:
+        got = fused_scan.run_fused_scan_batch(plan, cls, scenarios)
+    elif cluster is None:
+        got = [fused_scan.run_fused_scan(plan, cls, *scenarios[0])]
+    else:
+        got = fused_scan._run_with_cluster(plan, cls, scenarios, batch, cluster)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[name] == before + 1
+    if cluster is not None:
+        assert fused_scan.CLUSTERS[name] == cluster
+    return got
+
+
+def _b1_case(name):
+    n_nodes, n_pods, seed, pins, nf, pf, huge = CASES[name]
+    nodes, pods = _scenario(n_nodes, n_pods, seed, pins, huge)
+    plan, batch = _plan(nodes, pods)
+    rng = np.random.RandomState(seed + 100)
+    scen = [(rng.rand(n_pods) < pf, rng.rand(n_nodes) < nf, batch.pinned_node)]
+    return plan, batch, scen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_CASES)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_kernel_equals_plain(name, cluster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    plan, batch, scen = _b1_case(name)
+    assert not plan.ext
+    ref = _plain_once(("b1", name), lambda: fused_scan.fused_scan_reference(
+        plan, batch.class_of_pod, *scen[0]))
+    (got,) = _kernel(plan.to("cuda"), batch.class_of_pod, scen, False, cluster)
+    _same(got, ref)
+
+
+def _edge_nodes(n_nodes):
+    """Nodes of four sizes, every fifth tainted."""
+    nodes = []
+    for i in range(n_nodes):
+        cpu = [4, 8, 16, 32][i % 4]
+        opts = []
+        if i % 5 == 0:
+            opts.append(with_node_taints(
+                [{"key": "dedicated", "value": "infra", "effect": "NoSchedule"}]))
+        nodes.append(make_fake_node(f"node-{i:05d}", f"{cpu}", f"{cpu * 4}Gi", *opts))
+    return nodes
+
+
+def _edge_pods(n_pods):
+    """Pods of three sizes, every fourth tolerating the taint: the same
+    classes whatever the node count."""
+    sizes = [("250m", "256Mi"), ("1", "1Gi"), ("2", "4Gi")]
+    pods = []
+    for i in range(n_pods):
+        opts = ([with_tolerations([{"key": "dedicated", "operator": "Exists"}])]
+                if i % 4 == 0 else [])
+        pods.append(make_fake_pod(f"p-{i}", "default", *sizes[i % 3], *opts))
+    return pods
+
+
+def _last_slice(plan, cached):
+    """The most nodes a block's slice may hold in the resident layout
+    (with the caches, when `cached`) beside the static arrays."""
+    def fits(m):
+        need = fused_scan.slice_bytes(plan, m)
+        if cached:
+            need += fused_scan.cache_bytes(plan, m)
+        return need + fused_scan.STATIC_SMEM <= fused_scan.SMEM_PER_BLOCK
+    lo, hi = 1, 1 << 20
+    while lo < hi:  # the largest m that fits
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+# node counts at 16 blocks: the last of the cached layout, one more (the
+# rows resident without the caches), the last resident one (the most
+# shared memory a block takes), and 41,300 (2,582 nodes a block: the rows
+# in global memory)
+LAYOUT_EDGES = {
+    "cached": (True, 0, (True, True)),
+    "cached+1": (True, 1, (True, False)),
+    "resident": (False, 0, (True, False)),
+    "global-41300": (None, 41_300, (False, False)),
 }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_cuda_kernel_equals_plain(name):
+@pytest.mark.parametrize("edge", sorted(LAYOUT_EDGES))
+def test_cuda_kernel_at_layout_edges_equals_plain(edge):
+    """Each layout's last node count at 16 blocks launches (its dynamic
+    shared memory beside the kernel's static arrays within what a block
+    takes) and equals the plain version, as does the first node count of
+    the next layout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    n_nodes, n_pods, seed, pins, nf, pf = CASES[name]
-    nodes, pods = _scenario(n_nodes, n_pods, seed, pins)
-    oracle = Oracle(copy.deepcopy(nodes))
-    cluster = enc.encode_cluster(oracle)
-    batch = enc.encode_batch(oracle, cluster, pods)
-    dyn = enc.encode_dynamic(oracle, cluster)
-    plan = fused_scan.build_plan(cluster, batch, dyn, enc.features_of_batch(cluster, batch))
-    rng = np.random.RandomState(seed + 100)
-    args = (batch.class_of_pod, rng.rand(n_pods) < pf, rng.rand(n_nodes) < nf)
-    ref_p, ref_f = fused_scan.fused_scan_reference(plan, *args, pinned=batch.pinned_node)
-    before = fused_scan.LAUNCHES[fused_scan.KERNEL_NAME]
-    cu_p, cu_f = fused_scan.run_fused_scan(plan.to("cuda"), *args, pinned=batch.pinned_node)
-    torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES[fused_scan.KERNEL_NAME] == before + 1
-    np.testing.assert_array_equal(cu_p.cpu().numpy(), ref_p.numpy())
-    for k in fused_scan.STATE_FIELDS:
-        np.testing.assert_array_equal(cu_f[k].cpu().numpy(), ref_f[k].numpy(), err_msg=k)
+    cached, extra, want = LAYOUT_EDGES[edge]
+    n_pods = 64
+    pods = _edge_pods(n_pods)
+    probe, _ = _plan(_edge_nodes(8), pods)
+    n_nodes = extra if cached is None else 16 * _last_slice(probe, cached) + extra
+    plan, batch = _plan(_edge_nodes(n_nodes), pods)
+    assert plan.u == probe.u and not plan.ext
+    cuda_plan = plan.to("cuda")
+    shape = fused_scan.launch_shape(cuda_plan, 16)
+    assert (shape.resident, shape.cached) == want
+    rng = np.random.RandomState(n_nodes)
+    scen = [(rng.rand(n_pods) < 0.9, rng.rand(n_nodes) < 0.95, batch.pinned_node)]
+    ref = fused_scan.fused_scan_reference(plan, batch.class_of_pod, *scen[0])
+    (got,) = _kernel(cuda_plan, batch.class_of_pod, scen, False, 16)
+    _same(got, ref)
+    assert (ref[0] >= 0).sum() > n_pods // 2
+
+
+@pytest.mark.cuda
+def test_cuda_static_smem_within_the_wrappers_count():
+    """Every base and B2 instantiation, as the card's compiler built it,
+    has at most STATIC_SMEM bytes of static shared memory: the figure the
+    wrapper counts beside a resident slice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    lib = fused_scan._library()
+    for flags in range(16):
+        out = ctypes.c_int64(-1)
+        assert lib.fused_scan_static_smem(flags, ctypes.byref(out)) == 0
+        assert 0 < out.value <= fused_scan.STATIC_SMEM, (flags, out.value)
+
+
+def tie_shape(n_nodes, n_pods):
+    """Identical untainted nodes and a mix of requests: every step ties
+    across all the slices of any partition, so the lowest index among
+    the best must win."""
+    nodes = [make_fake_node(f"node-{i:05d}", "8", "32Gi") for i in range(n_nodes)]
+    sizes = [("250m", "256Mi"), ("500m", "1Gi"), ("1", "2Gi")]
+    pods = [make_fake_pod(f"p-{i}", "default", *sizes[i % 3]) for i in range(n_pods)]
+    return nodes, pods
+
+
+def boundary_shape(n_nodes, n_pods, cluster=16):
+    """Large nodes, except a pair of identical small ones at each of two
+    slice boundaries of the partition the rule's slices give for
+    `cluster` blocks (the last node of one slice, the first of the next,
+    and the same before the last slice): every step's best node sits on
+    a boundary (the default weights prefer the node the pod fills most)
+    and ties with its neighbour across it."""
+    bounds = fused_scan.slices(n_nodes, cluster)
+    firsts = [lo for lo, hi in bounds if hi > lo][1:]
+    big = {firsts[0] - 1, firsts[0], firsts[-1] - 1, firsts[-1]}
+    nodes = [make_fake_node(f"node-{i:05d}", "4" if i in big else "32",
+                            "16Gi" if i in big else "128Gi") for i in range(n_nodes)]
+    pods = [make_fake_pod(f"p-{i}", "default", "500m", "1Gi") for i in range(n_pods)]
+    return nodes, pods, sorted(big)
+
+
+# (shape, nodes, pods): ties across every slice, and the best node on a
+# slice boundary of the cluster-16 partition (37 nodes: slices of 3 and
+# three empty blocks; 2,501: slices of 157)
+TIE_CASES = {
+    "ties-37": (tie_shape, 37, 90),
+    "ties-2501": (tie_shape, 2_501, 400),
+    "boundary-37": (boundary_shape, 37, 80),
+    "boundary-2501": (boundary_shape, 2_501, 300),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_CASES)
+@pytest.mark.parametrize("name", sorted(TIE_CASES))
+def test_cuda_kernel_on_cluster_ties_equals_plain(name, cluster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    shape, n_nodes, n_pods = TIE_CASES[name]
+    nodes, pods = shape(n_nodes, n_pods)[:2]
+    plan, batch = _plan(nodes, pods)
+    scen = [(np.ones(n_pods, bool), np.ones(n_nodes, bool), None)]
+    ref = _plain_once(("tie", name), lambda: fused_scan.fused_scan_reference(
+        plan, batch.class_of_pod, *scen[0]))
+    (got,) = _kernel(plan.to("cuda"), batch.class_of_pod, scen, False, cluster)
+    _same(got, ref)
+    assert (ref[0] >= 0).all()
 
 
 def _b2_scenario(n_nodes, n_pods, seed, kinds=2, devices=4, pins=True):
@@ -160,33 +348,29 @@ B2_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_CASES)
 @pytest.mark.parametrize("name", sorted(B2_CASES))
-def test_cuda_ext_kernel_equals_plain(name):
+def test_cuda_ext_kernel_equals_plain(name, cluster):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     n_nodes, n_pods, seed, kinds, devices, nf, pf = B2_CASES[name]
     plan, batch = _plan(*_b2_scenario(n_nodes, n_pods, seed, kinds, devices))
     assert plan.has_scal and plan.has_gpu and plan.has_ports and plan.has_pins
     rng = np.random.RandomState(seed + 100)
-    args = (batch.class_of_pod, rng.rand(n_pods) < pf, rng.rand(n_nodes) < nf)
-    ref = fused_scan.fused_scan_reference(plan, *args, pinned=batch.pinned_node)
-    before = fused_scan.LAUNCHES[fused_scan.EXT_KERNEL_NAME]
-    got = fused_scan.run_fused_scan(plan.to("cuda"), *args, pinned=batch.pinned_node)
-    torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES[fused_scan.EXT_KERNEL_NAME] == before + 1
+    scen = [(rng.rand(n_pods) < pf, rng.rand(n_nodes) < nf, batch.pinned_node)]
+    ref = _plain_once(("b2", name), lambda: fused_scan.fused_scan_reference(
+        plan, batch.class_of_pod, *scen[0]))
+    (got,) = _kernel(plan.to("cuda"), batch.class_of_pod, scen, False, cluster)
     _same(got, ref)
     assert (ref[0] >= 0).any()
     if n_nodes < 100:  # the small cluster overflows
         assert (ref[0] == -1).any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b2", [False, True])
-def test_cuda_batch_kernel_equals_batch_plain(b2):
+def _batch_case(b2, extra=0):
     """Several nodes per thread, per-scenario node masks, inactive pods
-    and pins; with and without the B2 blocks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    and pins; with and without the B2 blocks; `extra` more scenarios of
+    random node and pod masks."""
     n_nodes, n_pods = 2500, 1500
     nodes, pods = (_b2_scenario(n_nodes, n_pods, 8) if b2
                    else _scenario(n_nodes, n_pods, 8, True))
@@ -202,13 +386,65 @@ def test_cuda_batch_kernel_equals_batch_plain(b2):
         (rng.rand(n_pods) < 0.8, np.arange(n_nodes) % 7 != 0, pin),
         (np.ones(n_pods, bool), rng.rand(n_nodes) < 0.5, np.where(pin % 2 == 0, pin, -1)),
     ]
-    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen)
-    before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
-    got = fused_scan.run_fused_scan_batch(plan.to("cuda"), batch.class_of_pod, scen)
-    torch.cuda.synchronize()
-    assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
+    scen += [(rng.rand(n_pods) < 0.9, rng.rand(n_nodes) < 0.3 + 0.05 * k, pin)
+             for k in range(extra)]
+    return plan, batch, scen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_CASES)
+@pytest.mark.parametrize("b2", [False, True])
+def test_cuda_batch_kernel_equals_batch_plain(b2, cluster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    plan, batch, scen = _batch_case(b2)
+    ref = _plain_once(("b6", b2), lambda: fused_scan.fused_scan_batch_reference(
+        plan, batch.class_of_pod, scen))
+    got = _kernel(plan.to("cuda"), batch.class_of_pod, scen, True, cluster)
     for g, r in zip(got, ref):
         _same(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_in_waves_equals_batch_plain():
+    """12 scenarios on clusters of 16: more than the card holds at once,
+    so the clusters run in waves; the same rows as the plain version and
+    as single launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    plan, batch, scen = _batch_case(False, extra=8)
+    assert len(scen) == 12
+    cuda_plan = plan.to("cuda")
+    resident = fused_scan.max_active_clusters(cuda_plan, len(scen), True, 16)
+    assert resident < len(scen), f"the card holds {resident} clusters of 16"
+    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen)
+    got = _kernel(cuda_plan, batch.class_of_pod, scen, True, 16)
+    for g, r in zip(got, ref):
+        _same(g, r)
+    # the rule steps down to a size whose 12 clusters are resident
+    c = fused_scan.choose_cluster(cuda_plan, len(scen), True)
+    assert fused_scan.max_active_clusters(cuda_plan, len(scen), True, c) >= len(scen)
+    single = _kernel(cuda_plan, batch.class_of_pod, scen[-1:], False, 8)
+    _same(single[0], ref[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+def test_cuda_storage_terms_plan_refuses_a_cluster(cluster):
+    """The storage and term instantiations run one block a scenario; a
+    request for more raises before anything is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    plan, batch = _plan(*_b3_scenario(30, 40, 10, 3))
+    plan = plan.to("cuda")
+    assert plan.has_store
+    scen = [(np.ones(40, bool), np.ones(30, bool), batch.pinned_node)]
+    before = dict(fused_scan.LAUNCHES)
+    for is_batch in (False, True):
+        with pytest.raises(ValueError, match="one block a scenario"):
+            fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, is_batch, cluster)
+    assert fused_scan.LAUNCHES == before
+    assert fused_scan.choose_cluster(plan, 1, False) == 1
 
 
 GI = 1 << 30
