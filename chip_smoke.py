@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
 
 1. build the CUDA kernels from the checkout's two sources (one nvcc for
    each, sm_90a, started together) and print each instantiation's
-   registers and spills; each base and B2 instantiation's static shared
+   registers and spills; each of the 22 instantiations' static shared
    memory must be at most what the wrapper counts beside a resident
    slice;
 2. B1 on the default scenario (10,000 nodes x 20,000 pods in 5 classes,
@@ -48,7 +48,9 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
    an exclusive device): kernel == plain, placements and every row
    (VG usage and device bits included), then `simulate(engine="cuda")`
    on it; then the 6-VG shape (past the TPU plan's 4-VG cap), kernel ==
-   plain;
+   plain. Phases 7-10 also run their instantiation at the rule's
+   cluster size and on one block a scenario (the private launcher),
+   each == plain, in us a scanned pod step;
 8. B4 (`fused_scan_terms`) on the affinity stress (10,000 nodes in 16
    zones, 100 StatefulSets x 100 replicas with hostname anti-affinity,
    hard zone spread, soft hostname spread and preferred zone affinity):
@@ -60,7 +62,7 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
 10. every block in one plan (bench.py's conformance mix: terms, ports,
     scalars, pins, storage, more than 128 classes, a zone soft spread
     and a required affinity group) as one launch and as a batch of
-    three node masks, both == the batch plain version;
+    three node masks, both == the plain version;
 11. the slice's path: `apply -f example/simon-config.yaml --format
     json` through the port's CLI on the card, byte-identical to its
     `--device cpu` run and planning the JAX package's +1 with the
@@ -93,9 +95,11 @@ phase 13's pods 2,000 of the default scenario's 20,000 (the torch scan
 is an eager loop of some hundred launches a pod step).
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
-`kernels` line (B1's and B6's entries carry `cluster`, the cluster size
-their main path ran, and `prev_ms`, the same work on one block a
-scenario, the previous design's shape, timed in this run), and
+`kernels` line (every fused-scan entry but the B2 one carries
+`cluster`, the cluster size its main path ran, and `prev_ms`, the same
+work on one block a scenario, timed in this run; the
+`fused_scan_store_terms` entry is phase 10's single launch with the
+launches of phase 11's full-width plan), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -754,30 +758,39 @@ def kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=3) -> dict:
     return res
 
 
-def cluster_sweep(gpu, plan, batch, active, valid, want) -> dict:
-    """B1 at each of PHASE2_CLUSTERS through the private launcher: each
-    run == the plain version's `want`; ms by CUDA events and us a pod
-    step of each, keyed by the cluster size."""
+def cluster_sweep(label, gpu, plan, batch, scenarios, want, clusters,
+                  is_batch=False) -> dict:
+    """The plan's kernel at each cluster size of `clusters` through the
+    private launcher, on `scenarios` (one, or a batch): each run == the
+    plain version's `want` (a list, one result a scenario); ms by CUDA
+    events and us a scanned pod step of each, keyed by the cluster
+    size."""
+    import numpy as np
+
     from open_simulator_tpu_torch.ops import fused_scan
 
-    scen = [(active, valid, batch.pinned_node)]
-    steps = int(active.sum())
+    steps = sum(int((np.asarray(a, bool) & (np.asarray(q) < 0 if q is not None else True)).sum())
+                for a, _v, q in scenarios)
     out = {}
-    for c in PHASE2_CLUSTERS:
+    for c in clusters:
         def run():
-            return fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, False, c)[0]
+            return fused_scan._run_with_cluster(plan, batch.class_of_pod, scenarios,
+                                                is_batch, c)
         run()  # warm: the attribute calls of a new size
         got, ms = cuda_ms(run)
-        err = max_abs_err(got, want)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
         if err:
-            raise AssertionError(f"phase 2: cluster {c}: kernel != plain ({err})")
+            raise AssertionError(f"{label}: cluster {c}: kernel != plain ({err})")
         shape = fused_scan.launch_shape(plan, c)
         out[c] = ms
         rows = ("shared memory, cached" if shape.cached else
                 "shared memory" if shape.resident else "global")
-        print(f"phase 2: cluster {c} (slice {-(-plan.n // c)} nodes, {rows} rows, "
-              f"{shape.smem} bytes): {ms:.3f} ms = {ms * 1e3 / steps:.3f} us a pod step, "
-              f"== plain [{gpu}]", flush=True)
+        if plan.has_terms:
+            rows += ", replica in " + ("shared memory" if shape.replica else "global")
+        print(f"{label}: {fused_scan.kernel_name(plan, is_batch)} at cluster {c} (slice "
+              f"{-(-plan.n // c)} nodes, {rows} rows, {shape.smem} bytes): {ms:.3f} ms = "
+              f"{ms * 1e3 / max(steps, 1):.3f} us a scanned pod step, == plain [{gpu}]",
+              flush=True)
     return out
 
 
@@ -833,9 +846,10 @@ def simulate_path(label, gpu, nodes, pods, names, plain_place, kernel) -> int:
 def print_build(lib):
     """Registers and spills of each instantiation from nvcc's report:
     flags (batch, scalars, gpu, ports, storage, terms) of
-    fused_scan_kernel<...>; then each base and B2 instantiation's static
-    shared memory as the card reports it, which must be at most the
-    wrapper's STATIC_SMEM."""
+    fused_scan_kernel<...>; then each instantiation's static shared
+    memory as the card reports it, which must be at most the wrapper's
+    figure (STATIC_SMEM for the 16 base and B2 ones, STATIC_SMEM_STORE
+    and STATIC_SMEM_TERMS for the 6 storage and term ones)."""
     import ctypes
     import re
 
@@ -848,17 +862,20 @@ def print_build(lib):
             flags = "".join(m.groups())
         elif flags and ("registers" in line or "spill" in line):
             print(f"  ptxas <batch,scal,gpu,ports,store,terms>={flags}: {line.strip()}")
-    sizes = []
-    for flags in range(16):
+    big = [b | 7 | blk for b in (0, 8) for blk in (16, 32, 48)]
+    sizes = {}
+    for flags in list(range(16)) + big:
+        want = (fused_scan.STATIC_SMEM_TERMS if flags & 32 else
+                fused_scan.STATIC_SMEM_STORE if flags & 16 else fused_scan.STATIC_SMEM)
         out = ctypes.c_int64(-1)
         err = fused_scan._library().fused_scan_static_smem(flags, ctypes.byref(out))
-        if err or not 0 < out.value <= fused_scan.STATIC_SMEM:
+        if err or not 0 < out.value <= want:
             raise AssertionError(f"phase 1: instantiation {flags}: static shared memory "
-                                 f"{out.value} (cudaError {err}), the wrapper counts "
-                                 f"{fused_scan.STATIC_SMEM}")
-        sizes.append(out.value)
-    print(f"phase 1: static shared memory of the 16 base and B2 instantiations "
-          f"{min(sizes)}-{max(sizes)} bytes <= the wrapper's {fused_scan.STATIC_SMEM}")
+                                 f"{out.value} (cudaError {err}), the wrapper counts {want}")
+        sizes.setdefault(want, []).append(out.value)
+    print("phase 1: static shared memory of the 22 instantiations: " + "; ".join(
+        f"{len(v)} at {min(v)}-{max(v)} bytes <= the wrapper's {k}"
+        for k, v in sorted(sizes.items())))
 
 
 def run_cli(argv, cwd=None):
@@ -1091,6 +1108,10 @@ def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
     p, valid = len(names), np.ones(plan.n, bool)
     active = np.arange(p) < (p if plain_pods is None else plain_pods)
     res = kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=runs)
+    # the rule's cluster size and one block a scenario, timed in turn
+    sweep = cluster_sweep(label, gpu, plan, batch, [(active, valid, batch.pinned_node)],
+                          [res.pop("want")], (res["cluster"], 1))
+    res["cluster_ms"], res["prev_ms"] = sweep[res["cluster"]], sweep[1]
     placements = res["placements"]
     print(f"{label}: {int((placements >= 0).sum())}/{int(active.sum())} placed by both",
           flush=True)
@@ -1111,10 +1132,12 @@ def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
     return res
 
 
-def phase10(gpu) -> None:
+def phase10(gpu) -> dict:
     """Every block in one plan: bench.py's conformance mix as one launch
-    and as a B6 batch of three node masks, both equal to the batch plain
-    version."""
+    and as a B6 batch of three node masks, both equal to the plain
+    version, each at the rule's cluster size and on one block a
+    scenario. Returns the single launch's numbers (fused_scan_store_terms
+    at this shape) and the batch's."""
     import numpy as np
 
     from open_simulator_tpu_torch.ops import fused_scan
@@ -1138,18 +1161,31 @@ def phase10(gpu) -> None:
             (np.ones(p, bool), last_off, pin)]
     cls = batch.class_of_pod
     want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(plan, cls, scen), 1)
+    one, o_times = timed(lambda: fused_scan.fused_scan_reference(plan, cls, *scen[0]), 1)
+    fused_scan.run_fused_scan(plan, cls, *scen[0])  # warm
     single, s_ms = cuda_ms(lambda: fused_scan.run_fused_scan(plan, cls, *scen[0]))
     got, b_ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scen))
-    err = max([max_abs_err(single, want[0])] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    err = max([max_abs_err(single, one), max_abs_err(one, want[0])]
+              + [max_abs_err(g, w) for g, w in zip(got, want)])
     if err:
         raise AssertionError(f"phase 10: kernel != batch plain, max abs err {err}")
+    c_single = fused_scan.CLUSTERS[fused_scan.kernel_name(plan)]
+    c_batch = fused_scan.CLUSTERS[fused_scan.BATCH_KERNEL_NAME]
     print(f"phase 10 (all blocks, {n} nodes x {p} pods, {plan.u} classes): one "
-          f"{fused_scan.kernel_name(plan)} launch {s_ms:.1f} ms and one batch launch of 3 "
-          f"node masks {b_ms:.1f} ms == batch plain ({r_times[0]:.1f} ms), placements and "
-          f"every row [{gpu}]", flush=True)
+          f"{fused_scan.kernel_name(plan)} launch {s_ms:.1f} ms (cluster {c_single}) and one "
+          f"batch launch of 3 node masks {b_ms:.1f} ms (cluster {c_batch}) == plain "
+          f"({o_times[0]:.1f} ms one, {r_times[0]:.1f} ms the batch), placements and every "
+          f"row [{gpu}]", flush=True)
+    singles = cluster_sweep("phase 10", gpu, plan, batch, scen[:1], [one], (c_single, 1))
+    batched = cluster_sweep("phase 10", gpu, plan, batch, scen, want, (c_batch, 1),
+                            is_batch=True)
+    b_ms_bound, b_by = bound(plan, cls, scen[:1])
+    return {"ms": s_ms, "plain_ms": o_times[0], "max_abs_err": err, "bound_ms": b_ms_bound,
+            "bound_by": b_by, "cluster": c_single, "prev_ms": singles[1],
+            "batch_ms": b_ms, "batch_cluster": c_batch, "batch_prev_ms": batched[1]}
 
 
-def phase11(gpu) -> None:
+def phase11(gpu) -> dict:
     """The slice's path: the quickstart through the CLI on the card and
     on the CPU, byte for byte; then the full-width plan. Each plan's
     scans are held against the batch plain version."""
@@ -1197,9 +1233,11 @@ def phase11(gpu) -> None:
     print_plan("phase 11 (full width, the JAX package's answer)", gpu, res)
     hold_plan_scans("phase 11 (full width)", gpu, res)
     plan = res["sweep"].plan
-    print(f"phase 11: scratch and block state {fused_scan.scratch_bytes(plan, 2) / 2**20:.1f} "
-          f"MiB for a pair, {fused_scan.scratch_bytes(plan, 101) / 2**30:.2f} GiB for 101 "
-          f"counts [{gpu}]", flush=True)
+    pair = fused_scan.scratch_bytes(plan, 2, fused_scan.choose_cluster(plan, 2, True))
+    many = fused_scan.scratch_bytes(plan, 101, fused_scan.choose_cluster(plan, 101, True))
+    print(f"phase 11: scratch and block state {pair / 2**20:.1f} MiB for a pair, "
+          f"{many / 2**30:.2f} GiB for 101 counts [{gpu}]", flush=True)
+    return launches
 
 
 def print_stream_build(lib):
@@ -1416,8 +1454,9 @@ def main() -> int:
         raise AssertionError("phase 2: the default scenario must be the base plan")
     p, n = len(names), plan.n
     base = kernel_vs_plain("phase 2", gpu, plan, batch, np.ones(p, bool), np.ones(n, bool))
-    sweep = cluster_sweep(gpu, plan, batch, np.ones(p, bool), np.ones(n, bool),
-                          base.pop("want"))
+    sweep = cluster_sweep("phase 2", gpu, plan, batch,
+                          [(np.ones(p, bool), np.ones(n, bool), batch.pinned_node)],
+                          [base.pop("want")], PHASE2_CLUSTERS)
     base["prev_ms"] = sweep[1]
 
     # ---- phase 3: the base main path
@@ -1509,10 +1548,10 @@ def main() -> int:
     print(f"phases 7-9: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
     # ---- phase 10: every block in one plan, single and batch
-    phase10(gpu)
+    mixed = phase10(gpu)
 
     # ---- phase 11: the slice's path through the CLI
-    phase11(gpu)
+    plan_launches = phase11(gpu)
 
     # ---- phase 12: B7, the streaming probe through its entry point
     stream = phase12(gpu)
@@ -1538,12 +1577,19 @@ def main() -> int:
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
                    cap["launches"][fused_scan.BATCH_KERNEL_NAME], cap["batch"]),
              cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"]),
-        entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
-              store["launches"], store),
-        entry(fused_scan.TERMS_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2106",
-              terms["launches"], terms),
-        entry(f"{fused_scan.TERMS_KERNEL_NAME} at {B5_NODES} nodes",
-              "open_simulator_tpu/ops/pallas_scan.py:1914", streamed["launches"], streamed),
+        dict(entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
+                   store["launches"], store), cluster=store["cluster"],
+             prev_ms=store["prev_ms"]),
+        dict(entry(fused_scan.TERMS_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2106",
+                   terms["launches"], terms), cluster=terms["cluster"],
+             prev_ms=terms["prev_ms"]),
+        dict(entry(f"{fused_scan.TERMS_KERNEL_NAME} at {B5_NODES} nodes",
+                   "open_simulator_tpu/ops/pallas_scan.py:1914", streamed["launches"],
+                   streamed), cluster=streamed["cluster"], prev_ms=streamed["prev_ms"]),
+        dict(entry(fused_scan.STORE_TERMS_KERNEL_NAME,
+                   "open_simulator_tpu/ops/pallas_scan.py:2028",
+                   plan_launches[fused_scan.STORE_TERMS_KERNEL_NAME], mixed),
+             cluster=mixed["cluster"], prev_ms=mixed["prev_ms"]),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
                    stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
              library_ms=stream["library_ms"]),

@@ -20,12 +20,15 @@ plain versions); "oracle" runs the serial escalation loop. Kernel,
 build and launch errors propagate: the only route from the batched plan
 to the serial loop is a priority-bearing (or permit/stateful-plugin)
 workload, which the scan cannot model (PrioritySignalError), and that
-route is trace-noted.
+route is trace-noted. On the "oracle" engine a batch with custom score
+plugins (TorchScanBatchError) also skips the sweep's hint, trace-noted,
+and the serial loop plans it from count 0.
 
 Not ported yet, each raising OutOfSliceError with its ROADMAP.md item:
 kubeConfig clusters, N+K planning
-(`tolerate_node_failures`), the resumable journal and the multi-spec
-what-if (`probe_plan_multi`); the interactive shell has no entry point
+(`tolerate_node_failures`), the resumable journal, the multi-spec
+what-if (`probe_plan_multi`) and, on the "cuda" engine, custom score
+plugins in the sweep (A1g); the interactive shell has no entry point
 here.
 """
 
@@ -662,8 +665,15 @@ class Applier:
     def _sweep_min_count(self, cluster, apps, new_node) -> Optional[int]:
         """One batched sweep over all candidate counts (one batch
         launch); returns the minimal count that schedules everything
-        within the caps, or None for a workload the scan cannot model."""
-        from ..parallel.sweep import PrioritySignalError, sweep_node_counts
+        within the caps, or None for a workload the scan cannot model
+        (priority, permit or stateful plugins) or a batch the kernel
+        does not carry (custom score plugins): the serial escalation
+        loop plans those, as the JAX package's Applier does."""
+        from ..parallel.sweep import (
+            PrioritySignalError,
+            TorchScanBatchError,
+            sweep_node_counts,
+        )
         from ..utils.trace import GLOBAL
 
         try:
@@ -676,7 +686,7 @@ class Applier:
                 score_weights=self.score_weights,
                 device=self.device,
             )
-        except PrioritySignalError as e:
+        except (PrioritySignalError, TorchScanBatchError) as e:
             GLOBAL.note("apply-serial-route", str(e))
             return None
         max_cpu, max_mem, _ = _resource_caps()

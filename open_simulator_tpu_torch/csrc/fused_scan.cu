@@ -35,7 +35,7 @@
 //          the takes from the node's state and commits them;
 //   kTerms inter-pod (anti-)affinity filter and score, required
 //          affinity groups, hard topology spread (skew against the
-//          minimum over candidate nodes, a block reduction before the
+//          minimum over candidate nodes, a cluster-wide fold before the
 //          filter) and the soft spread score (distinct eligible domains
 //          of the final feasible set, log-weighted f64 sum in slot
 //          order, min-max over the eligible nodes). Counts live in
@@ -63,59 +63,93 @@
 // Per step a scan reads the six int64 state rows, four allocatable rows,
 // the feasible byte row, the node mask and four int64 class rows: about
 // 110 bytes per node, 1.1 MB at 10,000 nodes. The arithmetic, about 50
-// integer and f64 operations per node, is small beside that. On one SM
-// (one block, the design of the storage and term instantiations) a step
-// pulls those bytes from L2 at one SM's rate: 34-38 us at 10,000 nodes.
-// The storage block adds its VG and device rows and about 10 operations
-// per VG a volume and 8 per device a node; the term block adds the
-// class's term rows (a topology value and four counts each) and one
-// barrier per hard-spread slot, per non-hostname soft slot, for the soft
-// min-max and after the commit.
+// integer and f64 operations per node, is small beside that. On one SM a
+// step pulls those bytes from L2 at one SM's rate: 34-38 us at 10,000
+// nodes. The storage block adds its VG and device rows and about 10
+// operations per VG a volume and 8 per device a node; the term block adds
+// the class's term rows (a topology value and four counts each) and up to
+// three more cross-block folds a step.
 //
-// What the design does about it. The base and B2 instantiations (kStore =
-// kTerms = false) run one scenario on one cluster of C blocks (C in 1, 2, 4,
-// 8, 16, chosen by the wrapper; 16 is Hopper's non-portable maximum): block
-// r of the cluster owns the contiguous node slice [r*m, min((r+1)*m, N)), m
-// = ceil(N / C), and at kernel start copies its slice's allocatable rows,
-// state rows, node mask and B2 rows into dynamic shared memory, where they
+// What the design does about it. Every instantiation runs one scenario on
+// one cluster of C blocks (C in 1, 2, 4, 8, 16, chosen by the wrapper; 16
+// is Hopper's non-portable maximum): block r of the cluster owns the
+// contiguous node slice [r*m, min((r+1)*m, N)), m = ceil(N / C), and at
+// kernel start copies its slice's allocatable rows, state rows, node mask,
+// B2 rows and storage rows (capacities, usage, the takes and the three
+// scratch rows of kStore / kTerms) into dynamic shared memory, where they
 // stay for the whole pod loop (the wrapper chooses that layout when the
 // slice fits in 227 KB; else the same code reads and writes those rows in
-// place in global memory, through the same pointers). So a step reads only
-// the class's rows (feasible byte and four int64 rows, 1/C of them per SM)
-// from L2 and every other row from shared memory. Inside the slice thread t
-// owns every blockDim-th node, so each thread visits its nodes in increasing
-// order and the per-node commit needs no barrier: the owner thread of the
-// placed node commits, and the next step's pass 1 reads that node from the
-// same thread. Pass 1 computes feasibility, the feasibility-independent
-// scores and the min/max the normalisations need; pass 2 adds the normalised
-// scores and reduces (score, -index) to the first maximum. Where the slice's
-// shared memory has room, it also caches per (class, node) pass 1's part
-// (base + LeastAllocated + BalancedAllocation: a function of the node's
-// state, which only a commit changes) and pass 2's normalised terms (a
-// function of constant class rows and the class's bounds), so that a step
-// recomputes the divisions only for nodes placed on since the class's last
-// step, and for every node only when the class's bounds moved. Each
-// reduction is warp shuffles, one shared-memory exchange and one
-// __syncthreads; then thread q < C of each block r stores the block's values
-// into row r of block q's exchange (a remote store through distributed
-// shared memory), one cluster barrier (barrier.cluster, in hardware, release
-// / acquire) makes every row visible, and every warp of every block folds
-// the C rows of its own copy, lane r taking row r. So a fold costs C remote
-// stores a block, not a remote read from every warp. Every cross-block fold
-// is an int64 max, min, the `any` flag or the (score, -index) argmax, so its
-// result does not depend on the order it is folded in, and every block
-// derives the same placement. Two cluster barriers a step are enough without
-// parity buffers: a block reads its pass-1 rows of step p before it arrives
-// at the pass-2 barrier of step p, and its pass-2 rows before it arrives at
-// the pass-1 barrier of step p + 1, while the next stores into those rows
-// come after those barriers, so no row is written while its block may still
-// read it. Pinned and inactive pods skip both passes and both barriers in
-// every block alike. A final cluster barrier keeps every block resident
-// until the others' last stores into it have landed. With C = 1 the barriers
-// and the exchange drop out and the code is the one-block scan. The storage
-// and term instantiations (kStore / kTerms) keep the one-block design with
-// 1024 threads and state in global memory: their value-space counts are not
-// node-owned, so their commits would need cluster-wide writes.
+// place in global memory, through the same pointers). So a step reads
+// only the class's rows (feasible byte and four int64 rows, the term
+// topology and candidate rows, 1/C of them per SM) from L2 and every
+// other row from shared memory. Inside the slice thread t owns every
+// blockDim-th node, so each thread visits its nodes in increasing order
+// and the per-node commit needs no barrier: the owner thread of the
+// placed node commits (its storage takes included), and the next step's
+// pass 1 reads that node from the same thread. Pass 1 computes
+// feasibility, the feasibility-independent scores and the min/max the
+// normalisations need; pass 2 adds the normalised scores and reduces
+// (score, -index) to the first maximum. Where the slice's shared memory
+// has room, the base and B2 instantiations also cache per (class, node)
+// pass 1's part (base + LeastAllocated + BalancedAllocation: a function
+// of the node's state, which only a commit changes) and pass 2's
+// normalised terms (a function of constant class rows and the class's
+// bounds), so that a step recomputes the divisions only for nodes placed
+// on since the class's last step, and for every node only when the
+// class's bounds moved.
+//
+// The term counts. Every read of a count is at the reading node's own
+// value. A row whose values are each held by one node (a hostname key;
+// the wrapper's node_owned) is node-owned: its counts stay in the
+// scenario's value space, read only by the block owning the node that
+// holds a value and committed only by that block. Every other row (zone,
+// region, rack) is shared: each block keeps a replica of its counts, and
+// of the group totals, in shared memory when they fit (else in its own
+// global rows), and every block applies every commit's add to its own
+// replica. The adds are the same in every block, since every block
+// derives the same placement from the same folds, so the replicas stay
+// equal without any block writing another's memory; block 0's goes back
+// to the value space at the end.
+//
+// The cross-block folds. Each reduction is warp shuffles, one
+// shared-memory exchange and one __syncthreads; then thread q < C of each
+// block r stores the block's values into row r of block q's exchange (a
+// remote store through distributed shared memory), one cluster barrier
+// (barrier.cluster, in hardware, release / acquire) makes every row
+// visible, and every warp of every block folds the C rows of its own copy.
+// Every fold is an int64 max, min, sum, the `any` flag or the (score,
+// -index) argmax, so its result does not depend on the order it is folded
+// in, and every block derives the same placement. A step has these
+// exchanges, in this order: (0) kTerms, the hard-spread (min, any) of
+// each of the class's slots, kRound slots an exchange, into each block's
+// own minima; (1) pass 1's bounds, with kStore / kTerms also the storage
+// and IPA bounds and the eligible-node count of the soft spread; (2)
+// kTerms, when the soft spread scores, the distinct eligible domains of
+// each non-hostname soft slot, kRound slots an exchange: every block
+// stamps the step into its own stamp row at each eligible node's value,
+// block r counts the values of its share (every C-th) that some block
+// stamped, read from L2 past the barrier of (1), and the counts are
+// summed; (3) the soft min-max; (4) pass 2's argmax. Whether (0), (2) and
+// (3) run depends only on the class and on (1)'s folded eligible count,
+// so every block runs the same barriers; a class without terms or
+// storage pays (1) and (4) only (kStore / kTerms run (1) through the
+// exchange even on one block, so that its barrier separates the reads of
+// the block exchange from its next use).
+//
+// Why no buffer is written while a block may still read it. Each kind of
+// exchange has its own buffer, and a block reads it after that kind's
+// barrier and before it arrives at the next barrier of the step's
+// sequence; another block writes the same buffer again only at the same
+// kind's next exchange, which it reaches only past that next barrier, so
+// only after every block arrived there. The rounds of (0) and of (2)
+// follow each other with no other barrier between, so they alternate
+// between two buffers: round k + 2 is written only past round k + 1's
+// barrier. Pinned and inactive pods skip every exchange in every block
+// alike. A final cluster barrier keeps every block resident until the
+// others' last stores into it have landed, and one after the replicas'
+// first copy keeps block 0's final copy from overtaking another block's
+// read of the value space. With C = 1 the same code runs on one block, a
+// cluster barrier being a block barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -126,17 +160,19 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;  // the most threads a block; kStore / kTerms run exactly this
-constexpr int kWarps = kThreads / 32;
-// threads a block of the base and B2 instantiations: their launch bound,
-// so that a thread may keep up to 128 registers (at 1024 threads it gets
-// 64 and spills), and the block size when the slice's rows stay in global
+constexpr int kWarps = 32;  // rows of a block exchange: a warp each, up to 1024 threads
+// threads a block: the launch bound of every instantiation, so that a
+// thread may keep up to 128 registers (at 1024 threads it gets 64 and
+// spills), and the block size when the slice's rows stay in global
 // memory; a slice resident in shared memory runs on fewer (the fastest of
 // 128-512 at 10,000 nodes on 16 blocks on an H100; with rows in global
 // memory 512 were the fastest, their loads overlapping across more warps)
 constexpr int kClusterThreads = 512;
 constexpr int kResidentThreads = 384;
 constexpr int kMaxCluster = 16;  // Hopper's non-portable maximum
+// hard-spread or soft-spread slots of a class folded across the cluster in
+// one exchange; a class with more takes one exchange per kRound slots
+constexpr int kRound = 4;
 constexpr int64_t kMaxScore = 100;
 constexpr int32_t kInactive = -2;
 constexpr int64_t kI64Max = 0x7fffffffffffffffLL;
@@ -249,8 +285,29 @@ struct StoreArgs {
   int64_t v_n, ds_n, dh_n, lv_n, sv_n, hv_n;
 };
 
+// A block's view of the storage rows of its node slice: rows of stride
+// `ls` indexed by the local node index, in shared memory when the slice
+// is resident, else the scenario's global rows offset by the slice start
+struct StoreView {
+  const int64_t* vg_cap;
+  const int64_t* ssd_cap;
+  const int64_t* hdd_cap;
+  const uint8_t* has;
+  int64_t* vg_used;
+  uint8_t* ssd_used;
+  uint8_t* hdd_used;
+  int64_t* vg_take;
+  int64_t ls;
+};
+
 // inter-pod affinity / topology-spread rows (kTerms); value-space state
-// is [S, ...], the stamps and the hard-spread minima are scratch
+// is [S, ...], the stamps and the replicas are scratch. A row is
+// node-owned when no value of it is held by two nodes (hostname keys): its
+// counts stay in the scenario's value space, where only the block that
+// owns the node holding a value reads or commits it. Every other row
+// (zone, region) is shared: each block keeps a replica of its counts
+// (t_rep / g_rep / s_rep give the row's offset in the replica, -1 for a
+// node-owned row) and applies every commit to it.
 struct TermArgs {
   const int32_t* topo;       // [T, N] value id, -1 = key missing
   const int64_t* t_off;      // [T + 1] value-space row offsets
@@ -279,10 +336,38 @@ struct TermArgs {
   int64_t* g_state;          // [S, VA] group counts
   int64_t* gt_state;         // [S, A] group totals
   int64_t* s_state;          // [S, VS] soft counts
-  int64_t* stamps;           // [S, VS] last pod step a value was eligible
-  int64_t* hmin;             // [S, Hm] hard-spread minimum of the step
-  int64_t t_n, r_n, a_n, gm_n, ch_n, hm_n, cs_n, sm_n, vt_n, va_n, vs_n;
+  int64_t* stamps;           // [S, C, VS] last pod step a block saw a value eligible
+  const int64_t* t_rep;      // [T] replica offset of a shared term row, -1 = node-owned
+  const int64_t* g_rep;      // [A]
+  const int64_t* s_rep;      // [Cs]
+  // [S, C, RW] the blocks' replicas in global memory when they do not stay
+  // in shared memory: term counts [4, VR], group counts [VGR], group
+  // totals [A], soft counts [VSR]
+  int64_t* rep;
+  int64_t t_n, r_n, a_n, gm_n, ch_n, hm_n, cs_n, sm_n, vt_n, va_n, vs_n, vr_n, vgr_n, vsr_n;
 };
+
+// int64 entries of one block's replica
+__host__ __device__ __forceinline__ int64_t replica_len(const TermArgs& tm) {
+  return 4 * tm.vr_n + tm.vgr_n + tm.a_n + tm.vsr_n;
+}
+// the counts of term row r's field k (value-indexed), in the block's
+// replica or the scenario's value space
+__device__ __forceinline__ int64_t* t_counts(const TermArgs& tm, int64_t* rep, int k, int64_t r) {
+  const int64_t o = tm.t_rep[r];
+  return o >= 0 ? rep + k * tm.vr_n + o : tm.t_state + k * tm.vt_n + tm.t_off[r];
+}
+__device__ __forceinline__ int64_t* g_counts(const TermArgs& tm, int64_t* rep, int64_t a) {
+  const int64_t o = tm.g_rep[a];
+  return o >= 0 ? rep + 4 * tm.vr_n + o : tm.g_state + tm.g_off[a];
+}
+__device__ __forceinline__ int64_t* g_totals(const TermArgs& tm, int64_t* rep) {
+  return rep + 4 * tm.vr_n + tm.vgr_n;
+}
+__device__ __forceinline__ int64_t* s_counts(const TermArgs& tm, int64_t* rep, int64_t c) {
+  const int64_t o = tm.s_rep[c];
+  return o >= 0 ? rep + 4 * tm.vr_n + tm.vgr_n + tm.a_n + o : tm.s_state + tm.s_off[c];
+}
 
 // The arguments of one launch, gathered on the host from the wrapper's
 // int64 vector. Plan arrays are shared by all scenarios; the
@@ -380,10 +465,11 @@ __device__ __forceinline__ void gpu_commit(int64_t* used, int64_t ls, int64_t i,
 // fit_devices). Ascending sizes make each chosen device lie past the one
 // chosen before, so one walk over the devices serves every volume.
 // Adds size / capacity of each placed volume to `frac` in volume order
-// and counts it; with kCommit marks the chosen devices used.
+// and counts it; with kCommit marks the chosen devices used. Device rows
+// have stride ls.
 template <bool kCommit>
 __device__ bool device_fit(const int64_t* cap, uint8_t* used, int64_t d_n,
-                           const int64_t* sizes, int64_t k_n, int64_t n, int64_t i,
+                           const int64_t* sizes, int64_t k_n, int64_t ls, int64_t i,
                            double& frac, int64_t& cnt) {
   bool ok = true;
   int64_t d = 0;
@@ -391,31 +477,31 @@ __device__ bool device_fit(const int64_t* cap, uint8_t* used, int64_t d_n,
     const int64_t size = sizes[j];
     if (size <= 0) continue;
     int64_t e = d;
-    while (e < d_n && (used[e * n + i] || cap[e * n + i] < size)) ++e;
+    while (e < d_n && (used[e * ls + i] || cap[e * ls + i] < size)) ++e;
     if (e >= d_n) {
       ok = false;  // and every larger volume after it
       continue;
     }
-    const int64_t c = cap[e * n + i];
+    const int64_t c = cap[e * ls + i];
     frac = __dadd_rn(frac, __ddiv_rn(__ll2double_rn(size), __ll2double_rn(c > 1 ? c : 1)));
     ++cnt;
-    if (kCommit) used[e * n + i] = 1;
+    if (kCommit) used[e * ls + i] = 1;
     d = e + 1;
   }
   return ok;
 }
 
-// The open-local filter and raw score of class u at node i from the
-// node's own state (scan.py _local_storage_eval): writes the LVM takes
-// into the thread-owned scratch column, returns whether every volume
-// fits, and with kCommit charges the takes and marks the devices.
+// The open-local filter and raw score of class u at the slice's node i
+// from the node's own state (scan.py _local_storage_eval): writes the LVM
+// takes into the thread-owned scratch column, returns whether every
+// volume fits, and with kCommit charges the takes and marks the devices.
 template <bool kCommit>
-__device__ bool store_eval(const StoreArgs& st, int64_t* vg_used, uint8_t* ssd_used,
-                           uint8_t* hdd_used, int64_t* vg_take, int64_t u, int64_t n,
-                           int64_t i, int64_t& raw) {
+__device__ bool store_eval(const StoreArgs& st, const StoreView& sv, int64_t u, int64_t i,
+                           int64_t& raw) {
   const int64_t v_n = st.v_n;
-  for (int64_t v = 0; v < v_n; ++v) vg_take[v * n + i] = 0;
-  bool ok = st.has[i] != 0;
+  const int64_t ls = sv.ls;
+  for (int64_t v = 0; v < v_n; ++v) sv.vg_take[v * ls + i] = 0;
+  bool ok = sv.has[i] != 0;
   const int64_t* lvm = st.lvm + u * st.lv_n;
   for (int64_t j = 0; j < st.lv_n; ++j) {
     const int64_t size = lvm[j];
@@ -423,8 +509,8 @@ __device__ bool store_eval(const StoreArgs& st, int64_t* vg_used, uint8_t* ssd_u
     // Binpack: the least free space that still fits, lowest VG on ties
     int64_t best = -1, key = kI64Max;
     for (int64_t v = 0; v < v_n; ++v) {
-      const int64_t at = v * n + i;
-      const int64_t free = sub_w(sub_w(st.vg_cap[at], vg_used[at]), vg_take[at]);
+      const int64_t at = v * ls + i;
+      const int64_t free = sub_w(sub_w(sv.vg_cap[at], sv.vg_used[at]), sv.vg_take[at]);
       if (free >= size && free < key) {
         key = free;
         best = v;
@@ -433,25 +519,25 @@ __device__ bool store_eval(const StoreArgs& st, int64_t* vg_used, uint8_t* ssd_u
     if (best < 0) {
       ok = false;
     } else {
-      vg_take[best * n + i] = add_w(vg_take[best * n + i], size);
+      sv.vg_take[best * ls + i] = add_w(sv.vg_take[best * ls + i], size);
     }
   }
   double ssd_frac = 0.0, hdd_frac = 0.0;
   int64_t dev_cnt = 0;
-  const bool ssd_ok = device_fit<kCommit>(st.ssd_cap, ssd_used, st.ds_n, st.ssd + u * st.sv_n,
-                                          st.sv_n, n, i, ssd_frac, dev_cnt);
-  const bool hdd_ok = device_fit<kCommit>(st.hdd_cap, hdd_used, st.dh_n, st.hdd + u * st.hv_n,
-                                          st.hv_n, n, i, hdd_frac, dev_cnt);
+  const bool ssd_ok = device_fit<kCommit>(sv.ssd_cap, sv.ssd_used, st.ds_n, st.ssd + u * st.sv_n,
+                                          st.sv_n, ls, i, ssd_frac, dev_cnt);
+  const bool hdd_ok = device_fit<kCommit>(sv.hdd_cap, sv.hdd_used, st.dh_n, st.hdd + u * st.hv_n,
+                                          st.hv_n, ls, i, hdd_frac, dev_cnt);
   raw = 0;
-  if (st.has[i]) {
+  if (sv.has[i]) {
     // ScoreLVM: mean over touched VGs of take / capacity x 10; summed
     // in VG slot order as the XLA scan sums them
     double lvm_frac = 0.0;
     int64_t lvm_cnt = 0;
     for (int64_t v = 0; v < v_n; ++v) {
-      const int64_t t = vg_take[v * n + i];
+      const int64_t t = sv.vg_take[v * ls + i];
       if (t > 0) {
-        const int64_t c = st.vg_cap[v * n + i];
+        const int64_t c = sv.vg_cap[v * ls + i];
         lvm_frac = __dadd_rn(lvm_frac, __ddiv_rn(__ll2double_rn(t), __ll2double_rn(c > 1 ? c : 1)));
         ++lvm_cnt;
       }
@@ -468,20 +554,19 @@ __device__ bool store_eval(const StoreArgs& st, int64_t* vg_used, uint8_t* ssd_u
   }
   if (kCommit) {
     for (int64_t v = 0; v < v_n; ++v) {
-      vg_used[v * n + i] = add_w(vg_used[v * n + i], vg_take[v * n + i]);
+      sv.vg_used[v * ls + i] = add_w(sv.vg_used[v * ls + i], sv.vg_take[v * ls + i]);
     }
   }
   return ok && ssd_ok && hdd_ok;
 }
 
 // The InterPodAffinity filter and raw score and the hard-spread filter
-// of class u at node i (scan.py _terms_eval), from the value-space
-// counts. `g_total` is the class's group total, `hmin` the step's
-// hard-spread minima per class slot.
-__device__ bool terms_eval(const TermArgs& tm, const int64_t* t_state, const int64_t* g_state,
-                           const int64_t* hmin, int64_t u, int64_t u_n, int64_t n, int64_t i,
-                           bool valid_i, int64_t g_total, int64_t& raw) {
-  const int64_t vt = tm.vt_n;
+// of class u at node gi (a global node index), from the counts at the
+// node's own values (t_counts / g_counts). `g_total` is the class's group
+// total, `hmin` the step's hard-spread minima per class slot.
+__device__ bool terms_eval(const TermArgs& tm, int64_t* rep, const int64_t* hmin, int64_t u,
+                           int64_t u_n, int64_t n, int64_t gi, bool valid_i, int64_t g_total,
+                           int64_t& raw) {
   const int64_t* m_tab = tm.t_cls + (kTMatch * u_n + u) * tm.t_n;
   const int64_t* anti_tab = tm.t_cls + (kTAnti * u_n + u) * tm.t_n;
   const int64_t* panti_tab = tm.t_cls + (kTPAnti * u_n + u) * tm.t_n;
@@ -492,14 +577,13 @@ __device__ bool terms_eval(const TermArgs& tm, const int64_t* t_state, const int
   for (int64_t j = 0; j < tm.r_n; ++j) {
     const int64_t r = rows[j];
     if (r < 0) continue;
-    const int32_t v = tm.topo[r * n + i];
+    const int32_t v = tm.topo[r * n + gi];
     int64_t tgt = 0, own_anti = 0, own_aff = 0, own_panti = 0;
     if (v >= 0) {
-      const int64_t at = tm.t_off[r] + v;
-      tgt = t_state[at];
-      own_anti = t_state[vt + at];
-      own_aff = t_state[2 * vt + at];
-      own_panti = t_state[3 * vt + at];
+      tgt = t_counts(tm, rep, 0, r)[v];
+      own_anti = t_counts(tm, rep, 1, r)[v];
+      own_aff = t_counts(tm, rep, 2, r)[v];
+      own_panti = t_counts(tm, rep, 3, r)[v];
     }
     const int64_t m = m_tab[r];
     // satisfyExistingPodsAntiAffinity, satisfyPodAntiAffinity
@@ -520,11 +604,11 @@ __device__ bool terms_eval(const TermArgs& tm, const int64_t* t_state, const int
     for (int64_t j = 0; j < tm.gm_n; ++j) {
       const int64_t a = grows[j];
       if (a < 0) continue;
-      const int32_t v = tm.g_topo[a * n + i];
+      const int32_t v = tm.g_topo[a * n + gi];
       if (v < 0) {
         keys_ok = false;
         exist = false;
-      } else if (g_state[tm.g_off[a] + v] <= 0) {
+      } else if (g_counts(tm, rep, a)[v] <= 0) {
         exist = false;
       }
     }
@@ -537,21 +621,38 @@ __device__ bool terms_eval(const TermArgs& tm, const int64_t* t_state, const int
     const int64_t h = hrows[j];
     if (h < 0) continue;
     const int64_t r = tm.h_row[h];
-    const int32_t v = tm.topo[r * n + i];
+    const int32_t v = tm.topo[r * n + gi];
     if (v < 0) {
       ok = false;
       continue;
     }
-    const int64_t cnt = (tm.h_cand[h * n + i] && valid_i) ? t_state[tm.t_off[r] + v] : 0;
+    const int64_t cnt = (tm.h_cand[h * n + gi] && valid_i) ? t_counts(tm, rep, 0, r)[v] : 0;
     const int64_t skew = sub_w(add_w(cnt, tm.h_self[h * u_n + u]), hmin[j]);
     if (skew > tm.h_skew[h]) ok = false;
   }
   return ok;
 }
 
+// one cluster barrier: release / acquire across the cluster's blocks, or
+// the block barrier when the cluster is one block
+__device__ __forceinline__ void cluster_barrier(const cg::cluster_group& cluster, int64_t csize) {
+  if (csize > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// where block `q` of the cluster holds `p` (a shared-memory address of this
+// block): distributed shared memory, or p itself in a one-block cluster
+template <typename T>
+__device__ __forceinline__ T* at_rank(const cg::cluster_group& cluster, int64_t csize, T* p,
+                                      int64_t q) {
+  return csize > 1 ? cluster.map_shared_rank(p, static_cast<unsigned>(q)) : p;
+}
+
 template <bool kBatch, bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
-__global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThreads, 1)
-    fused_scan_kernel(
+__global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
     const int64_t* __restrict__ alloc, const int64_t* __restrict__ init,
     const uint8_t* __restrict__ feasible, const int64_t* __restrict__ cls_tab,
     const int64_t* __restrict__ cls_req, const int32_t* __restrict__ class_of_pod,
@@ -569,32 +670,36 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
   constexpr bool kBig = kStore || kTerms;
   // pass-1 exchange: simon hi, simon lo, nodeaff max, taint max, any;
   // with kStore / kTerms also storage hi, storage lo, ipa max, ipa min
-  // and the eligible-node count of the soft spread
+  // and the eligible-node count of the soft spread. kTerms also folds a
+  // round of hard-spread (min, any) pairs and of soft-spread domain counts
+  // through it
   __shared__ int64_t red1[kBig ? 10 : 5][kWarps];
-  // pass-2 exchange: (score, index)
+  // pass-2 exchange: (score, index); kTerms folds the soft min-max here
   __shared__ int64_t red2[2][kWarps];
-  // the other reductions of kStore / kTerms, two values each; they
-  // alternate between the two buffers (a 1-entry stub elsewhere)
-  __shared__ int64_t xbuf[kBig ? 2 : 1][kBig ? 2 : 1][kBig ? kWarps : 1];
-  // the cluster's exchange: block r's pass-1 values (five) and pass-2
-  // (score, index) land in row r of every block's copy
-  __shared__ int64_t xch1[kBig ? 1 : kMaxCluster][5];
-  __shared__ int64_t xch2[kBig ? 1 : kMaxCluster][2];
-  // the slice's per-node rows when `resident`
+  // the cluster's exchanges: block r's values land in row r of every
+  // block's copy. Pass 1 (five values, ten with kStore / kTerms) and pass 2
+  // (score, index); kTerms: a round of hard-spread (min, any) pairs and of
+  // soft-spread domain counts, each in two alternating buffers, and the
+  // soft min-max (1-entry stubs elsewhere)
+  __shared__ int64_t xch1[kMaxCluster][kBig ? 10 : 5];
+  __shared__ int64_t xch2[kMaxCluster][2];
+  __shared__ int64_t xhard[kTerms ? 2 : 1][kTerms ? kMaxCluster : 1][kTerms ? kRound : 1]
+                          [kTerms ? 2 : 1];
+  __shared__ int64_t xdom[kTerms ? 2 : 1][kTerms ? kMaxCluster : 1][kTerms ? kRound : 1];
+  __shared__ int64_t xsoft[kTerms ? kMaxCluster : 1][kTerms ? 2 : 1];
+  // kTerms: the hard-spread minima [Hm] and the replica when it stays in
+  // shared memory; then the slice's per-node rows when `resident`
   extern __shared__ __align__(16) unsigned char dyn_smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nthr = kBig ? kThreads : (int)blockDim.x;
+  const int nthr = (int)blockDim.x;
   const int nwarps = nthr >> 5;
-  // this block's place in its cluster (one block, rank 0, for kBig)
-  int64_t csize = 1, crank = 0;
-  if constexpr (!kBig) {
-    const cg::cluster_group cluster = cg::this_cluster();
-    csize = cluster.num_blocks();
-    crank = cluster.block_rank();
-  }
+  // this block's place in its cluster
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int64_t csize = cluster.num_blocks();
+  const int64_t crank = cluster.block_rank();
   if (kBatch) {
     // this cluster's scenario: its masks, pins, state rows and scratch
     const int64_t sc = blockIdx.x / csize;
@@ -619,20 +724,27 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       tm.g_state += sc * tm.va_n;
       tm.gt_state += sc * tm.a_n;
       tm.s_state += sc * tm.vs_n;
-      tm.stamps += sc * tm.vs_n;
-      tm.hmin += sc * tm.hm_n;
     }
+  }
+  // kTerms: the scenario's stamp rows (one a block, blocks in rank order)
+  // and this block's own
+  int64_t* my_stamps = nullptr;
+  if constexpr (kTerms) {
+    tm.stamps += (blockIdx.x - crank) * tm.vs_n;
+    my_stamps = tm.stamps + crank * tm.vs_n;
   }
 
   // The block's node slice [lo, lo + cnt) and the rows it works on,
   // indexed by the local node index i (node lo + i). Resident: rows of
   // stride m in shared memory; else the global rows (stride n) offset by
-  // lo. kBig: the whole node axis in global memory, as one block.
-  const int64_t m = kBig ? n : (n + csize - 1) / csize;
-  const int64_t lo = kBig ? 0 : (crank * m < n ? crank * m : n);
-  const int64_t cnt = kBig ? n : ((lo + m < n ? lo + m : n) - lo);
-  const bool in_smem = !kBig && (resident & 1) != 0;
-  const bool cached = in_smem && (resident & 2) != 0;
+  // lo.
+  const int64_t m = (n + csize - 1) / csize;
+  const int64_t lo = crank * m < n ? crank * m : n;
+  const int64_t cnt = (lo + m < n ? lo + m : n) - lo;
+  const bool in_smem = (resident & 1) != 0;
+  const bool cached = !kBig && in_smem && (resident & 2) != 0;
+  const bool rep_smem = kTerms && (resident & 4) != 0;
+  const bool gpu_on = kGpu && gpu_node != nullptr;
   const int64_t ls = in_smem ? m : n;  // row stride
   // the per-(class, node) caches when `cached`: pass 1's part (base +
   // LeastAllocated + BalancedAllocation) and pass 2's normalised terms
@@ -649,13 +761,35 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
   const uint8_t* __restrict__ l_valid = valid + lo;
   const int64_t* __restrict__ l_scal_alloc = kScal ? scal_alloc + lo : nullptr;
   int64_t* __restrict__ l_scal = kScal ? scal_used + lo : nullptr;
-  const int64_t* __restrict__ l_gpu_node = kGpu ? gpu_node + lo : nullptr;
-  int64_t* __restrict__ l_gpu = kGpu ? gpu_used + lo : nullptr;
+  const int64_t* __restrict__ l_gpu_node = gpu_on ? gpu_node + lo : nullptr;
+  int64_t* __restrict__ l_gpu = gpu_on ? gpu_used + lo : nullptr;
   int32_t* __restrict__ l_ports = kPorts ? port_used + lo : nullptr;
+  // kStore / kTerms: the per-node scratch rows (store raw score, IPA raw
+  // score, soft accumulator) and the storage rows of the slice
+  int64_t* l_aux = kBig ? aux + lo : nullptr;
+  StoreView sv = {};
+  if constexpr (kStore) {
+    sv = StoreView{st.vg_cap + lo,   st.ssd_cap + lo,  st.hdd_cap + lo,
+                   st.has + lo,      st.vg_used + lo,  st.ssd_used + lo,
+                   st.hdd_used + lo, st.vg_take + lo,  n};
+  }
+  int64_t* q = reinterpret_cast<int64_t*>(dyn_smem);
+  // kTerms: the step's hard-spread minima and this block's replica
+  int64_t* hmin = nullptr;
+  int64_t* rep = nullptr;
+  if constexpr (kTerms) {
+    hmin = q;
+    q += (tm.hm_n + 1) & ~int64_t(1);
+    if (rep_smem) {
+      rep = q;
+      q += (replica_len(tm) + 1) & ~int64_t(1);
+    } else {
+      rep = tm.rep + blockIdx.x * replica_len(tm);
+    }
+  }
   if (in_smem) {
-    // 8-byte rows first, then the 4-byte port words, then the mask
-    // bytes: every row stays aligned (the wrapper's slice_bytes)
-    int64_t* q = reinterpret_cast<int64_t*>(dyn_smem);
+    // 8-byte rows first, then the 4-byte port words, then the byte
+    // rows: every row stays aligned (the wrapper's slice_bytes)
     int64_t* a_s = q;
     q += 4 * m;
     l_state = q;
@@ -669,7 +803,7 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       q += k_n * m;
     }
     int64_t* gn_s = q;
-    if (kGpu) {
+    if (gpu_on) {
       q += 3 * m;
       l_gpu = q;
       q += g_n * m;
@@ -684,23 +818,59 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       c_cls = q;
       q += 6 * u_n;
     }
+    if constexpr (kBig) {
+      l_aux = q;
+      q += 3 * m;
+    }
+    // kStore: capacities, VG usage and takes, then (below) the byte rows
+    int64_t* vgc_s = q;
+    int64_t* vgu_s = q;
+    int64_t* vgt_s = q;
+    int64_t* ssdc_s = q;
+    int64_t* hddc_s = q;
+    if constexpr (kStore) {
+      vgu_s = vgc_s + st.v_n * m;
+      vgt_s = vgu_s + st.v_n * m;
+      ssdc_s = vgt_s + st.v_n * m;
+      hddc_s = ssdc_s + st.ds_n * m;
+      q = hddc_s + st.dh_n * m;
+    }
     int32_t* q4 = reinterpret_cast<int32_t*>(q);
     if (kPorts) {
       l_ports = q4;
       q4 += w_n * m;
     }
     uint8_t* v_s = reinterpret_cast<uint8_t*>(q4);
-    // the read-only rows of the slice, each node by its owner thread
+    uint8_t* has_s = v_s + m;
+    uint8_t* ssdu_s = has_s + m;
+    uint8_t* hddu_s = ssdu_s + (kStore ? st.ds_n * m : 0);
+    // the slice's rows, each node by its owner thread: the read-only
+    // rows, and the storage state as the wrapper initialised it
     for (int64_t i = tid; i < cnt; i += nthr) {
       for (int k = 0; k < 4; ++k) a_s[k * m + i] = alloc[k * n + lo + i];
       v_s[i] = valid[lo + i];
       if (kScal) {
         for (int64_t k = 0; k < k_n; ++k) sa_s[k * m + i] = scal_alloc[k * n + lo + i];
       }
-      if (kGpu) {
+      if (gpu_on) {
         for (int k = 0; k < 3; ++k) gn_s[k * m + i] = gpu_node[k * n + lo + i];
       }
       if (cached) c_node[i] = -1;
+      if constexpr (kStore) {
+        for (int64_t v = 0; v < st.v_n; ++v) {
+          vgc_s[v * m + i] = st.vg_cap[v * n + lo + i];
+          vgu_s[v * m + i] = st.vg_used[v * n + lo + i];
+        }
+        for (int64_t d = 0; d < st.ds_n; ++d) {
+          ssdc_s[d * m + i] = st.ssd_cap[d * n + lo + i];
+          ssdu_s[d * m + i] = st.ssd_used[d * n + lo + i];
+        }
+        for (int64_t d = 0; d < st.dh_n; ++d) {
+          hddc_s[d * m + i] = st.hdd_cap[d * n + lo + i];
+          hddu_s[d * m + i] = st.hdd_used[d * n + lo + i];
+        }
+        has_s[i] = st.has[lo + i];
+      }
     }
     if (cached) {
       // no class has a pass 1 yet (step -1) nor cached pass-2 terms
@@ -711,6 +881,9 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
     l_valid = v_s;
     l_scal_alloc = sa_s;
     l_gpu_node = gn_s;
+    if constexpr (kStore) {
+      sv = StoreView{vgc_s, ssdc_s, hddc_s, has_s, vgu_s, ssdu_s, hddu_s, vgt_s, m};
+    }
   }
   const int64_t* alloc_c = l_alloc + kAllocCpu * ls;
   const int64_t* alloc_m = l_alloc + kAllocMem * ls;
@@ -730,14 +903,45 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
     if (kScal) {
       for (int64_t k = 0; k < k_n; ++k) l_scal[k * ls + i] = scal_init[k * n + lo + i];
     }
-    if (kGpu) {
+    if (gpu_on) {
       for (int64_t g = 0; g < g_n; ++g) l_gpu[g * ls + i] = gpu_init[g * n + lo + i];
     }
     if (kPorts) {
       for (int64_t v = 0; v < w_n; ++v) l_ports[v * ls + i] = port_init[v * n + lo + i];
     }
   }
-  int xb = 0;  // next xbuf buffer: every thread flips it at the same reductions
+  if constexpr (kTerms) {
+    // this block's replica of the shared rows' counts, from the scenario's
+    // value space; the barrier also keeps block 0's final copy back from
+    // overtaking another block's read here
+    for (int64_t r = 0; r < tm.t_n; ++r) {
+      const int64_t o = tm.t_rep[r];
+      if (o < 0) continue;
+      const int64_t nv = tm.t_off[r + 1] - tm.t_off[r];
+      for (int64_t x = tid; x < 4 * nv; x += nthr) {
+        const int64_t k = x / nv, v = x - k * nv;
+        rep[k * tm.vr_n + o + v] = tm.t_state[k * tm.vt_n + tm.t_off[r] + v];
+      }
+    }
+    for (int64_t a = 0; a < tm.a_n; ++a) {
+      const int64_t o = tm.g_rep[a];
+      if (o >= 0) {
+        for (int64_t v = tid; v < tm.g_off[a + 1] - tm.g_off[a]; v += nthr) {
+          rep[4 * tm.vr_n + o + v] = tm.g_state[tm.g_off[a] + v];
+        }
+      }
+      if (tid == 0) g_totals(tm, rep)[a] = tm.gt_state[a];
+    }
+    for (int64_t c = 0; c < tm.cs_n; ++c) {
+      const int64_t o = tm.s_rep[c];
+      if (o < 0) continue;
+      int64_t* dst = rep + 4 * tm.vr_n + tm.vgr_n + tm.a_n + o;
+      for (int64_t v = tid; v < tm.s_off[c + 1] - tm.s_off[c]; v += nthr) {
+        dst[v] = tm.s_state[tm.s_off[c] + v];
+      }
+    }
+    cluster_barrier(cluster, csize);
+  }
 
   for (int64_t p = 0; p < p_n; ++p) {
     const int64_t u = class_of_pod[p];
@@ -775,46 +979,73 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       const int64_t* base_row = cls_tab + (kTabBase * u_n + u) * n + lo;
 
       // ---- pass 0 (kTerms): the hard-spread minimum of each of the
-      // class's constraints over the scenario's candidate nodes
+      // class's constraints over the scenario's candidate nodes, folded
+      // kRound slots an exchange: each slot's (min, any) over the slice,
+      // the block's fold in warp w of the round's slot w, its store into
+      // every block's exchange, one cluster barrier, then each block folds
+      // the C rows into its own minima
       int64_t g_total = 0;
       if constexpr (kTerms) {
         const int32_t* grows = tm.cls_grows + u * tm.gm_n;
+        const int64_t* gt = g_totals(tm, rep);
         for (int64_t j = 0; j < tm.gm_n; ++j) {
-          if (grows[j] >= 0) g_total = add_w(g_total, tm.gt_state[grows[j]]);
+          if (grows[j] >= 0) g_total = add_w(g_total, gt[grows[j]]);
         }
-        bool any_h = false;
         const int32_t* hrows = tm.cls_hrows + u * tm.hm_n;
-        for (int64_t j = 0; j < tm.hm_n; ++j) {
-          const int64_t h = hrows[j];
-          if (h < 0) continue;
-          any_h = true;
-          const int64_t r = tm.h_row[h];
-          const int32_t* vals = tm.topo + r * n;
-          const uint8_t* cand = tm.h_cand + h * n;
-          const int64_t* cnt_row = tm.t_state + tm.t_off[r];
-          int64_t mn = kI64Max, anyc = 0;
-          for (int64_t i = tid; i < n; i += nthr) {
-            if (cand[i] && l_valid[i]) {
-              const int32_t v = vals[i];
-              const int64_t c = v >= 0 ? cnt_row[v] : 0;
-              mn = c < mn ? c : mn;
-              anyc = 1;
+        int rounds = 0;  // exchanges so far: the buffer alternates
+        for (int64_t j0 = 0; j0 < tm.hm_n; j0 += kRound) {
+          bool any_slot = false;  // a class-wide fact: every block agrees
+          for (int x = 0; x < kRound && j0 + x < tm.hm_n; ++x) any_slot |= hrows[j0 + x] >= 0;
+          if (!any_slot) continue;
+          const int par = rounds & 1;
+          for (int x = 0; x < kRound; ++x) {
+            const int64_t h = j0 + x < tm.hm_n ? hrows[j0 + x] : -1;
+            int64_t mn = kI64Max, anyc = 0;
+            if (h >= 0) {
+              const int64_t r = tm.h_row[h];
+              const int32_t* vals = tm.topo + r * n + lo;
+              const uint8_t* cand = tm.h_cand + h * n + lo;
+              const int64_t* cnt_row = t_counts(tm, rep, 0, r);
+              for (int64_t i = tid; i < cnt; i += nthr) {
+                if (cand[i] && l_valid[i]) {
+                  const int32_t v = vals[i];
+                  const int64_t c = v >= 0 ? cnt_row[v] : 0;
+                  mn = c < mn ? c : mn;
+                  anyc = 1;
+                }
+              }
+            }
+            mn = warp_min(mn);
+            anyc = warp_max(anyc);
+            if (lane == 0) {
+              red1[2 * x][warp] = mn;
+              red1[2 * x + 1][warp] = anyc;
             }
           }
-          mn = warp_min(mn);
-          anyc = warp_max(anyc);
-          int64_t (*buf)[kWarps] = xbuf[xb];
-          xb ^= 1;
-          if (lane == 0) {
-            buf[0][warp] = mn;
-            buf[1][warp] = anyc;
-          }
           __syncthreads();
-          mn = warp_min(buf[0][lane]);
-          anyc = warp_max(buf[1][lane]);
-          if (tid == 0) tm.hmin[j] = anyc ? mn : 0;
+          if (warp < kRound) {
+            const bool wl = lane < nwarps;
+            const int64_t mn = warp_min(wl ? red1[2 * warp][lane] : kI64Max);
+            const int64_t anyc = warp_max(wl ? red1[2 * warp + 1][lane] : 0);
+            if (lane < csize) {
+              int64_t* x = at_rank(cluster, csize, &xhard[par][crank][warp][0], lane);
+              x[0] = mn;
+              x[1] = anyc;
+            }
+          }
+          cluster_barrier(cluster, csize);
+          if (tid < kRound && j0 + tid < tm.hm_n) {
+            int64_t mn = kI64Max, anyc = 0;
+            for (int64_t r = 0; r < csize; ++r) {
+              const int64_t c = xhard[par][r][tid][0];
+              mn = c < mn ? c : mn;
+              anyc |= xhard[par][r][tid][1];
+            }
+            hmin[j0 + tid] = anyc ? mn : 0;
+          }
+          ++rounds;
         }
-        if (any_h) __syncthreads();  // the minima are visible to every thread
+        if (rounds > 0) __syncthreads();  // the minima are visible to every thread
       }
 
       // ---- pass 1: filter, state-only scores, normalisation bounds.
@@ -856,16 +1087,10 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
         }
         int64_t st_raw = 0, ipa_raw = 0;
         if constexpr (kStore) {
-          if (ok && wants) {
-            ok = store_eval<false>(st, st.vg_used, st.ssd_used, st.hdd_used, st.vg_take, u, n, i,
-                                   st_raw);
-          }
+          if (ok && wants) ok = store_eval<false>(st, sv, u, i, st_raw);
         }
         if constexpr (kTerms) {
-          if (ok) {
-            ok = terms_eval(tm, tm.t_state, tm.g_state, tm.hmin, u, u_n, n, i, l_valid[i] != 0,
-                            g_total, ipa_raw);
-          }
+          if (ok) ok = terms_eval(tm, rep, hmin, u, u_n, n, lo + i, valid_i, g_total, ipa_raw);
         }
         int64_t part = kI64Min;  // marks an infeasible node for pass 2
         if (ok && cached && c_node[i] < part_step) {
@@ -906,23 +1131,23 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
           if (w.nodeaff) na_mx = na_i > na_mx ? na_i : na_mx;
           if (w.tainttol) tt_mx = tt_i > tt_mx ? tt_i : tt_mx;
           if constexpr (kStore) {
-            aux[kAuxStore * n + i] = st_raw;
+            l_aux[kAuxStore * ls + i] = st_raw;
             st_hi = st_raw > st_hi ? st_raw : st_hi;
             st_lo = st_raw < st_lo ? st_raw : st_lo;
           }
           if constexpr (kTerms) {
-            aux[kAuxIpa * n + i] = ipa_raw;
+            l_aux[kAuxIpa * ls + i] = ipa_raw;
             ipa_mx = ipa_raw > ipa_mx ? ipa_raw : ipa_mx;
             ipa_mn = ipa_raw < ipa_mn ? ipa_raw : ipa_mn;
-            if (soft_on && tm.s_haskeys[u * n + i]) {
+            if (soft_on && tm.s_haskeys[u * n + lo + i]) {
               // an eligible node: stamp its value of each non-hostname
-              // soft constraint with this step
+              // soft constraint with this step, in this block's stamps
               ++elig;
               for (int64_t j = 0; j < tm.sm_n; ++j) {
                 const int64_t c = tm.cls_srows[u * tm.sm_n + j];
                 if (c < 0 || tm.s_host[c]) continue;
-                const int32_t v = tm.topo[tm.s_row[c] * n + i];
-                if (v >= 0) tm.stamps[tm.s_off[c] + v] = p;
+                const int32_t v = tm.topo[tm.s_row[c] * n + lo + i];
+                if (v >= 0) my_stamps[tm.s_off[c] + v] = p;
               }
             }
           }
@@ -960,105 +1185,169 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       if (cached && tid == 0) c_cls_u[0] = p;
       // every warp finishes the reduction itself: no second barrier
       // (lanes past the block's warps hold each fold's identity); in a
-      // cluster only warp 0 needs the block's values, to store them
+      // cluster, and always for kStore / kTerms, only warp 0 needs the
+      // block's values, to store them into the exchange
       const bool wl = lane < nwarps;
-      if (csize == 1 || warp == 0) {
+      const bool xch = kBig || csize > 1;
+      if (!xch || warp == 0) {
         hi = warp_max(wl ? red1[0][lane] : kNegBig);
         lo_s = warp_min(wl ? red1[1][lane] : kI64Max);
         na_mx = warp_max(wl ? red1[2][lane] : 0);
         tt_mx = warp_max(wl ? red1[3][lane] : 0);
         any = warp_max(wl ? red1[4][lane] : 0);
+        if constexpr (kBig) {
+          st_hi = warp_max(wl ? red1[5][lane] : kNegBig);
+          st_lo = warp_min(wl ? red1[6][lane] : kI64Max);
+          ipa_mx = warp_max(wl ? red1[7][lane] : 0);
+          ipa_mn = warp_min(wl ? red1[8][lane] : 0);
+          elig = warp_sum(wl ? red1[9][lane] : 0);
+        }
       }
-      if constexpr (kBig) {
-        st_hi = warp_max(red1[5][lane]);
-        st_lo = warp_min(red1[6][lane]);
-        ipa_mx = warp_max(red1[7][lane]);
-        ipa_mn = warp_min(red1[8][lane]);
-        elig = warp_sum(red1[9][lane]);
-      }
-      if constexpr (!kBig) {
-        if (csize > 1) {
-          // the cluster's fold: thread q < C stores this block's values
-          // into row `crank` of block q's exchange (distributed shared
-          // memory), one cluster barrier (release / acquire) makes them
-          // visible, then every warp folds the C rows of its own copy
-          const cg::cluster_group cluster = cg::this_cluster();
-          if (tid < csize) {
-            int64_t* x = cluster.map_shared_rank(&xch1[crank][0], tid);
-            x[0] = hi;
-            x[1] = lo_s;
-            x[2] = na_mx;
-            x[3] = tt_mx;
-            x[4] = any;
+      if (xch) {
+        // the cluster's fold: thread q < C stores this block's values
+        // into row `crank` of block q's exchange (distributed shared
+        // memory), one cluster barrier (release / acquire) makes them
+        // visible, then every warp folds the C rows of its own copy. For
+        // kStore / kTerms a one-block cluster takes the same path, so
+        // that the barrier separates the reads of red1 from its next use
+        if (tid < csize) {
+          int64_t* x = at_rank(cluster, csize, &xch1[crank][0], tid);
+          x[0] = hi;
+          x[1] = lo_s;
+          x[2] = na_mx;
+          x[3] = tt_mx;
+          x[4] = any;
+          if constexpr (kBig) {
+            x[5] = st_hi;
+            x[6] = st_lo;
+            x[7] = ipa_mx;
+            x[8] = ipa_mn;
+            x[9] = elig;
           }
-          cluster.sync();
-          const bool cl = lane < csize;
-          hi = warp_max(cl ? xch1[lane][0] : kNegBig);
-          lo_s = warp_min(cl ? xch1[lane][1] : kI64Max);
-          na_mx = warp_max(cl ? xch1[lane][2] : 0);
-          tt_mx = warp_max(cl ? xch1[lane][3] : 0);
-          any = warp_max(cl ? xch1[lane][4] : 0);
+        }
+        cluster_barrier(cluster, csize);
+        const bool cl = lane < csize;
+        hi = warp_max(cl ? xch1[lane][0] : kNegBig);
+        lo_s = warp_min(cl ? xch1[lane][1] : kI64Max);
+        na_mx = warp_max(cl ? xch1[lane][2] : 0);
+        tt_mx = warp_max(cl ? xch1[lane][3] : 0);
+        any = warp_max(cl ? xch1[lane][4] : 0);
+        if constexpr (kBig) {
+          st_hi = warp_max(cl ? xch1[lane][5] : kNegBig);
+          st_lo = warp_min(cl ? xch1[lane][6] : kI64Max);
+          ipa_mx = warp_max(cl ? xch1[lane][7] : 0);
+          ipa_mn = warp_min(cl ? xch1[lane][8] : 0);
+          elig = warp_sum(cl ? xch1[lane][9] : 0);
         }
       }
 
-      // ---- soft spread (kTerms): per constraint, the distinct
-      // eligible domains, then each eligible node's f64 score summed in
-      // slot order, truncated, and its min / max over the eligible nodes
+      // ---- soft spread (kTerms): per constraint, the distinct eligible
+      // domains of the cluster, then each eligible node's f64 score summed
+      // in slot order, truncated, and its min / max over the eligible
+      // nodes. `elig` is the cluster's count here, so every block takes
+      // the same branch. A non-hostname slot's domains are the values
+      // stamped with this step in any block's stamps: block r counts the
+      // values of its share (every C-th from the r-th) that some block
+      // stamped, and the cluster sums the counts, kRound slots an exchange
       int64_t s_mx = 0, s_mn = 0;
       const bool soft_scored = soft_on && elig > 0;
       if constexpr (kTerms) {
         if (soft_scored) {
-          int64_t* acc = aux + kAuxSoft * n;
-          for (int64_t i = tid; i < n; i += nthr) acc[i] = __double_as_longlong(0.0);
-          for (int64_t j = 0; j < tm.sm_n; ++j) {
-            const int64_t c = tm.cls_srows[u * tm.sm_n + j];
-            if (c < 0) continue;
-            const bool host = tm.s_host[c] != 0;
-            int64_t sz = elig;  // a hostname domain is a node
-            if (!host) {
-              int64_t cnt_v = 0;
-              for (int64_t x = tm.s_off[c] + tid; x < tm.s_off[c + 1]; x += nthr) {
-                cnt_v += tm.stamps[x] == p;
-              }
-              cnt_v = warp_sum(cnt_v);
-              int64_t (*buf)[kWarps] = xbuf[xb];
-              xb ^= 1;
-              if (lane == 0) buf[0][warp] = cnt_v;
-              __syncthreads();
-              sz = warp_sum(buf[0][lane]);
+          int64_t* acc = l_aux + kAuxSoft * ls;
+          for (int64_t i = tid; i < cnt; i += nthr) acc[i] = __double_as_longlong(0.0);
+          const int32_t* srows = tm.cls_srows + u * tm.sm_n;
+          int rounds = 0;  // exchanges so far: the buffer alternates
+          for (int64_t j0 = 0; j0 < tm.sm_n; j0 += kRound) {
+            bool any_dom = false;  // a class-wide fact: every block agrees
+            for (int x = 0; x < kRound && j0 + x < tm.sm_n; ++x) {
+              const int64_t c = srows[j0 + x];
+              any_dom |= c >= 0 && !tm.s_host[c];
             }
-            const double weight = tm.log_tab[sz];
-            const double skew1 = __ll2double_rn(sub_w(tm.s_skew[c], 1));
-            const int64_t r = tm.s_row[c];
-            const int32_t* vals = tm.topo + r * n;
-            const int64_t* counts = host ? tm.t_state + tm.t_off[r] : tm.s_state + tm.s_off[c];
-            for (int64_t i = tid; i < n; i += nthr) {
-              if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
-              const int32_t v = vals[i];
-              const int64_t k = v >= 0 ? counts[v] : 0;
-              const double term = __dadd_rn(__dmul_rn(__ll2double_rn(k), weight), skew1);
-              acc[i] = __double_as_longlong(__dadd_rn(__longlong_as_double(acc[i]), term));
+            const int par = rounds & 1;
+            if (any_dom) {
+              for (int x = 0; x < kRound; ++x) {
+                const int64_t c = j0 + x < tm.sm_n ? srows[j0 + x] : -1;
+                int64_t cnt_v = 0;
+                if (c >= 0 && !tm.s_host[c]) {
+                  const int64_t end = tm.s_off[c + 1];
+                  for (int64_t v = tm.s_off[c] + crank + tid * csize; v < end; v += nthr * csize) {
+                    bool seen = false;
+                    // another block's stamps: past its cluster barrier,
+                    // read from L2, never a stale L1 line
+                    for (int64_t r = 0; r < csize && !seen; ++r) {
+                      seen = __ldcg(reinterpret_cast<const long long*>(
+                                 tm.stamps + r * tm.vs_n + v)) == p;
+                    }
+                    cnt_v += seen;
+                  }
+                }
+                cnt_v = warp_sum(cnt_v);
+                if (lane == 0) red1[x][warp] = cnt_v;
+              }
+              __syncthreads();
+              if (warp < kRound) {
+                const int64_t sum = warp_sum(lane < nwarps ? red1[warp][lane] : 0);
+                if (lane < csize) *at_rank(cluster, csize, &xdom[par][crank][warp], lane) = sum;
+              }
+              cluster_barrier(cluster, csize);
+              ++rounds;
+            }
+            for (int x = 0; x < kRound && j0 + x < tm.sm_n; ++x) {
+              const int64_t c = srows[j0 + x];
+              if (c < 0) continue;
+              const bool host = tm.s_host[c] != 0;
+              int64_t sz = elig;  // a hostname domain is a node
+              if (!host) {
+                sz = 0;
+                for (int64_t r = 0; r < csize; ++r) sz += xdom[par][r][x];
+              }
+              const double weight = tm.log_tab[sz];
+              const double skew1 = __ll2double_rn(sub_w(tm.s_skew[c], 1));
+              const int64_t r = tm.s_row[c];
+              const int32_t* vals = tm.topo + r * n + lo;
+              const int64_t* counts = host ? t_counts(tm, rep, 0, r) : s_counts(tm, rep, c);
+              for (int64_t i = tid; i < cnt; i += nthr) {
+                if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + lo + i]) continue;
+                const int32_t v = vals[i];
+                const int64_t k = v >= 0 ? counts[v] : 0;
+                const double term = __dadd_rn(__dmul_rn(__ll2double_rn(k), weight), skew1);
+                acc[i] = __double_as_longlong(__dadd_rn(__longlong_as_double(acc[i]), term));
+              }
             }
           }
           int64_t mx = kNegBig, mn = kI64Max;
-          for (int64_t i = tid; i < n; i += nthr) {
-            if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + i]) continue;
+          for (int64_t i = tid; i < cnt; i += nthr) {
+            if (l_part[i] == kI64Min || !tm.s_haskeys[u * n + lo + i]) continue;
             const int64_t raw = __double2ll_rz(__longlong_as_double(acc[i]));
             acc[i] = raw;
             mx = raw > mx ? raw : mx;
             mn = raw < mn ? raw : mn;
           }
+          // the block's min-max in red2 (free until pass 2, which the
+          // cluster barrier below separates), then the cluster's
           mx = warp_max(mx);
           mn = warp_min(mn);
-          int64_t (*buf)[kWarps] = xbuf[xb];
-          xb ^= 1;
           if (lane == 0) {
-            buf[0][warp] = mx;
-            buf[1][warp] = mn;
+            red2[0][warp] = mx;
+            red2[1][warp] = mn;
           }
           __syncthreads();
-          s_mx = warp_max(buf[0][lane]);
-          s_mn = warp_min(buf[1][lane]);
+          if (warp == 0) {
+            mx = warp_max(lane < nwarps ? red2[0][lane] : kNegBig);
+            mn = warp_min(lane < nwarps ? red2[1][lane] : kI64Max);
+            if (lane < csize) {
+              int64_t* x = at_rank(cluster, csize, &xsoft[crank][0], lane);
+              x[0] = mx;
+              x[1] = mn;
+            }
+          }
+          cluster_barrier(cluster, csize);
+          s_mx = kNegBig;
+          s_mn = kI64Max;
+          for (int64_t r = 0; r < csize; ++r) {
+            s_mx = xsoft[r][0] > s_mx ? xsoft[r][0] : s_mx;
+            s_mn = xsoft[r][1] < s_mn ? xsoft[r][1] : s_mn;
+          }
         }
       }
 
@@ -1106,7 +1395,7 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
           // Open-Local, min-max over the feasible nodes
           if (w.openlocal && wants && st_rng > 0) {
             const int64_t s =
-                floordiv_fast(mul_w(sub_w(aux[kAuxStore * n + i], st_lo), kMaxScore), st_rng);
+                floordiv_fast(mul_w(sub_w(l_aux[kAuxStore * ls + i], st_lo), kMaxScore), st_rng);
             total = add_w(total, mul_w(s, w.openlocal));
           }
         }
@@ -1114,17 +1403,17 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
           // InterPodAffinity NormalizeScore: bounds include 0, f64 divide
           if (w.ipa && ipa_diff > 0) {
             const int64_t s = __double2ll_rz(__ddiv_rn(
-                __ll2double_rn(mul_w(kMaxScore, sub_w(aux[kAuxIpa * n + i], ipa_mn))),
+                __ll2double_rn(mul_w(kMaxScore, sub_w(l_aux[kAuxIpa * ls + i], ipa_mn))),
                 __ll2double_rn(ipa_diff)));
             total = add_w(total, mul_w(s, w.ipa));
           }
           // PodTopologySpread: eligible nodes by (max + min - raw) / max
           if (soft_scored) {
             int64_t s = 0;
-            if (tm.s_haskeys[u * n + i]) {
+            if (tm.s_haskeys[u * n + lo + i]) {
               s = s_mx == 0 ? kMaxScore
                             : floordiv_fast(mul_w(kMaxScore, sub_w(add_w(s_mx, s_mn),
-                                                              aux[kAuxSoft * n + i])),
+                                                              l_aux[kAuxSoft * ls + i])),
                                        s_mx > 1 ? s_mx : 1);
             }
             total = add_w(total, mul_w(s, w.spread));
@@ -1155,20 +1444,17 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
         best_i = wl ? red2[1][lane] : kI64Max;
         warp_argmax(best_s, best_i);
       }
-      if constexpr (!kBig) {
-        if (csize > 1) {
-          const cg::cluster_group cluster = cg::this_cluster();
-          if (tid < csize) {
-            int64_t* x = cluster.map_shared_rank(&xch2[crank][0], tid);
-            x[0] = best_s;
-            x[1] = best_i;
-          }
-          cluster.sync();
-          const bool cl = lane < csize;
-          best_s = cl ? xch2[lane][0] : kI64Min;
-          best_i = cl ? xch2[lane][1] : kI64Max;
-          warp_argmax(best_s, best_i);
+      if (csize > 1) {
+        if (tid < csize) {
+          int64_t* x = cluster.map_shared_rank(&xch2[crank][0], tid);
+          x[0] = best_s;
+          x[1] = best_i;
         }
+        cluster.sync();
+        const bool cl = lane < csize;
+        best_s = cl ? xch2[lane][0] : kI64Min;
+        best_i = cl ? xch2[lane][1] : kI64Max;
+        warp_argmax(best_s, best_i);
       }
       place = any ? best_i : -1;
     }
@@ -1176,7 +1462,8 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
     // the owner thread of the placed node commits; the next step's pass
     // 1 reads that node from the same thread, so no barrier is needed
     const int64_t j = place - lo;
-    if (place >= 0 && j < cnt && j >= 0 && (j % nthr) == tid) {
+    const bool mine = place >= 0 && j < cnt && j >= 0;  // this block owns the node
+    if (mine && (j % nthr) == tid) {
       used_c[j] = add_w(used_c[j], rc);
       used_m[j] = add_w(used_m[j], rm);
       used_e[j] = add_w(used_e[j], re);
@@ -1197,8 +1484,7 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       if constexpr (kStore) {
         if (wants) {
           int64_t unused = 0;
-          store_eval<true>(st, st.vg_used, st.ssd_used, st.hdd_used, st.vg_take, u, n, place,
-                           unused);
+          store_eval<true>(st, sv, u, j, unused);
         }
       }
     }
@@ -1206,22 +1492,26 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       if (place >= 0) {
         // AddPod: one add per term, group and soft row at the placed
         // node's value; rows are spread over the threads (distinct rows
-        // never share a count), then a barrier before the next read
-        const int64_t vt = tm.vt_n;
+        // never share a count), then a barrier before the next read. A
+        // shared row's add goes into every block's replica alike; a
+        // node-owned row's only into the scenario's value space, by the
+        // block that owns the node
         for (int64_t r = tid; r < tm.t_n; r += nthr) {
           const int32_t v = tm.topo[r * n + place];
-          if (v < 0) continue;
-          const int64_t at = tm.t_off[r] + v;
+          if (v < 0 || (tm.t_rep[r] < 0 && !mine)) continue;
           for (int k = 0; k < 4; ++k) {
-            tm.t_state[k * vt + at] =
-                add_w(tm.t_state[k * vt + at], tm.t_cls[(k * u_n + u) * tm.t_n + r]);
+            int64_t* row = t_counts(tm, rep, k, r);
+            row[v] = add_w(row[v], tm.t_cls[(k * u_n + u) * tm.t_n + r]);
           }
         }
+        int64_t* gt = g_totals(tm, rep);
         for (int64_t a = tid; a < tm.a_n; a += nthr) {
           const int32_t v = tm.g_topo[a * n + place];
           if (v < 0 || !tm.g_match[u * tm.a_n + a]) continue;
-          tm.g_state[tm.g_off[a] + v] = add_w(tm.g_state[tm.g_off[a] + v], 1);
-          tm.gt_state[a] = add_w(tm.gt_state[a], 1);
+          gt[a] = add_w(gt[a], 1);
+          if (tm.g_rep[a] < 0 && !mine) continue;
+          int64_t* row = g_counts(tm, rep, a);
+          row[v] = add_w(row[v], 1);
         }
         for (int64_t c = tid; c < tm.cs_n; c += nthr) {
           const int64_t r = tm.s_row[c];
@@ -1229,7 +1519,9 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
           if (v < 0 || !tm.s_q[c * n + place] || tm.t_cls[(kTMatch * u_n + u) * tm.t_n + r] == 0) {
             continue;
           }
-          tm.s_state[tm.s_off[c] + v] = add_w(tm.s_state[tm.s_off[c] + v], 1);
+          if (tm.s_rep[c] < 0 && !mine) continue;
+          int64_t* row = s_counts(tm, rep, c);
+          row[v] = add_w(row[v], 1);
         }
         __syncthreads();
       }
@@ -1245,41 +1537,95 @@ __global__ void __launch_bounds__((kStore || kTerms) ? kThreads : kClusterThread
       if (kScal) {
         for (int64_t k = 0; k < k_n; ++k) scal_used[k * n + lo + i] = l_scal[k * m + i];
       }
-      if (kGpu) {
+      if (gpu_on) {
         for (int64_t g = 0; g < g_n; ++g) gpu_used[g * n + lo + i] = l_gpu[g * m + i];
       }
       if (kPorts) {
         for (int64_t v = 0; v < w_n; ++v) port_used[v * n + lo + i] = l_ports[v * m + i];
       }
+      if constexpr (kStore) {
+        for (int64_t v = 0; v < st.v_n; ++v) st.vg_used[v * n + lo + i] = sv.vg_used[v * m + i];
+        for (int64_t d = 0; d < st.ds_n; ++d) st.ssd_used[d * n + lo + i] = sv.ssd_used[d * m + i];
+        for (int64_t d = 0; d < st.dh_n; ++d) st.hdd_used[d * n + lo + i] = sv.hdd_used[d * m + i];
+      }
     }
   }
-  if constexpr (!kBig) {
-    // no block leaves while another may still store into its exchange
-    if (csize > 1) cg::this_cluster().sync();
+  if constexpr (kTerms) {
+    // the replicas agree: block 0's goes back to the scenario's value
+    // space (the node-owned rows are there already)
+    if (crank == 0) {
+      for (int64_t r = 0; r < tm.t_n; ++r) {
+        const int64_t o = tm.t_rep[r];
+        if (o < 0) continue;
+        const int64_t nv = tm.t_off[r + 1] - tm.t_off[r];
+        for (int64_t x = tid; x < 4 * nv; x += nthr) {
+          const int64_t k = x / nv, v = x - k * nv;
+          tm.t_state[k * tm.vt_n + tm.t_off[r] + v] = rep[k * tm.vr_n + o + v];
+        }
+      }
+      for (int64_t a = 0; a < tm.a_n; ++a) {
+        const int64_t o = tm.g_rep[a];
+        if (o >= 0) {
+          for (int64_t v = tid; v < tm.g_off[a + 1] - tm.g_off[a]; v += nthr) {
+            tm.g_state[tm.g_off[a] + v] = rep[4 * tm.vr_n + o + v];
+          }
+        }
+        if (tid == 0) tm.gt_state[a] = g_totals(tm, rep)[a];
+      }
+      for (int64_t c = 0; c < tm.cs_n; ++c) {
+        const int64_t o = tm.s_rep[c];
+        if (o < 0) continue;
+        const int64_t* src = rep + 4 * tm.vr_n + tm.vgr_n + tm.a_n + o;
+        for (int64_t v = tid; v < tm.s_off[c + 1] - tm.s_off[c]; v += nthr) {
+          tm.s_state[tm.s_off[c] + v] = src[v];
+        }
+      }
+    }
   }
+  // no block leaves while another may still store into its exchange
+  if (csize > 1) cluster.sync();
 }
 
 // How one launch is shaped: S scenarios, each on a cluster of `cluster`
-// blocks, with `smem` bytes of dynamic shared memory a block when the
-// slices are resident there (`resident` bit 0; bit 1: with the
-// per-(class, node) caches). The threads a block follow from the
-// instantiation and the layout.
+// blocks, with `smem` bytes of dynamic shared memory a block. `resident`
+// bit 0: the slices' rows are resident there; bit 1: with the
+// per-(class, node) caches (the base and B2 instantiations); bit 2: the
+// term replicas too (kTerms). The threads a block follow from the layout.
 struct Shape {
   int64_t scenarios, cluster, resident, smem;
 };
 
-// The shared memory a resident slice of m nodes takes (the wrapper's
-// slice_bytes and cache_bytes): the 8-byte rows (four allocatable, six
-// state, partial, the scalar kinds' allocatable and used, the three GPU
-// node rows and the per-device used), the port words, the node mask;
-// with the caches, two [U, m] rows, the node stamps and [U, 6].
-int64_t slice_bytes(int64_t m, int64_t k_n, int64_t g_n, int64_t w_n, bool scal, bool gpu,
-                    bool ports, int64_t u_n, bool cached) {
-  int64_t rows8 = 4 + 6 + 1;
-  if (scal) rows8 += 2 * k_n;
-  if (gpu) rows8 += 3 + g_n;
-  const int64_t caches = cached ? 8 * ((2 * u_n + 1) * m + 6 * u_n) : 0;
-  return m * (8 * rows8 + (ports ? 4 * w_n : 0) + 1) + caches;
+// The dynamic shared memory a layout takes for slices of m nodes (the
+// wrapper's launch_shape, slice_bytes and cache_bytes): kTerms' hard-spread
+// minima and, with bit 2, its replica (each rounded up to 16 bytes); with
+// bit 0 the slice: the 8-byte rows (four allocatable, six state, partial,
+// the scalar kinds' allocatable and used, the three GPU node rows and the
+// per-device used; kStore / kTerms the three scratch rows; kStore the VG
+// capacities, usage and takes and the SSD and HDD capacities), the port
+// words, then the byte rows (the node mask; kStore the storage flag and
+// the SSD and HDD usage); with bit 1, two [U, m] rows, the node stamps and
+// [U, 6].
+template <bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
+int64_t dyn_bytes(const ScanArgs& a, int64_t m, int64_t resident) {
+  int64_t b = 0;
+  if (kTerms) {
+    b += 8 * ((a.tm.hm_n + 1) & ~int64_t(1));
+    if (resident & 4) b += 8 * ((replica_len(a.tm) + 1) & ~int64_t(1));
+  }
+  if (resident & 1) {
+    int64_t rows8 = 4 + 6 + 1;
+    int64_t rows1 = 1;
+    if (kScal) rows8 += 2 * a.k_n;
+    if (kGpu && a.gpu_node != nullptr) rows8 += 3 + a.g_n;
+    if (kStore || kTerms) rows8 += 3;
+    if (kStore) {
+      rows8 += 3 * a.st.v_n + a.st.ds_n + a.st.dh_n;
+      rows1 += 1 + a.st.ds_n + a.st.dh_n;
+    }
+    b += m * (8 * rows8 + (kPorts ? 4 * a.w_n : 0) + rows1);
+    if (resident & 2) b += 8 * ((2 * a.u_n + 1) * m + 6 * a.u_n);
+  }
+  return b;
 }
 
 // What a call to one instantiation does: launch it, ask how many of its
@@ -1301,17 +1647,18 @@ int run(const ScanArgs& a, const Shape& sh, cudaStream_t stream, Ask ask, int64_
     *out = static_cast<int64_t>(fa.sharedSizeBytes);
     return static_cast<int>(err);
   }
+  // the layouts each instantiation takes: the caches only beside a
+  // resident slice of the base and B2 instantiations, the replicas only
+  // with kTerms
+  const int64_t layouts = !kBig ? 3 : (kTerms ? 5 : 1);
   const bool shape_ok =
       sh.scenarios >= 1 && (sh.scenarios == 1 || kBatch) && sh.cluster >= 1 &&
       sh.cluster <= kMaxCluster && (sh.cluster & (sh.cluster - 1)) == 0 && sh.smem >= 0 &&
-      sh.scenarios * sh.cluster <= 0x7fffffff && sh.resident >= 0 && sh.resident <= 3 &&
-      sh.resident != 2 &&
-      // the storage and term instantiations run one 1024-thread block
-      // a scenario with state in global memory
-      (!kBig || (sh.cluster == 1 && !sh.resident && sh.smem == 0)) &&
-      (!sh.resident ||
-       sh.smem >= slice_bytes((a.n + sh.cluster - 1) / sh.cluster, a.k_n, a.g_n, a.w_n, kScal,
-                              kGpu, kPorts, a.u_n, (sh.resident & 2) != 0));
+      sh.scenarios * sh.cluster <= 0x7fffffff && sh.resident >= 0 &&
+      (sh.resident & ~layouts) == 0 && sh.resident != 2 &&
+      (ask != Ask::kLaunch ||
+       sh.smem >= dyn_bytes<kScal, kGpu, kPorts, kStore, kTerms>(
+                      a, (a.n + sh.cluster - 1) / sh.cluster, sh.resident));
   if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (sh.cluster > 8) {
@@ -1329,7 +1676,7 @@ int run(const ScanArgs& a, const Shape& sh, cudaStream_t stream, Ask ask, int64_
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(sh.scenarios * sh.cluster));
-  cfg.blockDim = dim3(kBig ? kThreads : (sh.resident ? kResidentThreads : kClusterThreads));
+  cfg.blockDim = dim3((sh.resident & 1) ? kResidentThreads : kClusterThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(sh.smem);
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -1385,10 +1732,12 @@ enum {
   kArgTopo, kArgTOff, kArgTCls, kArgClsRows, kArgGTopo, kArgGOff, kArgGMatch, kArgClsGrows,
   kArgClsGid, kArgGSelf, kArgHRow, kArgHSkew, kArgHSelf, kArgHCand, kArgClsHrows,
   kArgSRow, kArgSHost, kArgSSkew, kArgSQ, kArgClsSrows, kArgSHaskeys, kArgSOff, kArgLogTab,
-  kArgTState, kArgGState, kArgGtState, kArgSState, kArgStamps, kArgHmin, kArgAux,
+  kArgTRep, kArgGRep, kArgSRep,
+  kArgTState, kArgGState, kArgGtState, kArgSState, kArgStamps, kArgRep, kArgAux,
   kArgN, kArgU, kArgP, kArgK, kArgG, kArgW,
   kArgV, kArgDs, kArgDh, kArgLv, kArgSv, kArgHv,
   kArgT, kArgR, kArgA, kArgGm, kArgCh, kArgHm, kArgCs, kArgSm, kArgVt, kArgVa, kArgVs,
+  kArgVr, kArgVgr, kArgVsr,
   kArgWLeast, kArgWBalanced, kArgWSimon, kArgWNodeAff, kArgWTaintTol, kArgWSpread,
   kArgWIpa, kArgWOpenLocal,
   kArgScenarios, kArgFlags, kArgCluster, kArgResident, kArgSmem, kArgCount
@@ -1495,7 +1844,10 @@ extern "C" int fused_scan_launch(const int64_t* args, int64_t n_args, void* stre
   tm.gt_state = ptr<int64_t*>(v, kArgGtState);
   tm.s_state = ptr<int64_t*>(v, kArgSState);
   tm.stamps = ptr<int64_t*>(v, kArgStamps);
-  tm.hmin = ptr<int64_t*>(v, kArgHmin);
+  tm.t_rep = ptr<const int64_t*>(v, kArgTRep);
+  tm.g_rep = ptr<const int64_t*>(v, kArgGRep);
+  tm.s_rep = ptr<const int64_t*>(v, kArgSRep);
+  tm.rep = ptr<int64_t*>(v, kArgRep);
   tm.t_n = v[kArgT];
   tm.r_n = v[kArgR];
   tm.a_n = v[kArgA];
@@ -1507,6 +1859,9 @@ extern "C" int fused_scan_launch(const int64_t* args, int64_t n_args, void* stre
   tm.vt_n = v[kArgVt];
   tm.va_n = v[kArgVa];
   tm.vs_n = v[kArgVs];
+  tm.vr_n = v[kArgVr];
+  tm.vgr_n = v[kArgVgr];
+  tm.vsr_n = v[kArgVsr];
   const Shape sh{v[kArgScenarios], v[kArgCluster], v[kArgResident], v[kArgSmem]};
   const RunFn fn = run_of(v[kArgFlags]);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

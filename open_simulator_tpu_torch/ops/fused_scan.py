@@ -36,15 +36,17 @@ Kernel note. It replaces `pallas_scan._make_kernel` (the `pl.pallas_call`
 in `run_scan_pallas`, resident and streamed term layouts alike) and
 `run_scan_pallas_batch`. On an H100 it is bound by its serial chain: P
 pod steps, each depending on the previous step's commit, each passes
-over the node axis around reductions over all of it. The base and B2
-instantiations run one scenario on a thread-block cluster of C blocks
+over the node axis around reductions over all of it. Every
+instantiation runs one scenario on a thread-block cluster of C blocks
 (`cluster_size`: C grows with the node count up to 16 and steps down
 so that a batch's clusters are resident together), each block owning a
 contiguous node slice whose rows stay in its shared memory when they
-fit (`launch_shape`); two cluster barriers a step join the blocks'
-reductions. The storage and term instantiations run one 1024-thread
-block a scenario. Every node has one owner thread; see the source for
-the details.
+fit (`launch_shape`); cluster barriers join the blocks' reductions, two
+a step for the base plan. A term row whose values each sit on one node
+(`node_owned`: hostname keys) keeps its counts in the scenario's value
+space, touched only by the block owning the node; every block keeps a
+replica of the other rows' counts and applies every commit to it.
+Every node has one owner thread; see the source for the details.
 
 `fused_scan_batch_reference` is the plain PyTorch version of the same
 function: an eager loop over the pods, one step vectorised over the
@@ -227,6 +229,11 @@ class FusedPlan:
     g_init: Optional[torch.Tensor] = None  # [VA] group counts
     gt_init: Optional[torch.Tensor] = None  # [A] group totals
     s_init: Optional[torch.Tensor] = None  # [VS] soft counts
+    # each term, group and soft row's offset in a block's replica of the
+    # shared rows' counts, -1 for a node-owned row (replica_offsets)
+    t_rep: Optional[torch.Tensor] = None  # [T]
+    g_rep: Optional[torch.Tensor] = None  # [A]
+    s_rep: Optional[torch.Tensor] = None  # [Cs]
 
     @property
     def device(self) -> torch.device:
@@ -301,6 +308,36 @@ def _ragged(topo: np.ndarray):
     off = np.zeros(topo.shape[0] + 1, dtype=np.int64)
     np.cumsum(nv, out=off[1:])
     return off
+
+
+def node_owned(topo: np.ndarray) -> np.ndarray:
+    """[R] bool: whether no value of row r is held by two nodes (a
+    hostname key). Such a row's count at a value is read and committed
+    only at the one node holding it, so on the card it stays in the
+    scenario's value space, touched only by the block that owns that
+    node; every other row is shared and each block keeps a replica."""
+    topo = np.asarray(topo)
+    owned = np.ones(topo.shape[0], dtype=bool)
+    for r in range(topo.shape[0]):
+        vals = topo[r][topo[r] >= 0]
+        owned[r] = np.unique(vals).size == vals.size
+    return owned
+
+
+def replica_offsets(owned: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """[R] int64: the offset of each shared row's value range in a
+    block's replica (the shared rows' ranges packed in row order), -1
+    for a node-owned row."""
+    owned = np.asarray(owned, dtype=bool)
+    sizes = np.where(owned, 0, np.diff(np.asarray(off, dtype=np.int64)))
+    return np.where(owned, -1, np.cumsum(sizes) - sizes).astype(np.int64)
+
+
+def _replica_len(rep: torch.Tensor, off: torch.Tensor) -> int:
+    """Entries of the replica that `rep` packs (off: the value-space
+    offsets of the same rows)."""
+    sizes = off[1:] - off[:-1]
+    return int((sizes * (rep >= 0)).sum()) if rep.numel() else 0
 
 
 def _dense_to_value(dense: np.ndarray, off: np.ndarray) -> np.ndarray:
@@ -431,6 +468,7 @@ def _term_arrays(topo, match, c_anti, c_comb, c_panti, c_paff, cls_rows, g_topo,
     cls_gid = a(cls_gid, np.int32)
     match_all = a(match_all, bool)
     t_init, g_init, gt_init, s_init = init(t_off, g_off, s_off)
+    t_owned = node_owned(topo)
     return dict(
         topo=topo, t_off=t_off,
         t_cls=np.stack([a(x, i64).T for x in (match, c_anti, c_comb, c_panti, c_paff)]),
@@ -449,6 +487,9 @@ def _term_arrays(topo, match, c_anti, c_comb, c_panti, c_paff, cls_rows, g_topo,
         # (pallas_scan.py builds the same one): kernel and plain read it
         log_tab=np.log(np.arange(n + 1, dtype=np.float64) + 2.0),
         t_init=t_init, g_init=g_init, gt_init=gt_init, s_init=s_init,
+        t_rep=replica_offsets(t_owned, t_off),
+        g_rep=replica_offsets(node_owned(g_topo), g_off),
+        s_rep=replica_offsets(t_owned[s_row.astype(np.int64)], s_off),
     )
 
 
@@ -1125,7 +1166,7 @@ def fused_scan_reference(plan: FusedPlan, class_of_pod, active, valid, pinned=No
 
 # length of the int64 argument vector of fused_scan_launch (the
 # kArg* enum of csrc/fused_scan.cu); checked against the library
-_N_ARGS = 101
+_N_ARGS = 107
 
 
 def _library():
@@ -1163,7 +1204,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def block_dims(plan: FusedPlan) -> dict:
     """The block sizes the kernel takes (0 for a block that is off)."""
     d = dict(k=0, g=0, w=0, v=0, ds=0, dh=0, lv=0, sv=0, hv=0, t=0, r=0, a=0,
-             gm=0, ch=0, hm=0, cs=0, sm=0, vt=0, va=0, vs=0)
+             gm=0, ch=0, hm=0, cs=0, sm=0, vt=0, va=0, vs=0, vr=0, vgr=0, vsr=0)
     if plan.has_scal:
         d["k"] = plan.scal_alloc.shape[0]
     if plan.has_gpu:
@@ -1179,8 +1220,19 @@ def block_dims(plan: FusedPlan) -> dict:
                  gm=plan.cls_grows.shape[1], ch=plan.h_row.shape[0],
                  hm=plan.cls_hrows.shape[1], cs=plan.s_row.shape[0],
                  sm=plan.cls_srows.shape[1], vt=plan.t_init.shape[1],
-                 va=plan.g_init.shape[0], vs=plan.s_init.shape[0])
+                 va=plan.g_init.shape[0], vs=plan.s_init.shape[0],
+                 vr=_replica_len(plan.t_rep, plan.t_off),
+                 vgr=_replica_len(plan.g_rep, plan.g_off),
+                 vsr=_replica_len(plan.s_rep, plan.s_off))
     return d
+
+
+def replica_len(plan: FusedPlan) -> int:
+    """int64 entries of one block's replica: the shared term rows' four
+    fields [4, VR], the shared group rows [VGR], the group totals [A] and
+    the shared soft rows [VSR] (0 without terms)."""
+    d = block_dims(plan)
+    return 4 * d["vr"] + d["vgr"] + d["a"] + d["vsr"]
 
 
 def _plan_checks(plan: FusedPlan, d: dict) -> list:
@@ -1219,6 +1271,7 @@ def _plan_checks(plan: FusedPlan, d: dict) -> list:
             ("s_haskeys", u8, (u, n)), ("s_off", i64, (cs + 1,)),
             ("log_tab", torch.float64, (n + 1,)), ("t_init", i64, (4, d["vt"])),
             ("g_init", i64, (d["va"],)), ("gt_init", i64, (a,)), ("s_init", i64, (d["vs"],)),
+            ("t_rep", i64, (t,)), ("g_rep", i64, (a,)), ("s_rep", i64, (cs,)),
         ]
         # the kernel indexes value space with these: check them here
         for name, off, total in (("t_off", plan.t_off, d["vt"]), ("g_off", plan.g_off, d["va"]),
@@ -1230,6 +1283,12 @@ def _plan_checks(plan: FusedPlan, d: dict) -> list:
                               ("h_row", plan.h_row, t), ("s_row", plan.s_row, t)):
             if tab.numel() and int(tab.max()) >= hi:
                 raise ValueError(f"{name} names a row outside [0, {hi})")
+        for name, tab, off, total in (("t_rep", plan.t_rep, plan.t_off, d["vr"]),
+                                      ("g_rep", plan.g_rep, plan.g_off, d["vgr"]),
+                                      ("s_rep", plan.s_rep, plan.s_off, d["vsr"])):
+            ends = torch.where(tab >= 0, tab + off[1:] - off[:-1], 0)
+            if tab.numel() and int(ends.max()) > total:
+                raise ValueError(f"{name} runs past its {total}-entry replica")
     return [(getattr(plan, name), name, dtype, shape) for name, dtype, shape in checks]
 
 
@@ -1247,10 +1306,12 @@ def kernel_name(plan: FusedPlan, batch: bool = False) -> str:
     return EXT_KERNEL_NAME if plan.ext else KERNEL_NAME
 
 
-def scratch_bytes(plan: FusedPlan, scenarios: int = 1) -> int:
+def scratch_bytes(plan: FusedPlan, scenarios: int = 1, cluster: int = 1) -> int:
     """Bytes one launch allocates per call for its state and scratch
-    (the state copies of the new blocks, the per-node scratch rows and
-    the soft-spread stamps), for `scenarios` scenarios."""
+    (the state copies of the new blocks, the per-node scratch rows, the
+    soft-spread stamps of each block and the blocks' replicas of the
+    shared term counts in global memory), for `scenarios` scenarios on
+    clusters of `cluster` blocks."""
     d = block_dims(plan)
     n = plan.n
     per = n * 8 * (6 + 1 + d["k"] + d["g"]) + n * 4 * d["w"]
@@ -1259,7 +1320,10 @@ def scratch_bytes(plan: FusedPlan, scenarios: int = 1) -> int:
     if plan.has_store or plan.has_terms:
         per += n * 8 * 3
     if plan.has_terms:
-        per += 8 * (4 * d["vt"] + d["va"] + d["a"] + 2 * d["vs"] + d["hm"])
+        per += 8 * (4 * d["vt"] + d["va"] + d["a"] + d["vs"])
+        per += 8 * cluster * d["vs"]
+        if not launch_shape(plan, cluster).replica:
+            per += 8 * cluster * max(replica_len(plan), 1)
     return per * scenarios
 
 
@@ -1270,14 +1334,30 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # shared memory one block may use on an H100 (227 KB)
 SMEM_PER_BLOCK = 232_448
 # the static shared arrays of the base and B2 instantiations, in int64:
-# the pass-1 and pass-2 block exchanges [5][32] and [2][32], the one-entry
-# stub of the storage / term buffers, and the cluster exchanges [16][5]
-# and [16][2] (csrc/fused_scan.cu; the library's fused_scan_static_smem,
-# the compiler's own figure, is held to at most this on the card)
-STATIC_SMEM = 8 * (5 * 32 + 2 * 32 + 1 + 16 * 5 + 16 * 2)
+# the pass-1 and pass-2 block exchanges [5][32] and [2][32], the cluster
+# exchanges [16][5] and [16][2], and the one-entry stubs of the term
+# block's three exchanges (csrc/fused_scan.cu; the library's
+# fused_scan_static_smem, the compiler's own figure, is held to at most
+# static_smem on the card)
+STATIC_SMEM = 8 * (5 * 32 + 2 * 32 + 16 * 5 + 16 * 2 + 3)
+# the storage and term instantiations': ten pass-1 values, [10][32] and
+# [16][10]; with terms the exchanges of a round of hard-spread (min, any)
+# pairs [2][16][4][2], of soft-spread domain counts [2][16][4] and of the
+# soft min-max [16][2], else their stubs
+KROUND = 4  # the kernel's kRound: slots a hard- or soft-spread exchange folds
+STATIC_SMEM_STORE = 8 * (10 * 32 + 2 * 32 + 16 * 10 + 16 * 2 + 3)
+STATIC_SMEM_TERMS = 8 * (10 * 32 + 2 * 32 + 16 * 10 + 16 * 2 + 2 * 16 * KROUND * 2
+                         + 2 * 16 * KROUND + 16 * 2)
 # the rule's slice: the smallest cluster whose slices hold at most this
 # many nodes, about two a thread of a block
 SLICE_NODES = 640
+
+
+def static_smem(plan: FusedPlan) -> int:
+    """The static shared memory of the instantiation this plan runs."""
+    if plan.has_terms:
+        return STATIC_SMEM_TERMS
+    return STATIC_SMEM_STORE if plan.has_store else STATIC_SMEM
 
 
 @dataclass(frozen=True)
@@ -1285,20 +1365,24 @@ class LaunchShape:
     """How one launch runs each scenario: on a cluster of `cluster`
     blocks, each block's node slice in `smem` bytes of dynamic shared
     memory when `resident`, else in global memory; `cached`, with the
-    per-(class, node) caches of the passes there too. The kernel library
-    sets the threads a block: 1024 for the storage and term
-    instantiations, else 384 for a resident slice and 512 for one in
-    global memory."""
+    per-(class, node) caches of the passes there too (the base and B2
+    instantiations); `replica`, with the block's replica of the shared
+    term counts there too (a term plan, whose dynamic shared memory
+    always holds the step's hard-spread minima). The kernel library sets
+    the threads a block: 384 for a resident slice, 512 for one in global
+    memory."""
 
     cluster: int
     resident: bool
     smem: int
     cached: bool = False
+    replica: bool = False
 
     @property
     def layout(self) -> int:
-        """The kernel's `resident` argument: bit 0 resident, bit 1 cached."""
-        return int(self.resident) | (2 if self.cached else 0)
+        """The kernel's `resident` argument: bit 0 resident, bit 1
+        cached, bit 2 replica."""
+        return int(self.resident) | (2 if self.cached else 0) | (4 if self.replica else 0)
 
 
 def slices(n: int, cluster: int) -> list:
@@ -1313,23 +1397,48 @@ def slice_bytes(plan: FusedPlan, m: int) -> int:
     """Shared memory of a resident slice of m nodes: the 8-byte rows
     (four allocatable, six state, partial, each scalar kind's
     allocatable and used, the three GPU node rows and each device's
-    used), the 4-byte port words and the node mask (csrc/fused_scan.cu
-    slice_bytes)."""
+    used; a storage or term plan's three scratch rows; a storage plan's
+    VG capacities, usage and takes and its SSD and HDD capacities), the
+    4-byte port words and the byte rows (the node mask; a storage plan's
+    storage flag and SSD and HDD usage) (csrc/fused_scan.cu dyn_bytes)."""
     d = block_dims(plan)
     rows8 = 4 + 6 + 1
+    rows1 = 1
     if plan.has_scal:
         rows8 += 2 * d["k"]
     if plan.has_gpu:
         rows8 += 3 + d["g"]
+    if _big(plan):
+        rows8 += 3
+    if plan.has_store:
+        rows8 += 3 * d["v"] + d["ds"] + d["dh"]
+        rows1 += 1 + d["ds"] + d["dh"]
     ports = 4 * d["w"] if plan.has_ports else 0
-    return m * (8 * rows8 + ports + 1)
+    return m * (8 * rows8 + ports + rows1)
 
 
 def cache_bytes(plan: FusedPlan, m: int) -> int:
     """Shared memory of a slice's per-(class, node) caches: pass 1's
     part and pass 2's normalised terms [U, m], each node's last commit
-    step [m] and six values a class (csrc/fused_scan.cu slice_bytes)."""
+    step [m] and six values a class (csrc/fused_scan.cu dyn_bytes)."""
     return 8 * ((2 * plan.u + 1) * m + 6 * plan.u)
+
+
+def _even8(k: int) -> int:
+    """Bytes of k int64 rounded up to 16 (the kernel keeps rows aligned)."""
+    return 8 * (k + (k & 1))
+
+
+def term_bytes(plan: FusedPlan) -> int:
+    """Dynamic shared memory every layout of a term plan holds: the
+    step's hard-spread minima, one a class slot (0 without terms)."""
+    return _even8(block_dims(plan)["hm"]) if plan.has_terms else 0
+
+
+def replica_bytes(plan: FusedPlan) -> int:
+    """Dynamic shared memory of a block's replica of the shared term
+    counts when it stays there (0 without terms)."""
+    return _even8(replica_len(plan)) if plan.has_terms else 0
 
 
 def _big(plan: FusedPlan) -> bool:
@@ -1339,36 +1448,42 @@ def _big(plan: FusedPlan) -> bool:
 def launch_shape(plan: FusedPlan, cluster: int) -> LaunchShape:
     """The shape of a launch of this plan on clusters of `cluster`
     blocks: the slices live in shared memory when one fits beside the
-    static arrays, with the passes' caches when those fit too. The
-    storage and term instantiations run one block a scenario; asked for
-    more, this raises."""
-    if _big(plan):
-        if cluster != 1:
-            raise ValueError(f"{kernel_name(plan)} runs one block a scenario: cluster 1, "
-                             f"not {cluster}")
-        return LaunchShape(1, False, 0)
+    static arrays. The base and B2 instantiations add the passes'
+    caches when those fit too; a term plan first places the hard-spread
+    minima and, when it fits, its replica of the shared counts, then the
+    slice when that fits beside them."""
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster {cluster} not in {CLUSTER_SIZES}")
     m = -(-plan.n // cluster)
     need = slice_bytes(plan, m)
-    if need + STATIC_SMEM > SMEM_PER_BLOCK:
-        return LaunchShape(cluster, False, 0)
-    with_caches = need + cache_bytes(plan, m)
-    if with_caches + STATIC_SMEM <= SMEM_PER_BLOCK:
-        return LaunchShape(cluster, True, with_caches, True)
-    return LaunchShape(cluster, True, need)
+    static = static_smem(plan)
+    if not _big(plan):
+        if need + static > SMEM_PER_BLOCK:
+            return LaunchShape(cluster, False, 0)
+        with_caches = need + cache_bytes(plan, m)
+        if with_caches + static <= SMEM_PER_BLOCK:
+            return LaunchShape(cluster, True, with_caches, True)
+        return LaunchShape(cluster, True, need)
+    fixed = term_bytes(plan)
+    if fixed + static > SMEM_PER_BLOCK:
+        raise ValueError(f"{kernel_name(plan)}: {block_dims(plan)['hm']} hard-spread slots a "
+                         f"class need {fixed} bytes of shared memory, past a block's")
+    rep = replica_bytes(plan)
+    replica = rep > 0 and fixed + rep + static <= SMEM_PER_BLOCK
+    held = fixed + (rep if replica else 0)
+    if held + need + static <= SMEM_PER_BLOCK:
+        return LaunchShape(cluster, True, held + need, replica=replica)
+    return LaunchShape(cluster, False, held, replica=replica)
 
 
-def cluster_size(n: int, scenarios: int, big: bool, max_active) -> int:
-    """The cluster size of a launch of `scenarios` scans over n nodes.
-    `max_active(c)` is how many clusters of c blocks the card holds at
-    once for this launch. The storage and term instantiations take 1.
-    Else the smallest size whose slices hold at most SLICE_NODES nodes
-    (1 for small n, at most 16), stepped down while the S clusters would
-    not all be resident and a smaller size lets them be; when none does,
-    1 (the most scenarios at once, in waves)."""
-    if big:
-        return 1
+def cluster_size(n: int, scenarios: int, max_active) -> int:
+    """The cluster size of a launch of `scenarios` scans over n nodes,
+    for every instantiation. `max_active(c)` is how many clusters of c
+    blocks the card holds at once for this launch. The smallest size
+    whose slices hold at most SLICE_NODES nodes (1 for small n, at most
+    16), stepped down while the S clusters would not all be resident
+    and a smaller size lets them be; when none does, 1 (the most
+    scenarios at once, in waves)."""
     want = 1
     while want < CLUSTER_SIZES[-1] and -(-n // want) > SLICE_NODES:
         want *= 2
@@ -1409,7 +1524,7 @@ def max_active_clusters(plan: FusedPlan, scenarios: int, batch: bool, cluster: i
 
 def choose_cluster(plan: FusedPlan, scenarios: int, batch: bool) -> int:
     """cluster_size for a launch of this plan on the current card."""
-    return cluster_size(plan.n, scenarios, _big(plan),
+    return cluster_size(plan.n, scenarios,
                         lambda c: max_active_clusters(plan, scenarios, batch, c))
 
 
@@ -1444,12 +1559,15 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
               copies(plan.s_init)) if plan.has_terms else None)
     placements = empty((s_n, p), torch.int32)
     partial = empty((s_n, max(n, 1)))
-    big = plan.has_store or plan.has_terms
-    aux = empty((s_n, 3, max(n, 1))) if big else None
+    aux = empty((s_n, 3, max(n, 1))) if _big(plan) else None
     vg_take = empty((s_n, d["v"], n)) if plan.has_store else None
-    stamps = (torch.full((s_n, d["vs"]), -1, dtype=torch.int64, device=dev)
+    # a term plan's per-block scratch: the soft-spread stamps, and the
+    # replicas of the shared counts when they are not in shared memory
+    blocks_n = s_n * launch.cluster
+    stamps = (torch.full((blocks_n, d["vs"]), -1, dtype=torch.int64, device=dev)
               if plan.has_terms else None)
-    hmin = empty((s_n, d["hm"])) if plan.has_terms else None
+    replicas = (empty((blocks_n, max(replica_len(plan), 1)))
+                if plan.has_terms and not launch.replica else None)
     vg_s, ssd_s, hdd_s = store if store is not None else (None,) * 3
     t_s, g_s, gt_s, s_s = terms if terms is not None else (None,) * 4
 
@@ -1469,18 +1587,18 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
         plan.g_match, plan.cls_grows, plan.cls_gid, plan.g_self,
         plan.h_row, plan.h_skew, plan.h_self, plan.h_cand, plan.cls_hrows,
         plan.s_row, plan.s_host, plan.s_skew, plan.s_q, plan.cls_srows,
-        plan.s_haskeys, plan.s_off, plan.log_tab,
-        t_s, g_s, gt_s, s_s, stamps, hmin, aux,
+        plan.s_haskeys, plan.s_off, plan.log_tab, plan.t_rep, plan.g_rep, plan.s_rep,
+        t_s, g_s, gt_s, s_s, stamps, replicas, aux,
     )] + [n, u, p, k, g, w,
           d["v"], d["ds"], d["dh"], d["lv"], d["sv"], d["hv"],
           d["t"], d["r"], d["a"], d["gm"], d["ch"], d["hm"], d["cs"], d["sm"],
-          d["vt"], d["va"], d["vs"],
+          d["vt"], d["va"], d["vs"], d["vr"], d["vgr"], d["vsr"],
           *plan.weights, s_n, _flags(plan, batch),
           launch.cluster, launch.layout, launch.smem]
     assert len(args) == _N_ARGS
     blocks = _state_blocks(plan, scal, gpu, ports, store, terms)
     # the scratch rides along so that it outlives the call's enqueue
-    return args, (placements, state, blocks, (partial, aux, vg_take, stamps, hmin))
+    return args, (placements, state, blocks, (partial, aux, vg_take, stamps, replicas))
 
 
 def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
@@ -1597,6 +1715,10 @@ __all__ = [
     "TERM_ROWS",
     "block_dims",
     "cache_bytes",
+    "node_owned",
+    "replica_bytes",
+    "replica_len",
+    "replica_offsets",
     "build_plan",
     "check_in_kernel",
     "choose_cluster",
@@ -1617,6 +1739,8 @@ __all__ = [
     "scratch_bytes",
     "slice_bytes",
     "slices",
+    "static_smem",
+    "term_bytes",
     "torch_scan_reason",
     "value_to_node",
 ]

@@ -34,7 +34,7 @@ from ..models import workloads as wl
 from ..models.decode import ResourceTypes
 from ..models.validation import InputError
 from ..ops import fused_scan
-from ..ops.fused_scan import INACTIVE
+from ..ops.fused_scan import INACTIVE, OutOfSliceError
 from ..scheduler.core import AppResource, _sort_app_pods
 from ..scheduler.oracle import Oracle
 
@@ -44,8 +44,12 @@ __all__ = [
     "PrioritySignalError",
     "ProbeResult",
     "SweepResult",
+    "TorchScanBatchError",
     "sweep_node_counts",
 ]
+
+# the ROADMAP.md item that carries a torch-scan batch through the sweep
+ITEM_TORCH_SCAN = "A1g"
 
 
 class PrioritySignalError(InputError):
@@ -54,6 +58,17 @@ class PrioritySignalError(InputError):
     silent non-preemptive plan would diverge from simulate() on the
     same input. Callers (apply/applier.py) route such a workload to the
     serial escalation loop, whose simulate() handles priority."""
+
+
+class TorchScanBatchError(OutOfSliceError):
+    """The sweep's batch is one the fused kernel does not carry (custom
+    score plugins; fused_scan.torch_scan_reason names it). The sweep's
+    probes ride the kernel only, so it raises before any probe; the
+    serial engine's caller (apply/applier.py) plans such a batch by
+    serial escalation instead."""
+
+    def __init__(self, reason: str):
+        super().__init__(f"{reason} in the capacity sweep", ITEM_TORCH_SCAN)
 
 
 @dataclass
@@ -185,6 +200,9 @@ class CapacitySweep:
             self.features = features_of_batch(
                 self.cluster_enc, self.batch, weights=score_weights
             )
+            reason = fused_scan.torch_scan_reason(self.features)
+            if reason is not None:
+                raise TorchScanBatchError(reason)
             self.plan = fused_scan.build_plan(
                 self.cluster_enc, self.batch, self.dyn, self.features,
                 device=self.device,

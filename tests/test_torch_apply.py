@@ -337,6 +337,74 @@ def test_out_of_slice_planner_options_raise():
         applier.probe_plan_multi(None, [], [])
 
 
+def _name_plugin(pkg, weight):
+    """A stateless custom score plugin of `pkg` (normalize "default"):
+    the score follows the digits of the node's name and the pod's
+    labels."""
+    import importlib
+
+    base = importlib.import_module(f"{pkg}.scheduler.plugins").SchedulerPlugin
+
+    class NameScore(base):
+        name = "name-score-default"
+        normalize = "default"
+
+        def score(self, pod, node):
+            digits = "".join(c for c in node["metadata"]["name"] if c.isdigit())
+            key = len(str((pod.get("metadata") or {}).get("labels") or {}))
+            return (int(digits or 0) * 7 + key) % 11
+
+    plug = NameScore()
+    plug.weight = weight
+    return plug
+
+
+@pytest.fixture
+def register():
+    """register(weight) adds the same plugin to both packages' default
+    registries; they are emptied after the test."""
+    import importlib
+
+    pkgs = ("open_simulator_tpu", "open_simulator_tpu_torch")
+    regs = [importlib.import_module(f"{pkg}.scheduler.plugins").default_registry
+            for pkg in pkgs]
+    for reg in regs:
+        reg.clear()
+
+    def add(weight):
+        for pkg, reg in zip(pkgs, regs):
+            reg.register(_name_plugin(pkg, weight))
+
+    yield add
+    for reg in regs:
+        reg.clear()
+
+
+def test_custom_score_plugin_plans_serially_on_the_oracle_engine(register):
+    """A registered custom score plugin: the serial engine plans the
+    quickstart as the JAX Applier does (+5), the sweep's hint skipped
+    and trace-noted; the cuda engine's sweep names ROADMAP item A1g."""
+    from open_simulator_tpu.apply import applier as japplier
+    from open_simulator_tpu_torch.apply import applier
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    register(3)
+    jax_reset()
+    want = japplier.Applier(japplier.SimonConfig.from_file(QUICKSTART), engine="oracle").run()
+    assert want.success and want.new_node_count == 5
+    port_reset()
+    got = applier.Applier(applier.SimonConfig.from_file(QUICKSTART), engine="oracle",
+                          device="cpu").run()
+    assert (got.success, got.new_node_count) == (True, want.new_node_count)
+    assert "custom score plugins" in GLOBAL.notes.get("apply-serial-route", "")
+    assert sorted(len(ns.pods) for ns in got.result.node_status) == sorted(
+        len(ns.pods) for ns in want.result.node_status)
+    port_reset()
+    with pytest.raises(fused_scan.OutOfSliceError, match="A1g") as err:
+        applier.Applier(applier.SimonConfig.from_file(QUICKSTART), device="cpu").run()
+    assert err.value.item == "A1g"
+
+
 def _sweeps(tmp_path):
     """The JAX package's sweep and the port's over the base case."""
     import importlib

@@ -212,16 +212,21 @@ def test_cuda_kernel_at_layout_edges_equals_plain(edge):
 
 @pytest.mark.cuda
 def test_cuda_static_smem_within_the_wrappers_count():
-    """Every base and B2 instantiation, as the card's compiler built it,
-    has at most STATIC_SMEM bytes of static shared memory: the figure the
-    wrapper counts beside a resident slice."""
+    """Every instantiation, as the card's compiler built it, has at most
+    the static shared memory the wrapper counts beside a resident slice
+    (static_smem: STATIC_SMEM for the base and B2 ones, STATIC_SMEM_STORE
+    and STATIC_SMEM_TERMS for the storage and term ones)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     lib = fused_scan._library()
-    for flags in range(16):
+    for flags in range(64):
+        if flags >> 4 and (flags & 7) != 7:
+            continue  # storage / terms: the B2 blocks are always compiled in
         out = ctypes.c_int64(-1)
         assert lib.fused_scan_static_smem(flags, ctypes.byref(out)) == 0
-        assert 0 < out.value <= fused_scan.STATIC_SMEM, (flags, out.value)
+        want = (fused_scan.STATIC_SMEM_TERMS if flags & 32 else
+                fused_scan.STATIC_SMEM_STORE if flags & 16 else fused_scan.STATIC_SMEM)
+        assert 0 < out.value <= want, (flags, out.value)
 
 
 def tie_shape(n_nodes, n_pods):
@@ -428,25 +433,6 @@ def test_cuda_batch_in_waves_equals_batch_plain():
     _same(single[0], ref[-1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [2, 8, 16])
-def test_cuda_storage_terms_plan_refuses_a_cluster(cluster):
-    """The storage and term instantiations run one block a scenario; a
-    request for more raises before anything is launched."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    plan, batch = _plan(*_b3_scenario(30, 40, 10, 3))
-    plan = plan.to("cuda")
-    assert plan.has_store
-    scen = [(np.ones(40, bool), np.ones(30, bool), batch.pinned_node)]
-    before = dict(fused_scan.LAUNCHES)
-    for is_batch in (False, True):
-        with pytest.raises(ValueError, match="one block a scenario"):
-            fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, is_batch, cluster)
-    assert fused_scan.LAUNCHES == before
-    assert fused_scan.choose_cluster(plan, 1, False) == 1
-
-
 GI = 1 << 30
 
 
@@ -607,6 +593,317 @@ def test_cuda_batch_kernel_with_storage_and_terms_equals_batch_plain():
     assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] == before + 1
     for g, r in zip(got, ref):
         _same(g, r)
+
+
+# ---- B3, B4/B5 and B6 with those flags on thread-block clusters ----------
+
+def _expand_sts(stss, nodes, app="t"):
+    """Pods of StatefulSets in simulate()'s queue order."""
+    from open_simulator_tpu_torch.models import workloads as wl
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.scheduler.core import _sort_app_pods
+
+    wl.reset_name_counter()
+    res = ResourceTypes()
+    res.stateful_sets = stss
+    return _sort_app_pods(wl.generate_valid_pods_from_app(app, res, nodes))
+
+
+def _sts(name, replicas, affinity=None, spread=(), cpu="500m"):
+    spec = {"containers": [{"name": "c", "image": f"img-{name}", "resources": {
+        "requests": {"cpu": cpu, "memory": "1Gi"}}}],
+        "topologySpreadConstraints": list(spread)}
+    if affinity:
+        spec["affinity"] = affinity
+    return {"kind": "StatefulSet", "apiVersion": "apps/v1",
+            "metadata": {"name": name, "namespace": "t", "labels": {"app": name}},
+            "spec": {"selector": {"matchLabels": {"app": name}}, "replicas": replicas,
+                     "template": {"metadata": {"labels": {"app": name}}, "spec": spec}}}
+
+
+def _spread(key, skew, hard, app):
+    return {"maxSkew": skew, "topologyKey": key,
+            "whenUnsatisfiable": "DoNotSchedule" if hard else "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": app}}}
+
+
+def _term(key, app, weight=None):
+    term = {"labelSelector": {"matchLabels": {"app": app}}, "topologyKey": key}
+    return term if weight is None else {"weight": weight, "podAffinityTerm": term}
+
+
+def _with_volumes(pods, every=2):
+    """An LVM volume on every `every`-th pod."""
+    import json
+
+    out = []
+    for i, pod in enumerate(pods):
+        pod = copy.deepcopy(pod)
+        if i % every == 0:
+            pod["metadata"].setdefault("annotations", {})["simon/pod-local-storage"] = \
+                json.dumps({"volumes": [{"kind": "LVM", "size": str((1 + i % 3) * GI),
+                                         "scName": "open-local-lvm"}]})
+        out.append(pod)
+    return out
+
+
+def _fixed_storage_anno():
+    """Two VGs, one SSD and one HDD on every node: the storage rows'
+    count does not follow the node count."""
+    import json
+
+    return json.dumps({
+        "vgs": [{"name": "vg0", "capacity": str(100 * GI), "requested": "0"},
+                {"name": "vg1", "capacity": str(40 * GI), "requested": str(GI)}],
+        "devices": [{"name": "/dev/s0", "capacity": str(80 * GI), "mediaType": "ssd",
+                     "isAllocated": "false"},
+                    {"name": "/dev/h0", "capacity": str(200 * GI), "mediaType": "hdd",
+                     "isAllocated": "false"}]})
+
+
+HOST = "kubernetes.io/hostname"
+
+
+def term_boundary_shape(n_nodes, n_pods, cluster=16, keys="all"):
+    """A storage + term plan whose decisions straddle the slices of the
+    `cluster`-block partition. Each rack holds the last node of one
+    slice and the nodes of the next, so a rack's hard-spread count, its
+    minimum and its soft-spread domain span two blocks; the small nodes
+    sit on either side of two slice boundaries, so the first maximum
+    falls on a boundary; zones alternate; every node has two VGs, an SSD
+    and an HDD. Workloads, by `keys`: "hostname" (required anti-affinity,
+    a hard and a soft spread, all node-owned rows), "zone" (a hard and a
+    soft spread, a required affinity to its own pods: the bootstrap, a
+    preferred anti-affinity: all shared rows) or "all" (both, and a rack
+    workload with a hard and a soft spread and a preferred affinity to
+    the hostname one). LVM volumes on every other pod."""
+    bounds = fused_scan.slices(n_nodes, cluster)
+    starts = [lo for lo, hi in bounds if hi > lo]
+    firsts = starts[1:]
+    small = {firsts[0] - 1, firsts[0], firsts[-1] - 1, firsts[-1]}
+
+    def rack(i):
+        return sum(1 for lo in starts if lo <= i + 1) - 1 if i + 1 < n_nodes else len(starts) - 1
+
+    nodes = []
+    for i in range(n_nodes):
+        node = make_fake_node(f"node-{i:05d}", "4" if i in small else "32",
+                              "16Gi" if i in small else "128Gi",
+                              with_node_labels({"zone": f"z{i % 3}", "rack": f"r{rack(i)}"}))
+        node["metadata"]["annotations"]["simon/node-local-storage"] = _fixed_storage_anno()
+        nodes.append(node)
+    stss = []
+    if keys in ("all", "hostname"):
+        stss.append(_sts("host", n_pods, {"podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [_term(HOST, "host")]}},
+            [_spread(HOST, 1, True, "host"), _spread(HOST, 1, False, "host")]))
+    if keys in ("all", "zone"):
+        stss.append(_sts("zone", n_pods, {"podAntiAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [_term("zone", "zone", 10)]}},
+            [_spread("zone", 1, True, "zone"), _spread("zone", 1, False, "zone")]))
+        stss.append(_sts("zaff", n_pods, {"podAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [_term("zone", "zaff")]}},
+            [_spread("zone", 2, False, "zaff")]))
+    if keys == "all":
+        stss.append(_sts("rack", n_pods, {"podAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [_term("rack", "host", 30)]}},
+            [_spread("rack", 1, True, "rack"), _spread("rack", 2, False, "rack")]))
+    pods = _expand_sts(stss, nodes)
+    # interleave the workloads, cut to n_pods
+    by_app = {}
+    for pod in pods:
+        by_app.setdefault(pod["metadata"]["labels"]["app"], []).append(pod)
+    mixed = [p for group in zip(*by_app.values()) for p in group][:n_pods]
+    return nodes, _with_volumes(mixed), sorted(small)
+
+
+def many_slots_shape(n_nodes, n_pods, slots=6):
+    """A class with `slots` hard and `slots` soft spread constraints on
+    keys k0.. (node i has value i // (j + 1) % 3 of key kj) and a soft
+    hostname spread: more slots than one cluster exchange folds."""
+    labels = lambda i: {f"k{j}": f"v{i // (j + 1) % 3}" for j in range(slots)}
+    nodes = [make_fake_node(f"node-{i:05d}", "16", "64Gi", with_node_labels(labels(i)))
+             for i in range(n_nodes)]
+    spread = [_spread(f"k{j}", 2 + j % 2, True, "many") for j in range(slots)]
+    spread += [_spread(f"k{j}", 1 + j % 3, False, "many") for j in range(slots)]
+    spread.append(_spread(HOST, 1, False, "many"))
+    pods = _expand_sts([_sts("many", n_pods, spread=spread)], nodes)
+    return nodes, pods
+
+
+# storage, terms and both on clusters, single and batch, at the rule's C
+# (None: 4 at these node counts) and at 2, 8 and 16
+CLUSTER_BLOCK_CASES = {
+    "b3": (lambda: _b3_scenario(2500, 600, 21, 6), fused_scan.STORE_KERNEL_NAME),
+    "b4": (lambda: _b4_scenario(2500, 24, 20, 16, 22), fused_scan.TERMS_KERNEL_NAME),
+    "b3-b4": (lambda: _b4_scenario(2100, 16, 25, 8, 23, storage=True),
+              fused_scan.STORE_TERMS_KERNEL_NAME),
+}
+BIG_CLUSTERS = [None, 2, 8, 16]
+_BUILT = {}
+
+
+def _built(key, fn):
+    if key not in _BUILT:
+        _BUILT[key] = fn()
+    return _BUILT[key]
+
+
+def _masked_scenarios(n_nodes, n_pods, pin, seed, count):
+    rng = np.random.RandomState(seed)
+    scen = [(np.ones(n_pods, bool), np.ones(n_nodes, bool), pin),
+            (rng.rand(n_pods) < 0.8, np.arange(n_nodes) % 7 != 0, pin),
+            (np.ones(n_pods, bool), rng.rand(n_nodes) < 0.5, np.where(pin % 2 == 0, pin, -1))]
+    scen += [(rng.rand(n_pods) < 0.9, rng.rand(n_nodes) < 0.3 + 0.05 * k, pin)
+             for k in range(count - 3)]
+    return scen[:count]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [False, True])
+@pytest.mark.parametrize("cluster", BIG_CLUSTERS)
+@pytest.mark.parametrize("name", sorted(CLUSTER_BLOCK_CASES))
+def test_cuda_storage_terms_on_clusters_equals_plain(name, cluster, batch):
+    """fused_scan_store, fused_scan_terms and fused_scan_store_terms, one
+    scenario and a batch of three, on clusters of C blocks: placements
+    and every final row (base, storage, value-space terms) equal the
+    plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    build, kernel = CLUSTER_BLOCK_CASES[name]
+    plan, batch_enc = _built(name, lambda: _plan(*build()))
+    assert fused_scan.kernel_name(plan) == kernel
+    n_nodes, n_pods = plan.n, len(batch_enc.class_of_pod)
+    pin = np.asarray(batch_enc.pinned_node)
+    scen = _masked_scenarios(n_nodes, n_pods, pin, 31, 3 if batch else 1)
+    cuda_plan = _built((name, "cuda"), lambda: plan.to("cuda"))
+    ref = _plain_once((name, batch), lambda: fused_scan.fused_scan_batch_reference(
+        cuda_plan, batch_enc.class_of_pod, scen))
+    got = _kernel(cuda_plan, batch_enc.class_of_pod, scen, batch, cluster)
+    if cluster is None:
+        assert fused_scan.CLUSTERS[fused_scan.kernel_name(plan, batch)] == 4
+    for g, r in zip(got, ref):
+        _same(g, r)
+    assert (ref[0][0] >= 0).sum() > n_pods // 4
+
+
+# (builder, nodes, pods): the term boundary shape with every key, with
+# hostname rows only (node-owned) and with zone rows only (shared, the
+# required-affinity bootstrap), and a class with more hard and soft
+# slots than one exchange round holds
+TERM_SHAPES = {
+    "boundary-all-40": (lambda c: term_boundary_shape(40, 60, c)[:2], 40),
+    "boundary-all-2501": (lambda c: term_boundary_shape(2_501, 300, c)[:2], 2_501),
+    "boundary-hostname-40": (lambda c: term_boundary_shape(40, 40, c, "hostname")[:2], 40),
+    "boundary-zone-40": (lambda c: term_boundary_shape(40, 40, c, "zone")[:2], 40),
+    "many-slots-40": (lambda c: many_slots_shape(40, 50), 40),
+    "many-slots-2501": (lambda c: many_slots_shape(2_501, 200), 2_501),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 2, 16])
+@pytest.mark.parametrize("name", sorted(TERM_SHAPES))
+def test_cuda_term_shapes_on_clusters_equal_plain(name, cluster):
+    """Shapes where the cross-block folds decide: a soft-spread domain
+    whose eligible nodes lie in two blocks, a hard-spread minimum held
+    only by another block, the first maximum on a slice boundary, the
+    bootstrap, node-owned and shared rows alone, and more slots than an
+    exchange folds at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    build, n_nodes = TERM_SHAPES[name]
+    nodes, pods = build(16 if cluster is None else cluster)
+    plan, batch = _plan(nodes, pods)
+    assert plan.has_terms
+    scen = [(np.ones(len(pods), bool), np.ones(n_nodes, bool), None)]
+    ref = fused_scan.fused_scan_reference(plan, batch.class_of_pod, *scen[0])
+    (got,) = _kernel(plan.to("cuda"), batch.class_of_pod, scen, False, cluster)
+    _same(got, ref)
+    assert (ref[0] >= 0).sum() > len(pods) // 4
+
+
+def _edge_plan(n_nodes, pair=False):
+    """The term boundary shape's workloads on n_nodes nodes of fixed
+    storage rows and 5 contiguous racks (a replica that does not follow
+    the node count); `pair`: also a key whose values each sit on two
+    nodes (a shared row of n_nodes / 2 values)."""
+    nodes, pods, _ = term_boundary_shape(64, 64, 16)
+    proto = nodes[-1]
+    wide = []
+    for i in range(n_nodes):
+        node = copy.deepcopy(proto)
+        name = f"node-{i:05d}"
+        node["metadata"]["name"] = name
+        labels = node["metadata"]["labels"]
+        labels.update({HOST: name, "zone": f"z{i % 3}", "rack": f"r{i * 5 // n_nodes}"})
+        if pair:
+            labels["pair"] = f"p{i // 2}"
+        wide.append(node)
+    if pair:
+        pods = pods + _expand_sts([_sts("pair", 16, spread=[_spread("pair", 1, False, "pair")])],
+                                  wide, app="pair")
+    return _plan(wide, pods)
+
+
+def _last_big_slice(plan):
+    """The most nodes a block's slice of this storage + term plan holds
+    resident beside the minima, the replica and the static arrays."""
+    held = fused_scan.term_bytes(plan) + fused_scan.replica_bytes(plan)
+    room = fused_scan.SMEM_PER_BLOCK - fused_scan.static_smem(plan) - held
+    return room // fused_scan.slice_bytes(plan, 1)
+
+
+# node counts at 16 blocks: the last whose slices are resident beside the
+# replica, one more (the rows in global memory, the replica resident),
+# and plans whose replica does not fit (a key whose values each sit on
+# two nodes): at 16,000 nodes the slices stay resident, at 20,800 they
+# do not either
+BIG_EDGES = {"resident": (0, (True, True)), "resident+1": (1, (False, True)),
+             "replica-global": (16_000, (True, False)),
+             "both-global": (20_800, (False, False))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(BIG_EDGES))
+def test_cuda_storage_terms_at_layout_edges_equals_plain(edge):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    nodes, want = BIG_EDGES[edge]
+    if want[1]:
+        probe, _ = _edge_plan(64)
+        plan, batch = _edge_plan(16 * _last_big_slice(probe) + nodes)
+        assert fused_scan.replica_len(plan) == fused_scan.replica_len(probe)
+    else:
+        plan, batch = _edge_plan(nodes, pair=True)
+    cuda_plan = plan.to("cuda")
+    shape = fused_scan.launch_shape(cuda_plan, 16)
+    assert (shape.resident, shape.replica) == want, shape
+    n_pods = len(batch.class_of_pod)
+    scen = [(np.ones(n_pods, bool), np.ones(plan.n, bool), None)]
+    ref = fused_scan.fused_scan_reference(cuda_plan, batch.class_of_pod, *scen[0])
+    (got,) = _kernel(cuda_plan, batch.class_of_pod, scen, False, 16)
+    _same(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_storage_terms_batch_in_waves_equals_batch_plain():
+    """12 storage + term scenarios on clusters of 16: more than the card
+    holds at once, so they run in waves; the rule steps down."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    build, _ = CLUSTER_BLOCK_CASES["b3-b4"]
+    plan, batch = _built("b3-b4", lambda: _plan(*build()))
+    cuda_plan = _built(("b3-b4", "cuda"), lambda: plan.to("cuda"))
+    scen = _masked_scenarios(plan.n, len(batch.class_of_pod), np.asarray(batch.pinned_node),
+                             41, 12)
+    assert fused_scan.max_active_clusters(cuda_plan, 12, True, 16) < 12
+    ref = fused_scan.fused_scan_batch_reference(cuda_plan, batch.class_of_pod, scen)
+    got = _kernel(cuda_plan, batch.class_of_pod, scen, True, 16)
+    for g, r in zip(got, ref):
+        _same(g, r)
+    c = fused_scan.choose_cluster(cuda_plan, 12, True)
+    assert fused_scan.max_active_clusters(cuda_plan, 12, True, c) >= 12
 
 
 # ---- B7: the streaming-bandwidth probe ------------------------------------
