@@ -84,22 +84,67 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     the torch scan on CUDA tensors (the trace notes) and launches no
     fused kernel, equals the same call with `device="cpu"` (placements,
     node status, unscheduled reasons, the RNG's 607-word history) and
-    the JAX package's digest (tools/jax_sample_answer.py).
+    the JAX package's digest (tools/jax_sample_answer.py);
+14. the 8-spec what-if (bench.py run_whatif's specs) on the capacity
+    scenario through `probe_plan_multi` on the card with the counters
+    at 0: one batch launch a live spec a round; every spec's count ==
+    its single-spec search, the 96-cpu spec's whole result (report,
+    placements) == its `probe_plan`, and that spec plans the JAX
+    package's +55;
+15. phase 6's plan through the CLI with `--journal` (and `--snapshot`),
+    then `--resume`: the resume launches no kernel and prints the same
+    JSON;
+16. defrag: (a) bench.py run_defrag's shape (1,000 nodes x 6,000 pods,
+    max_drain 16) through `plan_defrag`, the 17 depths in one batch
+    launch, every row == plain; (b) `simon defrag --max-drain 100` on
+    phase 15's snapshot of the capacity plan (10,055 nodes x 100,000
+    pods): 101 depths in one launch, the chosen depth validated by the
+    module's replay, depths 0, chosen and chosen + 1 == plain;
+17. outages on the pins-first mode of the batch kernel: (a) `simon
+    chaos --failures 0` (the replacement study) on the capacity
+    scenario, its row == plain over its first 5,000 pods; (b) `simon
+    chaos --failures 2 --trials 32` on the capacity shape cut to 2,000
+    nodes x 20,000 pods (about 2,040 scenarios in one launch): three
+    rows == plain, the worst outage re-simulated serially to the same
+    verdict, us a pinned and a free pod step; then the same command on a
+    500 x 5,000 cut prints the JAX package's bytes
+    (tools/jax_chaos_answer.py); (c) `apply --tolerate-node-failures 1`
+    on the 2,000-node cut (serial confirmation noted ok), and on the
+    500-node cut the JAX package's bytes;
+18. A1g: a capacity plan with a custom min-max score plugin (the
+    capacity shape cut to 100 nodes x 1,000 pods) through the CLI: its
+    probes ride the torch scan, no fused kernel launches, and stdout ==
+    the JAX package's bytes (tools/jax_custom_plan_answer.py).
+
+Phases 14-18 fail the run when a trace note reports a downgrade or the
+serial floor, as do the CLI runs of phases 6 and 11.
 
 Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
 do not depend on the later pods): phase 4b 5,000 pods; phase 5's plain
-check the first 5,000 pods; phase 6's the first 30,000 of each of the
+check the first 5,000 pods; phases 7 and 8's the first 5,000 (cut
+from 20,000 and 10,000 to make room for phases 14-18; their
+kernels also run every pod); phase 6's the first 30,000 of each of the
 plan's scans; phase 7b 2,000 pods; phase 9's the first 4,000 pods;
 phase 13's pods 2,000 of the default scenario's 20,000 (the torch scan
-is an eager loop of some hundred launches a pod step).
+is an eager loop of some hundred launches a pod step); phase 17b-c's
+node count 10,000 -> 2,000 (single-node outages scale as nodes x pods)
+and the JAX package's answers at 500 x 5,000 (there its vmapped XLA
+scan takes 56 s and 101 s on a CPU; nodes x pods x scenarios grow 64-
+fold to 2,000 x 20,000, so not run there); phase 17a's plain check the
+first 5,000 pods; phase 18's 100 nodes x 1,000 pods (the torch scan).
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line (every fused-scan entry but the B2 one carries
 `cluster`, the cluster size its main path ran, and `prev_ms`, the same
-work on one block a scenario, timed in this run; the
+work on one block a scenario, timed in this run; the B3, B4 and B5
+entries' `ms`, `bound_ms` and `prev_ms` are the launch over all pods,
+their `plain_ms` the plain version over the first `plain_pods` and their
+`prefix_ms` the kernel's on that cut; the
 `fused_scan_store_terms` entry is phase 10's single launch with the
-launches of phase 11's full-width plan), and
+launches of phase 11's full-width plan; the `fused_scan_batch
+(pins-first)` entry is phase 17b's launch, with phase 17's launches and
+its us a pinned and a free pod step), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -146,6 +191,10 @@ AFF_REPLICAS = 100
 AFF_ZONES = 16
 B5_NODES = 25_000
 B5_PLAIN_PODS = 4_000  # phase 9's kernel-vs-plain, cut from 10,000
+# phases 7 and 8's kernel-vs-plain, cut from 20,000 and 10,000 pods so
+# that phases 14-18 fit the script's time (the kernel also runs all pods)
+B3_PLAIN_PODS = 5_000
+B4_PLAIN_PODS = 5_000
 # phase 10: bench.py's conformance mix
 FUZZ_NODES = 1_000
 FUZZ_PODS = 2_000
@@ -177,6 +226,40 @@ A2_PODS = 2_000
 A2_SEED = 7
 A2_APP = "a2"
 JAX_SAMPLE_ANSWER = "4812b742297bc9d0f0a42fb91eddcc08d8f41de149ce0bacd2d1cd2403f14a9f"
+# phase 14: the 8-spec what-if on the capacity scenario (bench.py
+# run_whatif's specs: name, cpu, GiB); "c96" is phase 6's new node, for
+# which the JAX package plans +55
+WHATIF_SPECS = (("c16", 16, 64), ("c32", 32, 128), ("c48", 48, 192), ("c64", 64, 256),
+                ("c96", 96, 384), ("m32", 32, 256), ("m64", 64, 512), ("c128", 128, 512))
+# phase 16: bench.py run_defrag's shape (1,000 nodes of 32 cpu in 16
+# zones, 6,000 nodeSelector-free pods of the default classes, dealt
+# round-robin, max_drain 16), and the full-width drain of phase 15's
+# snapshot of the capacity plan
+DEFRAG_NODES = 1_000
+DEFRAG_PODS = 6_000
+DEFRAG_MAX = 16
+DEFRAG_FULL_MAX = 100
+# phase 17: outages. (a) the replacement study on the capacity scenario;
+# (b) and (c) its shape cut to 2,000 nodes x 20,000 pods (single-node
+# outages are nodes x pods), --failures 2 --trials 32; the JAX package's
+# answers (tools/jax_chaos_answer.py, its XLA scan on a CPU) are for a
+# smaller cut, CHAOS_JAX_NODES x CHAOS_JAX_PODS, on which chaos and N+1
+# must print the JAX package's bytes (sha256 of stdout)
+CHAOS_NODES = 2_000
+CHAOS_PODS = 20_000
+# phase 17a's plain check: the first this many pods of the replacement
+# scan (every pod free: about 1.5 ms a plain step at 10,000 nodes)
+CHAOS_PLAIN_PODS = 5_000
+CHAOS_JAX_NODES = 500
+CHAOS_JAX_PODS = 5_000
+JAX_CHAOS_ANSWER = "10fa0a4686fc573b7cc6e5f45f1ee66f1b4426a38e40f9fb8c3bd326f241c48f"
+JAX_NPLUSK_ANSWER = "280c47f34f8dd1fb433bb8ce111c778ebf81bc267ac46a0f58c57cf676930eaa"
+# phase 18: A1g, a capacity plan with a custom score plugin on the torch
+# scan, the capacity shape cut to A1G_NODES x A1G_PODS; the JAX package's
+# answer from tools/jax_custom_plan_answer.py (sha256 of stdout)
+A1G_NODES = 100
+A1G_PODS = 1_000
+JAX_A1G_ANSWER = "26e7edb98805e7c69d5c09e6fd795ba07502490e4f9735969805be7f56c1a296"
 # phase 2: the cluster sizes B1 runs at beside the rule's choice
 PHASE2_CLUSTERS = (1, 8, 16)
 # bytes/s of HBM and the non-tensor f32 rate of one H100 SXM (NVIDIA
@@ -308,23 +391,25 @@ def build_gpushare_scenario(n_nodes=GPU_NODES, n_pods=GPU_PODS):
     return nodes, pods
 
 
-def build_capacity_scenario():
+def cap_node(name, cpu, mem_gi, labels=None, taints=None):
+    """A node of the capacity scenario's shape."""
+    out = {"kind": "Node", "metadata": {
+        "name": name, "labels": {"kubernetes.io/hostname": name, **(labels or {})}},
+        "status": {"allocatable": {"cpu": str(cpu), "memory": f"{mem_gi}Gi",
+                                   "pods": "110"}}}
+    if taints:
+        out["spec"] = {"taints": taints}
+    return out
+
+
+def build_capacity_scenario(n_nodes=CAP_NODES, n_pods=CAP_PODS):
     """10,000 base nodes of 16 cpu / 64 Gi (every 23rd tainted) short of
     five Deployments of 20,000 replicas each, and a 96 cpu / 384 Gi new
-    node: the planner must find the minimal new-node count."""
-
-    def node(name, cpu, mem_gi, labels=None, taints=None):
-        out = {"kind": "Node", "metadata": {
-            "name": name, "labels": {"kubernetes.io/hostname": name, **(labels or {})}},
-            "status": {"allocatable": {"cpu": str(cpu), "memory": f"{mem_gi}Gi",
-                                       "pods": "110"}}}
-        if taints:
-            out["spec"] = {"taints": taints}
-        return out
-
+    node: the planner must find the minimal new-node count. `n_nodes` /
+    `n_pods` cut it to size."""
     taint = [{"key": "dedicated", "value": "infra", "effect": "NoSchedule"}]
-    nodes = [node(f"node-{i:05d}", 16, 64, {"zone": f"z{i % 16}"},
-                  taint if i % 23 == 0 else None) for i in range(CAP_NODES)]
+    nodes = [cap_node(f"node-{i:05d}", 16, 64, {"zone": f"z{i % 16}"},
+                      taint if i % 23 == 0 else None) for i in range(n_nodes)]
 
     def deploy(name, replicas, cpu, mem, tolerant=False):
         spec = {"containers": [{"name": "c", "image": f"img-{name}",
@@ -335,7 +420,7 @@ def build_capacity_scenario():
                 "metadata": {"name": name, "namespace": "bench", "labels": {"app": name}},
                 "spec": {"replicas": replicas, "template": {"spec": spec}}}
 
-    rep = CAP_PODS // 5
+    rep = n_pods // 5
     deployments = [
         deploy("memheavy", rep, "750m", "8Gi"),
         deploy("large", rep, "4", "8Gi"),
@@ -343,18 +428,19 @@ def build_capacity_scenario():
         deploy("small", rep, "250m", "512Mi"),
         deploy("tolerant", rep, "2", "4Gi", tolerant=True),
     ]
-    return nodes, deployments, node("template", 96, 384)
+    return nodes, deployments, cap_node("template", 96, 384)
 
 
-def write_capacity_config(root) -> str:
-    """The phase-6 scenario as a simon config under `root`."""
+def write_capacity_config(root, n_nodes=CAP_NODES, n_pods=CAP_PODS) -> str:
+    """The phase-6 scenario (cut to `n_nodes` x `n_pods`) as a simon
+    config under `root`."""
     from pathlib import Path
 
     import yaml
 
     dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
     root = Path(root)
-    nodes, deployments, new_node = build_capacity_scenario()
+    nodes, deployments, new_node = build_capacity_scenario(n_nodes, n_pods)
     for sub, docs in (("cluster", nodes), ("app", deployments), ("newnode", [new_node])):
         (root / sub).mkdir()
         with open(root / sub / "objects.yaml", "w") as f:
@@ -672,7 +758,8 @@ def bound(plan, class_of_pod, scenarios) -> tuple:
     visit = visit_ops(plan)
     ops = 0
     for active, _valid, pinned in scenarios:
-        scanned = np.asarray(active, bool)
+        # a new array: the caller's active rows stay as they are
+        scanned = np.array(active, bool)
         if pinned is not None:
             scanned &= np.asarray(pinned) < 0
         ops += int(visit[cls[scanned]].sum()) * n
@@ -888,11 +975,14 @@ def run_cli(argv, cwd=None):
     from open_simulator_tpu_torch import cli
     from open_simulator_tpu_torch.models.workloads import reset_name_counter
 
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
     out, err = io.StringIO(), io.StringIO()
     reset_name_counter()
     with contextlib.chdir(cwd or os.getcwd()), contextlib.redirect_stdout(out), \
             contextlib.redirect_stderr(err):
         rc = cli.main(argv)
+    check_notes(" ".join(argv[:3]), GLOBAL.notes)
     return rc, out.getvalue(), err.getvalue()
 
 
@@ -1086,10 +1176,12 @@ def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
                 plain_pods=None) -> dict:
     """One scenario of a new block: the kernel against its plain version
     on the card (placements and every final row; with `plain_pods`, over
-    the first that many pods, and the kernel once more over all of
-    them), then, with `simulate`, simulate(engine="cuda") on it with the
-    counters at 0. Returns the comparison's numbers with the main
-    path's launches."""
+    the first that many pods, and the kernel once more over all of them,
+    at the rule's cluster and on one block), then, with `simulate`,
+    simulate(engine="cuda") on it with the counters at 0. Returns the
+    comparison's numbers with the main path's launches: with
+    `plain_pods`, ms, bound and prev_ms are those of the launch over all
+    pods, plain_ms the cut's, and prefix_ms the kernel's on the cut."""
     import numpy as np
     import torch
 
@@ -1116,14 +1208,22 @@ def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
     print(f"{label}: {int((placements >= 0).sum())}/{int(active.sum())} placed by both",
           flush=True)
     if plain_pods is not None:
-        (full, _), ms = cuda_ms(lambda: fused_scan.run_fused_scan(
-            plan, batch.class_of_pod, np.ones(p, bool), valid, pinned=batch.pinned_node))
+        # the main path's launch is over every pod: the entry's ms, bound
+        # and one-block ms are taken there, the plain time on the cut
+        every = [(np.ones(p, bool), valid, batch.pinned_node)]
+        (full, final), ms = cuda_ms(lambda: fused_scan.run_fused_scan(
+            plan, batch.class_of_pod, *every[0]))
         placements = full.cpu().numpy()
         if (placements[:plain_pods] != res["placements"][:plain_pods]).any():
             raise AssertionError(f"{label}: the full scan's first pods differ from the cut's")
-        print(f"{label}: the kernel over all {p} pods {ms:.1f} ms (CUDA events), its first "
-              f"{plain_pods} placements those of the cut; "
-              f"{int((placements >= 0).sum())}/{p} placed [{gpu}]", flush=True)
+        one = cluster_sweep(label, gpu, plan, batch, every, [(full, final)], (1,))
+        b_ms, b_by = bound(plan, batch.class_of_pod, every)
+        res.update(plain_pods=plain_pods, prefix_ms=res["ms"], ms=ms, bound_ms=b_ms,
+                   bound_by=b_by, prev_ms=one[1])
+        print(f"{label}: the kernel over all {p} pods {ms:.1f} ms (CUDA events; one block "
+              f"{one[1]:.1f} ms, == the rule's cluster), its first {plain_pods} placements "
+              f"those of the cut; {int((placements >= 0).sum())}/{p} placed; bound "
+              f"{b_ms:.4f} ms by {b_by} [{gpu}]", flush=True)
     res["launches"] = 0
     if simulate:
         del plan
@@ -1421,6 +1521,552 @@ def phase13(gpu) -> dict:
     return {"card_us": card_us, "cpu_us": cpu_us}
 
 
+def check_notes(label, notes) -> None:
+    """Fail the phase when a trace note reports a downgrade or the
+    serial floor (the chunked executor's OOM path): on the card the
+    kernels run every scenario."""
+    bad = {k: v for k, v in notes.items()
+           if k.endswith("-downgrade") or "serial-fallback" in k or k.endswith("-degraded")}
+    if bad:
+        raise AssertionError(f"{label}: degraded: {bad}")
+
+
+def record_rows(pins_first_only=False):
+    """Patch fused_scan.run_fused_scan_batch (the chunk launch of defrag
+    and of the outage rows) to record every call, or with
+    `pins_first_only` every pins-first call: (plan, class of pod,
+    scenarios, pins_first, outputs, start and end CUDA events). Returns
+    (calls, restore)."""
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    real = fused_scan.run_fused_scan_batch
+    calls = []
+
+    def rows(plan, cls, scenarios, pins_first=False):
+        if pins_first_only and not pins_first:
+            return real(plan, cls, scenarios, pins_first=pins_first)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = real(plan, cls, scenarios, pins_first=pins_first)
+        end.record()
+        calls.append((plan, cls, list(scenarios), pins_first, outs, start, end))
+        return outs
+
+    fused_scan.run_fused_scan_batch = rows
+
+    def restore():
+        fused_scan.run_fused_scan_batch = real
+
+    return calls, restore
+
+
+def hold_rows(label, gpu, call, picks, plain_pods=None) -> dict:
+    """Rows `picks` of one recorded batch launch against the batch
+    plain version on the same scenarios (with `plain_pods`, over their
+    first that many pods, the kernel launched again on the cut), and
+    the same launch again timed by CUDA events: placements and every
+    final row equal, or the run fails."""
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    plan, cls, scenarios, pins_first, outs, start, end = call
+    chosen = [scenarios[i] for i in picks]
+    got = [outs[i] for i in picks]
+    if plain_pods is not None:
+        chosen = prefix(chosen, plain_pods)
+        got = fused_scan.run_fused_scan_batch(plan, cls, chosen, pins_first=pins_first)
+    want, r_times = timed(lambda: fused_scan.fused_scan_batch_reference(
+        plan, cls, chosen, pins_first=pins_first), 1)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"{label}: rows {picks} != plain version ({err})")
+    _, ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios,
+                                                            pins_first=pins_first))
+    b_ms, b_by = bound(plan, cls, scenarios)
+    print(f"{label}: rows {picks} of the {len(scenarios)}-scenario launch == plain version"
+          + (f" over their first {plain_pods} pods" if plain_pods else "")
+          + f" ({r_times[0]:.1f} ms), placements and every row; the launch "
+          f"{start.elapsed_time(end):.1f} ms in the path, {ms:.1f} ms again (CUDA events; "
+          f"clusters of {fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME if pins_first else fused_scan.BATCH_KERNEL_NAME]}), "
+          f"bound {b_ms:.4f} ms by {b_by} [{gpu}]", flush=True)
+    return {"ms": ms, "plain_ms": r_times[0], "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase14(gpu) -> dict:
+    """The 8-spec what-if on the capacity scenario through
+    probe_plan_multi on the card (one batch launch a live spec a round),
+    each spec's count held against its single-spec search on its sweep,
+    and the capacity spec's whole result against probe_plan."""
+    import torch
+
+    from open_simulator_tpu_torch.apply.applier import probe_plan, probe_plan_multi
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.parallel import sweep as sweep_mod
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    nodes, deployments, capacity_node = build_capacity_scenario()
+    cluster = ResourceTypes()
+    cluster.nodes = nodes
+    res = ResourceTypes()
+    res.deployments = deployments
+    apps = [AppResource("bench", res)]
+    templates = [capacity_node if (cpu, mem) == (96, 384) else cap_node(f"tpl-{nm}", cpu, mem)
+                 for nm, cpu, mem in WHATIF_SPECS]
+    jobs = []
+    real_multi = sweep_mod.find_min_count_multi
+
+    def multi_search(js, *a, **k):
+        jobs.extend(js)
+        return real_multi(js, *a, **k)
+
+    sweep_mod.find_min_count_multi = multi_search
+    try:
+        reset_name_counter()
+        GLOBAL.reset()
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi = probe_plan_multi(cluster, apps, templates)
+        torch.cuda.synchronize()
+        multi_s = time.perf_counter() - t0
+    finally:
+        sweep_mod.find_min_count_multi = real_multi
+    launches = dict(fused_scan.LAUNCHES)
+    notes = dict(GLOBAL.notes)
+    phases = GLOBAL.as_dict()["phases"]
+    check_notes("phase 14", notes)
+    rounds, per_round = notes["whatif-rounds"], notes["whatif-round-log"]
+    # a spec with no feasible count reports its max-count probe: one
+    # single launch each
+    failed = sum(1 for r in multi if not r.success)
+    if (launches[fused_scan.BATCH_KERNEL_NAME] != notes["whatif-launches"]
+            or launches[fused_scan.KERNEL_NAME] != failed
+            or any(v for k, v in launches.items()
+                   if k not in (fused_scan.BATCH_KERNEL_NAME, fused_scan.KERNEL_NAME))):
+        raise AssertionError(f"phase 14: launches {launches}, notes {notes}")
+
+    def view(r):
+        return (r.success, r.new_node_count, r.message, r.report_text,
+                [(ns.node["metadata"]["name"], [p["metadata"]["name"] for p in ns.pods])
+                 for ns in r.result.node_status])
+
+    # checks outside the main path: every spec's single-spec search on
+    # its own sweep (the probe_plan search: count and placements), and
+    # the whole single-spec probe_plan (report and placements) for the
+    # capacity spec
+    t0 = time.perf_counter()
+    for (nm, _c, _m), r, (sweep, feasible, start) in zip(WHATIF_SPECS, multi, jobs):
+        best = sweep.find_min_count(feasible, start=start)
+        if (best is None) != (not r.success) or (
+                best is not None and best.count != r.new_node_count):
+            raise AssertionError(f"phase 14: spec {nm}: multi +{r.new_node_count}, the "
+                                 f"single-spec search {best and best.count}")
+    cap_i = [nm for nm, _c, _m in WHATIF_SPECS].index("c96")
+    reset_name_counter()
+    solo = probe_plan(cluster, apps, templates[cap_i])
+    if view(solo) != view(multi[cap_i]):
+        raise AssertionError("phase 14: the capacity spec's multi result != its probe_plan")
+    solo_s = time.perf_counter() - t0
+    counts = {nm: (r.new_node_count if r.success else None)
+              for (nm, _c, _m), r in zip(WHATIF_SPECS, multi)}
+    if counts["c96"] != JAX_CAPACITY_ANSWER:
+        raise AssertionError(f"phase 14: the capacity spec plans {counts['c96']}, the JAX "
+                             f"package +{JAX_CAPACITY_ANSWER}")
+    print(f"phase 14 (8-spec what-if, {CAP_NODES} nodes x {CAP_PODS} pods): counts {counts}, "
+          f"each == its single-spec search on the card, the c96 result == its whole "
+          f"probe_plan (report and placements; {solo_s:.1f} s for the checks); "
+          f"{rounds} rounds, {launches[fused_scan.BATCH_KERNEL_NAME]} batch launches "
+          f"(one a live spec a round; launches/time a round {per_round}); probe_plan_multi "
+          f"{multi_s:.3f} s [{gpu}]", flush=True)
+    print("phase 14: host clock by phase: " + ", ".join(
+        f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms x{ph['count']}" for ph in phases)
+          + f" [{gpu}]", flush=True)
+    return {"launches": launches[fused_scan.BATCH_KERNEL_NAME], "rounds": rounds,
+            "s": multi_s}
+
+
+def phase15(gpu, root) -> str:
+    """Phase 6's plan through the CLI with --journal (and --snapshot,
+    for phase 16), then with --resume: the resume launches no kernel
+    and prints the same JSON. Returns the snapshot's path."""
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    cfg_root = Path(root) / "capacity"
+    cfg_root.mkdir()
+    cfg = write_capacity_config(cfg_root)
+    journal, snap = str(Path(root) / "plan.jsonl"), str(Path(root) / "snapshot.json")
+    runs = []
+    for flags in (["--journal", journal, "--snapshot", snap], ["--resume", journal]):
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["apply", "-f", cfg, "--format", "json", "--trace", *flags])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"phase 15: {flags[0]} exited {rc}: {err[-2000:]}")
+        runs.append((out, dict(fused_scan.LAUNCHES), time.perf_counter() - t0,
+                     json.loads(err.strip().splitlines()[-1])))
+    (out1, l1, s1, t1), (out2, l2, s2, t2) = runs
+    records = sum(1 for _ in open(journal)) - 1
+    if out1 != out2 or any(l2.values()) or not any(l1.values()):
+        raise AssertionError(f"phase 15: resume launches {l2} (journal run {l1}), same JSON "
+                             f"{out1 == out2}")
+    if t2["notes"].get("journal-resume") != f"{records} record(s) replayed":
+        raise AssertionError(f"phase 15: resume notes {t2['notes']}")
+    print(f"phase 15 (journal): the --journal plan ({s1:.3f} s, launches "
+          f"{ {k: v for k, v in l1.items() if v} }, {records} probe records) and its --resume "
+          f"({s2:.3f} s, no launch, {records} records replayed) print the same JSON "
+          f"(+{json.loads(out1)['newNodeCount']}); snapshot {Path(snap).stat().st_size} bytes "
+          f"[{gpu}]", flush=True)
+    return snap
+
+
+def defrag_bench_snapshot():
+    """bench.py run_defrag's snapshot at DEFRAG_NODES x DEFRAG_PODS."""
+    from open_simulator_tpu_torch.scheduler.core import NodeStatus, SimulateResult
+
+    nodes = [cap_node(f"node-{i:05d}", 32, 128, {"zone": f"z{i % 16}"})
+             for i in range(DEFRAG_NODES)]
+    _, pods = build_scenario(DEFRAG_NODES, DEFRAG_PODS * 5 // 4)
+    pods = [p for p in pods if "nodeSelector" not in p["spec"]][:DEFRAG_PODS]
+    statuses = [NodeStatus(node=n, pods=[]) for n in nodes]
+    for i, pod in enumerate(pods):
+        ns = statuses[i % DEFRAG_NODES]
+        pod = dict(pod)
+        pod["spec"] = dict(pod["spec"])
+        pod["spec"]["nodeName"] = ns.node["metadata"]["name"]
+        pod["status"] = {"phase": "Running"}
+        ns.pods.append(pod)
+    return SimulateResult(unscheduled_pods=[], node_status=statuses)
+
+
+def phase16(gpu, snap) -> dict:
+    """Defrag: (a) bench.py's shape through plan_defrag, every depth in
+    one batch launch, all 17 rows == plain; (b) `simon defrag` on phase
+    15's full-width snapshot, 101 depths in one launch, the chosen depth
+    validated by the module, depths 0, chosen and chosen + 1 == plain."""
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.parallel.defrag import plan_defrag
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    snapshot = defrag_bench_snapshot()
+    calls, restore = record_rows()
+    try:
+        GLOBAL.reset()
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan_defrag(snapshot, max_drain=DEFRAG_MAX)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        a_launches = dict(fused_scan.LAUNCHES)
+        a_notes, a_phases = dict(GLOBAL.notes), GLOBAL.as_dict()["phases"]
+    finally:
+        restore()
+    check_notes("phase 16a", a_notes)
+    if (a_launches[fused_scan.BATCH_KERNEL_NAME] != 1 or len(calls) != 1
+            or len(calls[0][2]) != DEFRAG_MAX + 1):
+        raise AssertionError(f"phase 16a: launches {a_launches}, {len(calls)} row calls")
+    print(f"phase 16a (defrag, {DEFRAG_NODES} nodes x {DEFRAG_PODS} pods, max_drain "
+          f"{DEFRAG_MAX}): chose depth {res.chosen_depth}, {len(res.moves)} moves, "
+          f"unscheduled by depth {[int(x) for x in res.unscheduled]}; {a_s:.3f} s; launches "
+          f"{ {k: v for k, v in a_launches.items() if v} }; note "
+          f"{a_notes.get('defrag-kernel')!r}; host clock: " + ", ".join(
+              f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms" for ph in a_phases)
+          + f" [{gpu}]", flush=True)
+    small = hold_rows("phase 16a", gpu, calls[0], list(range(DEFRAG_MAX + 1)))
+
+    calls, restore = record_rows()
+    try:
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["defrag", "--snapshot", snap, "--max-drain",
+                                str(DEFRAG_FULL_MAX), "--format", "json", "--trace"])
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        b_launches = dict(fused_scan.LAUNCHES)
+    finally:
+        restore()
+    if rc != 0:
+        raise AssertionError(f"phase 16b: defrag exited {rc}: {err[-2000:]}")
+    trace = json.loads(err.strip().splitlines()[-1])
+    doc = json.loads(out)
+    depth = doc["chosenDepth"]
+    unsched = doc["unscheduledByDepth"]
+    if (b_launches[fused_scan.BATCH_KERNEL_NAME] != 1 or len(calls) != 1
+            or len(unsched) != DEFRAG_FULL_MAX + 1 or unsched[depth] != 0
+            or len(doc["drainedNodes"]) != depth):
+        raise AssertionError(f"phase 16b: launches {b_launches}, depths {len(unsched)}, "
+                             f"chose {depth}")
+    n_nodes = len(calls[0][0].alloc[0])
+    print(f"phase 16b (defrag of the capacity plan's snapshot, {n_nodes} nodes x "
+          f"{len(calls[0][1])} pods, {DEFRAG_FULL_MAX + 1} depths in one launch): chose depth "
+          f"{depth} ({len(doc['moves'])} moves), validated by the module's replay; unscheduled "
+          f"by depth {unsched[:depth + 3]}...; {b_s:.3f} s through the CLI; launches "
+          f"{ {k: v for k, v in b_launches.items() if v} }; host clock: " + ", ".join(
+              f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms" for ph in trace["phases"])
+          + f" [{gpu}]", flush=True)
+    picks = sorted({0, depth, min(depth + 1, DEFRAG_FULL_MAX)})
+    full = hold_rows("phase 16b", gpu, calls[0], picks)
+    return {"small": small, "full": full,
+            "launches": a_launches[fused_scan.BATCH_KERNEL_NAME]
+            + b_launches[fused_scan.BATCH_KERNEL_NAME]}
+
+
+def chaos_cli(label, gpu, argv, want_digest=None) -> dict:
+    """`simon chaos` (or `apply`) through the port's CLI on the card with
+    the counters at 0, the pins-first rows recorded and the ChaosEngine
+    kept; with `want_digest`, stdout's sha256 must equal it."""
+    import hashlib
+
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.resilience import chaos as chaos_mod
+
+    engines = []
+    real_run = chaos_mod.ChaosEngine.run
+
+    def run(self, *a, **k):
+        engines.append(self)
+        return real_run(self, *a, **k)
+
+    calls, restore = record_rows(pins_first_only=True)
+    chaos_mod.ChaosEngine.run = run
+    try:
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli([*argv, "--trace"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(fused_scan.LAUNCHES)
+    finally:
+        restore()
+        chaos_mod.ChaosEngine.run = real_run
+    if rc not in (0, 1):
+        raise AssertionError(f"{label}: {argv[0]} exited {rc}: {err[-2000:]}")
+    trace = json.loads(err.strip().splitlines()[-1])
+    check_notes(label, trace.get("notes", {}))
+    digest = hashlib.sha256(out.encode()).hexdigest()
+    if want_digest is not None and digest != want_digest:
+        raise AssertionError(f"{label}: stdout digest {digest}, the JAX package's "
+                             f"{want_digest}")
+    if calls and launches[fused_scan.PINS_FIRST_KERNEL_NAME] != len(calls):
+        raise AssertionError(f"{label}: {len(calls)} row calls, launches {launches}")
+    return {"rc": rc, "out": out, "calls": calls, "engines": engines, "s": secs,
+            "launches": launches, "trace": trace, "digest": digest}
+
+
+def print_chaos(label, gpu, res) -> None:
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    notes = res["trace"].get("notes", {})
+    rows = [len(c[2]) for c in res["calls"]]
+    ms = [round(c[5].elapsed_time(c[6]), 1) for c in res["calls"]]
+    print(f"{label}: exit {res['rc']}, {res['s']:.3f} s through the CLI; pins-first launches "
+          f"{res['launches'][fused_scan.PINS_FIRST_KERNEL_NAME]} of {rows} scenarios "
+          f"({ms} ms by CUDA events); other launches "
+          f"{ {k: v for k, v in res['launches'].items() if v and 'pins-first' not in k} }; "
+          f"notes {[notes.get(k) for k in ('chaos-kernel', 'chaos-scenarios')]}; host clock: "
+          + ", ".join(f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms"
+                      for ph in res["trace"]["phases"]) + f" [{gpu}]", flush=True)
+
+
+def step_us(call, cluster) -> dict:
+    """What a pinned and a free pod step of the pins-first kernel cost,
+    on the first scenario of a recorded launch, alone (one cluster at
+    the rule's size, so no waves), by CUDA events: the scenario with its
+    free pods inactive (its pinned pass, and a second pass that skips
+    every pod) over its pinned steps, and the scenario with every pin
+    cleared (a pass that skips every pod, then every pod free) over its
+    pods. Also the waves of the launch, which ran on clusters of
+    `cluster` blocks."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    plan, cls, scenarios, _pf, _outs, start, end = call
+    a, v, q = scenarios[0]
+    a, q = np.asarray(a, bool), np.asarray(q)
+    pinned_only = [(a & (q >= 0), v, q)]
+    all_free = [(a, v, np.full_like(q, -1))]
+
+    def run(scen):
+        return fused_scan.run_fused_scan_batch(plan, cls, scen, pins_first=True)
+
+    run(pinned_only)  # warm
+    _, pin_ms = cuda_ms(lambda: run(pinned_only))
+    _, free_ms = cuda_ms(lambda: run(all_free))
+    n_pin, n_free = int((a & (q >= 0)).sum()), int(a.sum())
+    s_n = len(scenarios)
+    one_c = fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME]
+    resident = fused_scan.max_active_clusters(plan, s_n, True, cluster)
+    return {"pin_us": pin_ms * 1e3 / max(n_pin, 1), "free_us": free_ms * 1e3 / max(n_free, 1),
+            "pin_ms": pin_ms, "free_ms": free_ms, "n_pin": n_pin, "n_free": n_free,
+            "one_cluster": one_c, "resident": resident, "waves": -(-s_n // max(resident, 1)),
+            "launch_ms": start.elapsed_time(end)}
+
+
+def phase17(gpu, root) -> dict:
+    """Outages: (a) `simon chaos --failures 0` on the capacity scenario;
+    (b) `--failures 2 --trials 32` on its 2,000-node cut, three rows ==
+    plain and the worst outage confirmed serially, and the JAX package's
+    bytes on the smaller cut; (c) `apply --tolerate-node-failures 1` on
+    the 2,000-node cut, and the JAX package's bytes on the smaller cut."""
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    out = {}
+    cfgs = {}
+    for name, n, p in (("full", CAP_NODES, CAP_PODS), ("cut", CHAOS_NODES, CHAOS_PODS),
+                       ("jax", CHAOS_JAX_NODES, CHAOS_JAX_PODS)):
+        d = Path(root) / f"chaos-{name}"
+        d.mkdir()
+        cfgs[name] = write_capacity_config(d, n, p)
+
+    a = chaos_cli("phase 17a", gpu, ["chaos", "-f", cfgs["full"], "--failures", "0",
+                                     "--format", "json"])
+    doc = json.loads(a["out"])
+    if doc["total"] != 1 or doc["baselineNewNodeCount"] != JAX_CAPACITY_ANSWER or len(
+            a["calls"]) != 1:
+        raise AssertionError(f"phase 17a: {doc['total']} scenarios at "
+                             f"+{doc['baselineNewNodeCount']}, {len(a['calls'])} launches")
+    print_chaos(f"phase 17a (replacement study, {CAP_NODES} nodes x {CAP_PODS} pods, "
+                f"+{doc['baselineNewNodeCount']}; survived {doc['survived']}/1)", gpu, a)
+    out["full"] = hold_rows("phase 17a", gpu, a["calls"][0], [0], plain_pods=CHAOS_PLAIN_PODS)
+
+    b = chaos_cli("phase 17b", gpu, ["chaos", "-f", cfgs["cut"], "--failures", "2",
+                                     "--trials", "32", "--format", "json"])
+    doc = json.loads(b["out"])
+    if doc["total"] < CHAOS_NODES or len(b["calls"]) != 1:
+        raise AssertionError(f"phase 17b: {doc['total']} scenarios, {len(b['calls'])} calls")
+    print_chaos(f"phase 17b ({CHAOS_NODES} nodes x {CHAOS_PODS} pods at "
+                f"+{doc['baselineNewNodeCount']}, K=2: {doc['total']} scenarios "
+                f"({doc['mode']}), survived {doc['survived']})", gpu, b)
+    call = b["calls"][0]
+    s_n = len(call[2])
+    cluster = fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME]
+    out["cut"] = hold_rows("phase 17b", gpu, call, [0, s_n // 2, s_n - 1])
+    st = step_us(call, cluster)
+    out["cut"].update(pin_us=st["pin_us"], free_us=st["free_us"], cluster=cluster)
+    engine = b["engines"][0]
+    worst_label = max(doc["scenarios"], key=lambda o: (o["unschedulable"], o["displaced"]))
+    scen = next(sc for sc in engine.build_scenarios(2, 1, 32)[0]
+                if list(sc.failed_names) == worst_label["failedNodes"])
+    t0 = time.perf_counter()
+    ok, newly = engine.confirm_serial(scen)
+    if ok != (worst_label["unschedulable"] == 0) or newly != worst_label["unschedulable"]:
+        raise AssertionError(f"phase 17b: serial confirmation of [{scen.label()}] found "
+                             f"{newly} newly unschedulable, the batch {worst_label}")
+    print(f"phase 17b: the worst outage [{scen.label()}] re-simulated serially: {newly} newly "
+          f"unschedulable, as the batch row says ({time.perf_counter() - t0:.1f} s host) "
+          f"[{gpu}]", flush=True)
+    print(f"phase 17b: the launch {st['launch_ms']:.1f} ms for {s_n} scenarios on clusters of "
+          f"{cluster}, {st['resident']} resident at once ({st['waves']} waves); its first "
+          f"scenario alone on {st['one_cluster']} blocks: its {st['n_pin']} pinned pods "
+          f"{st['pin_ms']:.3f} ms = {st['pin_us']:.3f} us a pinned pod step; all "
+          f"{st['n_free']} pods free {st['free_ms']:.3f} ms = {st['free_us']:.3f} us a free "
+          f"pod step [{gpu}]", flush=True)
+
+    j = chaos_cli("phase 17b (the JAX package's cut)", gpu,
+                  ["chaos", "-f", cfgs["jax"], "--failures", "2", "--trials", "32",
+                   "--format", "json"], want_digest=JAX_CHAOS_ANSWER)
+    print(f"phase 17b: {CHAOS_JAX_NODES} nodes x {CHAOS_JAX_PODS} pods, K=2: stdout == the "
+          f"JAX package's (sha256 {j['digest'][:16]}), exit {j['rc']} [{gpu}]", flush=True)
+
+    c = chaos_cli("phase 17c", gpu, ["apply", "-f", cfgs["cut"], "--format", "json",
+                                     "--tolerate-node-failures", "1"])
+    doc = json.loads(c["out"])
+    notes = c["trace"]["notes"]
+    if not doc["success"] or not notes.get("chaos-serial-confirm", "").endswith("ok"):
+        raise AssertionError(f"phase 17c: success {doc['success']}, notes {notes}")
+    print_chaos(f"phase 17c (apply --tolerate-node-failures 1, {CHAOS_NODES} nodes x "
+                f"{CHAOS_PODS} pods): +{doc['newNodeCount']}, escalation "
+                f"{notes.get('nplusk-escalation')!r}, serial confirmation "
+                f"{notes.get('chaos-serial-confirm')!r}", gpu, c)
+    jn = chaos_cli("phase 17c (the JAX package's cut)", gpu,
+                   ["apply", "-f", cfgs["jax"], "--format", "json",
+                    "--tolerate-node-failures", "1"], want_digest=JAX_NPLUSK_ANSWER)
+    print(f"phase 17c: {CHAOS_JAX_NODES} nodes x {CHAOS_JAX_PODS} pods, N+1: stdout == the "
+          f"JAX package's (sha256 {jn['digest'][:16]}) [{gpu}]", flush=True)
+    out["launches"] = sum(r["launches"][fused_scan.PINS_FIRST_KERNEL_NAME] for r in (a, b, c))
+    return out
+
+
+def a1g_plugin(base):
+    """Phase 18's custom score plugin on `base` (either package's
+    SchedulerPlugin): five levels from the node's zone (none on a new
+    node) and the pod's app, normalised min-max."""
+    class ZoneApp(base):
+        name = "zone-app"
+        normalize = "minmax"
+
+        def score(self, pod, node):
+            zone = node["metadata"].get("labels", {}).get("zone", "z16")
+            app = (pod["metadata"].get("labels") or {}).get("app", "")
+            return (int(zone[1:]) + len(app)) % 5
+
+    return ZoneApp()
+
+
+def phase18(gpu, root) -> dict:
+    """A1g: a capacity plan with a registered custom score plugin through
+    the CLI on the card: the sweep's probes ride the torch scan
+    (trace-noted), no fused kernel launches, and stdout equals the JAX
+    package's bytes (tools/jax_custom_plan_answer.py)."""
+    import hashlib
+
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+
+    d = Path(root) / "a1g"
+    d.mkdir()
+    cfg = write_capacity_config(d, A1G_NODES, A1G_PODS)
+    plugin = a1g_plugin(SchedulerPlugin)
+    default_registry.register(plugin)
+    try:
+        fused_scan.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["apply", "-f", cfg, "--format", "json", "--trace"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(fused_scan.LAUNCHES)
+    finally:
+        default_registry.unregister(plugin.name)
+    trace = json.loads(err.strip().splitlines()[-1])
+    notes = trace["notes"]
+    digest = hashlib.sha256(out.encode()).hexdigest()
+    if rc != 0 or notes.get("sweep-kernel") != "torch-scan (custom score plugins)" or any(
+            launches.values()):
+        raise AssertionError(f"phase 18: exit {rc}, notes {notes}, launches {launches}: "
+                             f"{err[-1000:]}")
+    if digest != JAX_A1G_ANSWER:
+        raise AssertionError(f"phase 18: stdout digest {digest}, the JAX package's "
+                             f"{JAX_A1G_ANSWER}")
+    probe_s = sum(ph["seconds"] for ph in trace["phases"] if ph["name"] == "sweep/probe")
+    n_probe = sum(ph["count"] for ph in trace["phases"] if ph["name"] == "sweep/probe")
+    print(f"phase 18 (A1g, {A1G_NODES} nodes x {A1G_PODS} pods, a min-max custom plugin): "
+          f"+{json.loads(out)['newNodeCount']} == the JAX package's bytes (sha256 "
+          f"{digest[:16]}); {n_probe} torch-scan probes, {probe_s:.3f} s = "
+          f"{probe_s * 1e6 / max(n_probe * A1G_PODS, 1):.1f} us a pod step; {secs:.3f} s "
+          f"through the CLI; no fused launch [{gpu}]", flush=True)
+    return {"s": secs}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1524,8 +2170,9 @@ def main() -> int:
 
     # ---- phase 7: B3, bench.py's storage scenario, then the 6-VG shape
     s_nodes, s_pods = build_storage_scenario()
-    store = block_phase(f"phase 7 (B3, {STOR_NODES} storage nodes x {STOR_PODS} pods)", gpu,
-                        s_nodes, s_pods, fused_scan.STORE_KERNEL_NAME)
+    store = block_phase(f"phase 7 (B3, {STOR_NODES} storage nodes x {STOR_PODS} pods, plain "
+                        f"over {B3_PLAIN_PODS})", gpu, s_nodes, s_pods,
+                        fused_scan.STORE_KERNEL_NAME, plain_pods=B3_PLAIN_PODS)
     f_nodes, f_pods = build_storage_scenario(n_pods=FALLBACK_PODS, n_vgs=FALLBACK_VGS)
     block_phase(f"phase 7b ({FALLBACK_VGS} VGs, pods cut to {FALLBACK_PODS})", gpu, f_nodes,
                 f_pods, fused_scan.STORE_KERNEL_NAME, simulate=False)
@@ -1535,7 +2182,8 @@ def main() -> int:
     a_nodes = affinity_nodes(AFF_NODES, AFF_ZONES)
     a_pods = expand(a_nodes, affinity_stateful_sets())
     terms = block_phase(f"phase 8 (B4, affinity stress, {AFF_NODES} nodes x {len(a_pods)} "
-                        f"pods)", gpu, a_nodes, a_pods, fused_scan.TERMS_KERNEL_NAME)
+                        f"pods, plain over {B4_PLAIN_PODS})", gpu, a_nodes, a_pods,
+                        fused_scan.TERMS_KERNEL_NAME, plain_pods=B4_PLAIN_PODS)
 
     # ---- phase 9: B5, the same block at the JAX package's streamed size
     b5_nodes = affinity_nodes(B5_NODES, AFF_ZONES)
@@ -1558,15 +2206,39 @@ def main() -> int:
 
     # ---- phase 13: A2, the torch scan under simulate()
     phase13(gpu)
+    print(f"phases 10-13: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
+
+    # ---- phases 14-18: the planner's other paths
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        walls = {}
+        for name, run in (("14", lambda: phase14(gpu)), ("15", lambda: phase15(gpu, root)),
+                          ("16", lambda: phase16(gpu, walls["snap"])),
+                          ("17", lambda: phase17(gpu, root)), ("18", lambda: phase18(gpu, root))):
+            t0 = time.perf_counter()
+            walls[name] = run()
+            if name == "15":
+                walls["snap"] = walls[name]
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}]", flush=True)
+            torch.cuda.empty_cache()
+    whatif, defrag, outage = walls["14"], walls["16"], walls["17"]
+    print(f"phases 14-18: B6 launches on the new paths: {whatif['launches']} in the 8-spec "
+          f"what-if's {whatif['rounds']} rounds, {defrag['launches']} for two defrag plans, "
+          f"{outage['launches']} pins-first in phase 17's three runs [{gpu}]", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
     def entry(name, replaces, launches, res):
-        return {"name": name, "route": "cuda",
-                "source": "open_simulator_tpu_torch/csrc/fused_scan.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": None}
+        out = {"name": name, "route": "cuda",
+               "source": "open_simulator_tpu_torch/csrc/fused_scan.cu",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "bound_by": res["bound_by"], "library_ms": None}
+        if "plain_pods" in res:  # plain_ms is over the first plain_pods pods
+            out.update(plain_pods=res["plain_pods"], prefix_ms=res["prefix_ms"])
+        return out
 
     print(gpu)  # nvidia-smi's own line: name, power limit
     print(json.dumps({"kernels": [
@@ -1590,6 +2262,10 @@ def main() -> int:
                    "open_simulator_tpu/ops/pallas_scan.py:2028",
                    plan_launches[fused_scan.STORE_TERMS_KERNEL_NAME], mixed),
              cluster=mixed["cluster"], prev_ms=mixed["prev_ms"]),
+        dict(entry(fused_scan.PINS_FIRST_KERNEL_NAME,
+                   "open_simulator_tpu/ops/pallas_scan.py:2974", outage["launches"],
+                   outage["cut"]), cluster=outage["cut"]["cluster"],
+             pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"]),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
                    stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
              library_ms=stream["library_ms"]),

@@ -13,23 +13,24 @@ apply/applier.py:
   launch on the card and a pair of probes one scenario-batch launch
 - utilization caps from MaxCPU/MaxMemory/MaxVG env vars
   (satisfyResourceSetting, apply.go:611-697)
+- N+K planning (`tolerate_node_failures`): the plan escalates until its
+  committed placement survives every evaluated K-node outage
+  (resilience/chaos.py raise_plan_to_nplusk, on the batch kernel's
+  pins-first mode)
+- the resumable journal (`journal_path` / `resume_path`,
+  runtime/journal.py) and the multi-spec what-if (`probe_plan_multi`)
 
 Engines: "cuda" (the default) plans through the sweep on `device` (None
 = the card; it raises without one, `device="cpu"` runs the kernels'
-plain versions); "oracle" runs the serial escalation loop. Kernel,
-build and launch errors propagate: the only route from the batched plan
-to the serial loop is a priority-bearing (or permit/stateful-plugin)
-workload, which the scan cannot model (PrioritySignalError), and that
-route is trace-noted. On the "oracle" engine a batch with custom score
-plugins (TorchScanBatchError) also skips the sweep's hint, trace-noted,
-and the serial loop plans it from count 0.
+plain versions); "oracle" runs the serial escalation loop from the
+sweep's hint. A batch with custom score plugins probes on the torch
+scan (parallel/sweep.py), trace-noted. Kernel, build and launch errors
+propagate: the only route from the batched plan to the serial loop is a
+priority-bearing (or permit/stateful-plugin) workload, which the scan
+cannot model (PrioritySignalError), and that route is trace-noted.
 
-Not ported yet, each raising OutOfSliceError with its ROADMAP.md item:
-kubeConfig clusters, N+K planning
-(`tolerate_node_failures`), the resumable journal, the multi-spec
-what-if (`probe_plan_multi`) and, on the "cuda" engine, custom score
-plugins in the sweep (A1g); the interactive shell has no entry point
-here.
+Not ported yet: kubeConfig clusters (OutOfSliceError naming ROADMAP.md
+A1e); the interactive shell has no entry point here.
 """
 
 from __future__ import annotations
@@ -57,11 +58,8 @@ from .report import report
 
 MAX_NUM_NEW_NODE = wl.MAX_NUM_NEW_NODE
 
-# ROADMAP.md items of the apply features the port does not carry yet
+# the ROADMAP.md item of the apply feature the port does not carry yet
 ITEM_KUBECONFIG = "A1e"
-ITEM_NPLUSK = "A1c"
-ITEM_JOURNAL = "A1b"
-ITEM_MULTI = "A1d"
 
 
 @dataclass
@@ -343,6 +341,27 @@ def replay_masked(sweep, valid, placements):
     return SimulateResult(unscheduled_pods=failed, node_status=status), oracle
 
 
+def plan_fingerprint(cluster, apps, new_node, **flags) -> str:
+    """Journal fingerprint of one planning problem: the LOADED inputs
+    (cluster objects, expanded app resources, newnode spec) plus every
+    flag that shapes the work. A resumed journal must describe exactly
+    this problem (runtime/journal.py)."""
+    from ..runtime.journal import config_fingerprint
+
+    return config_fingerprint(
+        {k: getattr(cluster, k) for k in sorted(vars(cluster))},
+        [
+            (
+                a.name,
+                {k: getattr(a.resource, k) for k in sorted(vars(a.resource))},
+            )
+            for a in apps
+        ],
+        new_node,
+        flags,
+    )
+
+
 def probe_plan(
     cluster,
     apps,
@@ -351,7 +370,11 @@ def probe_plan(
     extended_resources: Optional[List[str]] = None,
     max_count: int = MAX_NUM_NEW_NODE,
     score_weights=None,
+    tolerate_failures: int = 0,
+    chaos_seed: int = 1,
+    chaos_trials: int = 32,
     budget=None,
+    journal=None,
     device=None,
 ) -> ApplyResult:
     """Fast capacity plan: encode the padded cluster once, start at the
@@ -359,9 +382,12 @@ def probe_plan(
     probe = one masked scan, a pair = one batch launch), and replay the
     winning scan's placements into host state for the report — no
     second full simulation (replaces the reference's per-guess
-    re-simulation loop, pkg/apply/apply.go:186-239). `budget` halts the
-    search at safe boundaries with a partial payload (runtime/budget).
-    The scans run on `device` (None = the card)."""
+    re-simulation loop, pkg/apply/apply.go:186-239). With
+    `tolerate_failures` > 0 the plan also escalates until it is N+K
+    survivable (resilience/chaos.py raise_plan_to_nplusk). `budget`
+    halts the search at safe boundaries with a partial payload
+    (runtime/budget); `journal` makes probes and scenario verdicts
+    resumable. The scans run on `device` (None = the card)."""
     import gc
 
     # the plan allocates millions of short-lived dicts (pod expansion,
@@ -374,7 +400,8 @@ def probe_plan(
     try:
         return _probe_plan_inner(
             cluster, apps, new_node, use_greed, extended_resources,
-            max_count, score_weights, budget, device,
+            max_count, score_weights, tolerate_failures, chaos_seed,
+            chaos_trials, budget, journal, device,
         )
     finally:
         clear_all_memos()
@@ -398,15 +425,18 @@ def _capacity_feasible():
     return feasible, (max_cpu, max_mem, max_vg)
 
 
-def _finish_plan(sweep, best, max_count, extended_resources) -> ApplyResult:
+def _finish_plan(
+    sweep, best, max_count, extended_resources, fail_message: str = ""
+) -> ApplyResult:
     """Replay the winning probe into host state, re-check the caps on
-    real state, and render the report."""
+    real state, and render the report — the tail shared by the
+    single-spec plan and the multi-spec what-if."""
     from ..utils.trace import phase
 
     if best is None:
         res = sweep.probe(max_count)
         result, _ = replay_scenario(sweep, max_count, res.placements)
-        message = (
+        message = fail_message or (
             f"{len(result.unscheduled_pods)} pod(s) cannot be scheduled "
             f"even with {max_count} new node(s)"
             if result.unscheduled_pods
@@ -438,7 +468,8 @@ def _finish_plan(sweep, best, max_count, extended_resources) -> ApplyResult:
 
 def _probe_plan_inner(
     cluster, apps, new_node, use_greed, extended_resources,
-    max_count, score_weights, budget=None, device=None,
+    max_count, score_weights, tolerate_failures=0, chaos_seed=1,
+    chaos_trials=32, budget=None, journal=None, device=None,
 ):
     from ..parallel.sweep import CapacitySweep
     from ..utils.trace import phase
@@ -452,18 +483,113 @@ def _probe_plan_inner(
         score_weights=score_weights,
         device=device,
     )
+    if journal is not None:
+        sweep.attach_journal(journal)
     feasible, (max_cpu, max_mem, max_vg) = _capacity_feasible()
     with phase("apply/lower-bound"):
         start = sweep.lower_bound(max_cpu, max_mem, max_vg)
     with phase("apply/probe-search"):
         best = sweep.find_min_count(feasible, start=start, budget=budget)
-    return _finish_plan(sweep, best, max_count, extended_resources)
+    fail_message = ""
+    if best is not None and tolerate_failures > 0:
+        from ..resilience.chaos import raise_plan_to_nplusk
+
+        with phase("apply/nplusk"):
+            best, _chaos = raise_plan_to_nplusk(
+                sweep,
+                best,
+                feasible,
+                tolerate_failures,
+                seed=chaos_seed,
+                trials=chaos_trials,
+                budget=budget,
+                journal=journal,
+            )
+        if best is None:
+            fail_message = (
+                f"plan cannot tolerate {tolerate_failures} node failure(s) "
+                f"within {max_count} new node(s)"
+            )
+    return _finish_plan(
+        sweep, best, max_count, extended_resources, fail_message=fail_message
+    )
 
 
-def probe_plan_multi(*_args, **_kwargs):
-    """The multi-spec what-if plan (the JAX package's probe_plan_multi /
-    find_min_count_multi) is not ported yet."""
-    raise OutOfSliceError("the multi-spec what-if plan (probe_plan_multi)", ITEM_MULTI)
+def probe_plan_multi(
+    cluster,
+    apps,
+    new_nodes: List[dict],
+    use_greed: bool = False,
+    extended_resources: Optional[List[str]] = None,
+    max_count: int = MAX_NUM_NEW_NODE,
+    score_weights=None,
+    budget=None,
+    device=None,
+) -> List[ApplyResult]:
+    """What-if capacity plan over MANY candidate newnode specs: every
+    spec's min-count search runs in lockstep, a round launching each
+    spec's probes as one batch-kernel launch and waiting on the card
+    once (parallel/sweep.py find_min_count_multi). Returns one
+    ApplyResult per spec, identical to what probe_plan would produce
+    for it."""
+    import gc
+
+    gc_was_enabled = gc.isenabled()
+    if gc_was_enabled:
+        gc.disable()
+    try:
+        from ..parallel.sweep import CapacitySweep, find_min_count_multi
+        from ..utils.trace import phase
+
+        feasible, (max_cpu, max_mem, max_vg) = _capacity_feasible()
+        jobs = []
+        for new_node in new_nodes:
+            sweep = CapacitySweep(
+                cluster,
+                apps,
+                new_node,
+                max_count,
+                use_greed=use_greed,
+                score_weights=score_weights,
+                device=device,
+                # expansion is spec-independent without daemonsets /
+                # greed ordering: later sweeps reuse the first's pods
+                share_pods_from=jobs[0][0] if jobs else None,
+            )
+            with phase("apply/lower-bound"):
+                start = sweep.lower_bound(max_cpu, max_mem, max_vg)
+            jobs.append((sweep, feasible, start))
+        with phase("apply/probe-search"):
+            bests = find_min_count_multi(jobs, budget=budget)
+
+        # replay mutates pod dicts (bind writes nodeName/phase and may
+        # touch annotations): sweeps that shared the first sweep's
+        # expanded pods get their OWN shallow copies from the still-
+        # pristine originals before ANY spec replays, so every spec's
+        # ApplyResult embeds dicts no later replay rewrites
+        def own_pod(p):
+            q = dict(p)
+            q["spec"] = dict(p["spec"])
+            meta = dict(p.get("metadata") or {})
+            if meta.get("annotations") is not None:
+                meta["annotations"] = dict(meta["annotations"])
+            q["metadata"] = meta
+            if isinstance(q.get("status"), dict):
+                q["status"] = dict(q["status"])
+            return q
+
+        for sweep, _, _ in jobs:
+            if sweep.pods_shared:
+                sweep.pods = [own_pod(p) for p in sweep.pods]
+        return [
+            _finish_plan(sweep, best, max_count, extended_resources)
+            for (sweep, _, _), best in zip(jobs, bests)
+        ]
+    finally:
+        clear_all_memos()
+        if gc_was_enabled:
+            gc.enable()
+            gc.collect()
 
 
 class Applier:
@@ -476,18 +602,14 @@ class Applier:
         use_greed: bool = False,
         scheduler_config: str = "",
         tolerate_node_failures: int = 0,
+        chaos_seed: int = 1,
+        chaos_trials: int = 32,
         journal_path: str = "",
         resume_path: str = "",
         device=None,
     ):
         if engine not in ("cuda", "oracle"):
             raise InputError(f"unknown engine {engine!r}: cuda or oracle")
-        if tolerate_node_failures > 0:
-            raise OutOfSliceError(
-                "N+K planning (--tolerate-node-failures)", ITEM_NPLUSK
-            )
-        if journal_path or resume_path:
-            raise OutOfSliceError("the planning journal (--journal/--resume)", ITEM_JOURNAL)
         if config.kube_config:
             raise OutOfSliceError("kubeConfig clusters", ITEM_KUBECONFIG)
         config.validate()
@@ -496,6 +618,14 @@ class Applier:
         self.engine = engine
         self.use_sweep = use_sweep
         self.use_greed = use_greed
+        self.tolerate_node_failures = tolerate_node_failures
+        self.chaos_seed = chaos_seed
+        self.chaos_trials = chaos_trials
+        # resumable planning journal (runtime/journal.py): --journal
+        # appends (creating or continuing), --resume requires the file
+        # and refuses a fingerprint mismatch; resume wins when both set
+        self.journal_path = journal_path
+        self.resume_path = resume_path
         # the scans' device: None = the card (raises without one)
         self.device = device
         self.extenders = []
@@ -561,6 +691,27 @@ class Applier:
             device=self.device,
         )
 
+    def open_journal(self, cluster, apps, new_node):
+        """Open the planning journal when configured (None otherwise),
+        keyed by the fingerprint of the loaded inputs + flags."""
+        if not (self.journal_path or self.resume_path):
+            return None
+        from ..runtime.journal import Journal
+
+        fp = plan_fingerprint(
+            cluster,
+            apps,
+            new_node,
+            engine=self.engine,
+            use_greed=self.use_greed,
+            tolerate_node_failures=self.tolerate_node_failures,
+            chaos_seed=self.chaos_seed,
+            chaos_trials=self.chaos_trials,
+        )
+        if self.resume_path:
+            return Journal.resume(self.resume_path, fp)
+        return Journal.open(self.journal_path, fp)
+
     def run(self, select_apps=None, budget=None) -> ApplyResult:
         # release the identity memos' strong refs to this run's object
         # graph at exit (the serial guesses inside rely on them warm)
@@ -580,19 +731,48 @@ class Applier:
             if select_apps is not None:
                 apps = [a for a in apps if a.name in select_apps]
             new_node = self.load_new_node()
+        # kept for callers that snapshot the result (cli.py: PDBs and
+        # PriorityClasses ride along)
         self.last_cluster = cluster
-        return self._plan(cluster, apps, new_node, budget)
+        journal = self.open_journal(cluster, apps, new_node)
+        if journal is not None and journal.replayed:
+            GLOBAL.note(
+                "journal-resume",
+                f"{journal.replayed} record(s) replayed"
+                + (f", {journal.dropped} torn record dropped" if journal.dropped else ""),
+            )
+        try:
+            return self._plan(cluster, apps, new_node, budget, journal)
+        finally:
+            if journal is not None:
+                journal.close()
 
-    def _plan(self, cluster, apps, new_node, budget) -> ApplyResult:
+    def _plan(self, cluster, apps, new_node, budget, journal=None) -> ApplyResult:
         from ..utils.trace import phase
 
+        # N+K needs the batched plan path: the committed placement, the
+        # outage sweep and the escalation all live on the encoded sweep
         batched_path = (
             self.use_sweep and new_node is not None and self.engine == "cuda"
         )
+        if self.tolerate_node_failures > 0 and not batched_path:
+            raise InputError(
+                "--tolerate-node-failures requires the batched plan "
+                "path: engine cuda, the sweep enabled, and a newNode "
+                "spec to escalate with"
+            )
         if batched_path:
-            fast = self._plan_with_probes(cluster, apps, new_node, budget=budget)
+            fast = self._plan_with_probes(
+                cluster, apps, new_node, budget=budget, journal=journal
+            )
             if fast is not None:
                 return fast
+            if self.tolerate_node_failures > 0:
+                raise InputError(
+                    "--tolerate-node-failures requires the batched plan, "
+                    "but this workload takes the serial engine — "
+                    "priority/extender workloads cannot ride the sweep"
+                )
 
         start_count = 0
         if self.use_sweep and new_node is not None:
@@ -639,7 +819,9 @@ class Applier:
             success=False, new_node_count=max_count, result=result, message=message
         )
 
-    def _plan_with_probes(self, cluster, apps, new_node, budget=None) -> Optional[ApplyResult]:
+    def _plan_with_probes(
+        self, cluster, apps, new_node, budget=None, journal=None
+    ) -> Optional[ApplyResult]:
         """The batched plan. Returns None only for a workload the scan
         cannot model (priority, permit or stateful plugins), which the
         serial escalation loop plans instead; every other error
@@ -655,7 +837,11 @@ class Applier:
                 use_greed=self.use_greed,
                 extended_resources=self.extended_resources,
                 score_weights=self.score_weights,
+                tolerate_failures=self.tolerate_node_failures,
+                chaos_seed=self.chaos_seed,
+                chaos_trials=self.chaos_trials,
                 budget=budget,
+                journal=journal,
                 device=self.device,
             )
         except PrioritySignalError as e:
@@ -664,16 +850,12 @@ class Applier:
 
     def _sweep_min_count(self, cluster, apps, new_node) -> Optional[int]:
         """One batched sweep over all candidate counts (one batch
-        launch); returns the minimal count that schedules everything
-        within the caps, or None for a workload the scan cannot model
-        (priority, permit or stateful plugins) or a batch the kernel
-        does not carry (custom score plugins): the serial escalation
-        loop plans those, as the JAX package's Applier does."""
-        from ..parallel.sweep import (
-            PrioritySignalError,
-            TorchScanBatchError,
-            sweep_node_counts,
-        )
+        launch, or the torch scan's probes for custom score plugins);
+        returns the minimal count that schedules everything within the
+        caps, or None for a workload the scan cannot model (priority,
+        permit or stateful plugins): the serial escalation loop plans
+        those, as the JAX package's Applier does."""
+        from ..parallel.sweep import PrioritySignalError, sweep_node_counts
         from ..utils.trace import GLOBAL
 
         try:
@@ -686,7 +868,7 @@ class Applier:
                 score_weights=self.score_weights,
                 device=self.device,
             )
-        except (PrioritySignalError, TorchScanBatchError) as e:
+        except PrioritySignalError as e:
             GLOBAL.note("apply-serial-route", str(e))
             return None
         max_cpu, max_mem, _ = _resource_caps()

@@ -56,6 +56,19 @@
 // keeps its own state rows, term counts and scratch, so S capacity
 // probes run in one launch at about the wall time of one.
 //
+// pins_first (a runtime argument of every instantiation, one value per
+// launch) runs the pod loop twice over the same pod order: the first pass
+// takes only the pods whose pin is >= 0 (each committed at its pin, or
+// INACTIVE when the pin is masked out or the pod inactive), the second
+// only the pods whose pin is < 0, through the full filter, score and
+// commit cycle from the first pass's state. That is the outage model of
+// the JAX package's _scenario_pinned_impl (parallel/sweep.py: two chained
+// masked scans), in one launch. The pod step is unchanged; a pod skipped
+// by a pass runs nothing in it, in every block alike, since the pass and
+// the pin are the same in every block of the cluster. The per-node
+// commit steps and the soft-spread stamps count steps across both passes
+// (pass * P + p), so they only grow.
+//
 // What bounds it on an H100: the scan is a serial chain of P pod steps.
 // Every step depends on the previous step's commit, so the steps cannot
 // overlap, and each step is reductions over the whole node axis (the
@@ -149,7 +162,10 @@
 // others' last stores into it have landed, and one after the replicas'
 // first copy keeps block 0's final copy from overtaking another block's
 // read of the value space. With C = 1 the same code runs on one block, a
-// cluster barrier being a block barrier.
+// cluster barrier being a block barrier. pins_first keeps all of this:
+// whether a pod runs in a pass depends only on the launch's flag and the
+// scenario's pin row, which every block of the cluster reads alike, so
+// every block skips or runs the same steps and meets the same barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -399,6 +415,7 @@ struct ScanArgs {
   int32_t* placements;          // [S, P]
   int64_t* aux;                 // [S, 3, N] scratch of kStore / kTerms
   int64_t n, u_n, p_n, k_n, g_n, w_n;
+  int64_t pins_first;           // 1: the pinned pods' pass, then the free pods'
   Weights w;
   StoreArgs st;
   TermArgs tm;
@@ -666,7 +683,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
     int64_t* __restrict__ gpu_used, const int32_t* __restrict__ port_init,
     const int32_t* __restrict__ port_cls, int32_t* __restrict__ port_used, int64_t k_n,
     int64_t g_n, int64_t w_n, StoreArgs st, TermArgs tm, int64_t* __restrict__ aux,
-    int64_t resident) {
+    int64_t resident, int64_t pins_first) {
   constexpr bool kBig = kStore || kTerms;
   // pass-1 exchange: simon hi, simon lo, nodeaff max, taint max, any;
   // with kStore / kTerms also storage hi, storage lo, ipa max, ipa min
@@ -943,7 +960,13 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
     cluster_barrier(cluster, csize);
   }
 
+  // one pass over the pods, or two with pins_first: the pinned pods, then
+  // the free ones; `step` numbers the pod steps across both
+  const int passes = pins_first ? 2 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
   for (int64_t p = 0; p < p_n; ++p) {
+    if (pins_first && (pinned[p] >= 0) != (pass == 0)) continue;
+    const int64_t step = pass * p_n + p;
     const int64_t u = class_of_pod[p];
     const int64_t* req = cls_req + u * 6;
     const int64_t rc = req[kReqCpu], rm = req[kReqMem], re = req[kReqEph];
@@ -1147,7 +1170,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
                 const int64_t c = tm.cls_srows[u * tm.sm_n + j];
                 if (c < 0 || tm.s_host[c]) continue;
                 const int32_t v = tm.topo[tm.s_row[c] * n + lo + i];
-                if (v >= 0) my_stamps[tm.s_off[c] + v] = p;
+                if (v >= 0) my_stamps[tm.s_off[c] + v] = step;
               }
             }
           }
@@ -1182,7 +1205,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
       }
       __syncthreads();
       // every thread has read part_step: this pass is the class's last
-      if (cached && tid == 0) c_cls_u[0] = p;
+      if (cached && tid == 0) c_cls_u[0] = step;
       // every warp finishes the reduction itself: no second barrier
       // (lanes past the block's warps hold each fold's identity); in a
       // cluster, and always for kStore / kTerms, only warp 0 needs the
@@ -1276,7 +1299,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
                     // read from L2, never a stale L1 line
                     for (int64_t r = 0; r < csize && !seen; ++r) {
                       seen = __ldcg(reinterpret_cast<const long long*>(
-                                 tm.stamps + r * tm.vs_n + v)) == p;
+                                 tm.stamps + r * tm.vs_n + v)) == step;
                     }
                     cnt_v += seen;
                   }
@@ -1470,7 +1493,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
       nz_c[j] = add_w(nz_c[j], nzc);
       nz_m[j] = add_w(nz_m[j], nzm);
       pods[j] = add_w(pods[j], 1);
-      if (cached) c_node[j] = p;
+      if (cached) c_node[j] = step;
       if (kScal) {
         for (int64_t k = 0; k < k_n; ++k) l_scal[k * ls + j] = add_w(l_scal[k * ls + j], sreq[k]);
       }
@@ -1527,6 +1550,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
       }
     }
     if (tid == 0 && crank == 0) placements[p] = (int32_t)place;
+  }
   }
 
   if (in_smem) {
@@ -1692,7 +1716,7 @@ int run(const ScanArgs& a, const Shape& sh, cudaStream_t stream, Ask ask, int64_
                            a.placements, a.n, a.u_n, a.p_n, a.w, a.scal_alloc, a.scal_init,
                            a.scal_req, a.scal_state, a.gpu_node, a.gpu_init, a.gpu_cls,
                            a.gpu_state, a.port_init, a.port_cls, a.port_state, a.k_n, a.g_n,
-                           a.w_n, a.st, a.tm, a.aux, sh.resident);
+                           a.w_n, a.st, a.tm, a.aux, sh.resident, a.pins_first);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
@@ -1740,7 +1764,7 @@ enum {
   kArgVr, kArgVgr, kArgVsr,
   kArgWLeast, kArgWBalanced, kArgWSimon, kArgWNodeAff, kArgWTaintTol, kArgWSpread,
   kArgWIpa, kArgWOpenLocal,
-  kArgScenarios, kArgFlags, kArgCluster, kArgResident, kArgSmem, kArgCount
+  kArgScenarios, kArgFlags, kArgCluster, kArgResident, kArgSmem, kArgPinsFirst, kArgCount
 };
 
 template <typename T>
@@ -1794,6 +1818,7 @@ extern "C" int fused_scan_launch(const int64_t* args, int64_t n_args, void* stre
   a.k_n = v[kArgK];
   a.g_n = v[kArgG];
   a.w_n = v[kArgW];
+  a.pins_first = v[kArgPinsFirst] != 0;
   a.w = Weights{v[kArgWLeast], v[kArgWBalanced], v[kArgWSimon], v[kArgWNodeAff],
                 v[kArgWTaintTol], v[kArgWSpread], v[kArgWIpa], v[kArgWOpenLocal]};
   StoreArgs& st = a.st;

@@ -20,7 +20,11 @@ shapes, counted apart:
   topology-spread block, or both (the B2 blocks ride along as runtime
   branches there);
 - `fused_scan_batch`: several (active, valid, pinned) scenarios of one
-  plan in one launch, one cluster per scenario, with the same flags.
+  plan in one launch, one cluster per scenario, with the same flags;
+  with its pins-first mode on (a runtime flag, counted apart as
+  `fused_scan_batch (pins-first)`) each scenario commits its pinned
+  pods before any free pod schedules: the outage rows of the chaos
+  engine (the JAX package's two chained scans, _scenario_pinned_impl).
 
 The semantics are those of the JAX package's XLA scan (ops/scan.py),
 which is conformance-tested against the serial oracle; the TPU kernel's
@@ -75,6 +79,9 @@ STORE_KERNEL_NAME = "fused_scan_store"
 TERMS_KERNEL_NAME = "fused_scan_terms"
 STORE_TERMS_KERNEL_NAME = "fused_scan_store_terms"
 BATCH_KERNEL_NAME = "fused_scan_batch"
+# the scenario batch with its pins-first mode on (the same
+# instantiations, a runtime flag): counted apart
+PINS_FIRST_KERNEL_NAME = "fused_scan_batch (pins-first)"
 STATE_FIELDS = ("used_mcpu", "used_mem", "used_eph", "nz_mcpu", "nz_mem", "pod_cnt")
 # value-space term state rows of the [4, VT] array, in order
 TERM_FIELDS = ("tgt", "own_anti_req", "own_aff_pref_w", "own_anti_pref_w")
@@ -86,7 +93,7 @@ TERM_ROWS = TERM_FIELDS + ("group_counts", "group_total", "soft_counts")
 # nowhere else (chip_smoke.py reads them around each path)
 LAUNCHES = {name: 0 for name in (
     KERNEL_NAME, EXT_KERNEL_NAME, STORE_KERNEL_NAME, TERMS_KERNEL_NAME,
-    STORE_TERMS_KERNEL_NAME, BATCH_KERNEL_NAME)}
+    STORE_TERMS_KERNEL_NAME, BATCH_KERNEL_NAME, PINS_FIRST_KERNEL_NAME)}
 # the cluster size of each kernel's last launch
 CLUSTERS = {name: None for name in LAUNCHES}
 
@@ -985,12 +992,15 @@ class _PlainTerms:
         return self.ts, self.gs, self.gt, self.ss
 
 
-def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
+def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios,
+                               pins_first: bool = False):
     """The plain PyTorch version of the batch: an eager loop over the
     pods, one step vectorised over the [scenario, node] axes each.
     `scenarios` is a list of (active[P], valid[N], pinned[P] or None).
-    Returns [(placements[P] int32, final state dict), ...]. It repeats
-    the kernel's arithmetic and is no yardstick of speed."""
+    With `pins_first` the loop runs twice: the pinned pods' commits,
+    then the free pods' steps (the kernel's pins-first mode). Returns
+    [(placements[P] int32, final state dict), ...]. It repeats the
+    kernel's arithmetic and is no yardstick of speed."""
     cls_t, act_t, val_t, pin_t = _scenario_inputs(plan, class_of_pod, scenarios)
     dev = plan.device
     n, p = plan.n, cls_t.shape[0]
@@ -1004,7 +1014,13 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
     host_place = np.where(pin >= 0, np.where(pinned_ok, pin, INACTIVE), -1)
     host_place = np.where(act, host_place, INACTIVE)
     scanned = act & (pin < 0)  # [S, P]: pods that run filter and score
-    scan_any = scanned.any(axis=0)
+    # each pass: the pods that run filter and score, and what the others
+    # commit (a node, or -1 / INACTIVE for nothing)
+    if pins_first:
+        passes = [(np.zeros_like(scanned), np.where(pin >= 0, host_place, -1)),
+                  (scanned, np.where(pin >= 0, -1, host_place))]
+    else:
+        passes = [(scanned, host_place)]
     reqs = plan.cls_req.cpu().tolist()
     w_least, w_bal, w_simon, w_na, w_tt, w_spread, w_ipa, w_local = plan.weights
     big = torch.iinfo(torch.int64).max
@@ -1031,8 +1047,6 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
         want_w, confl_w = plan.port_cls.unbind(0)
     node_idx = torch.arange(n, device=dev)
     out = torch.from_numpy(host_place.astype(np.int32)).to(dev)
-    host_place_t = out.clone()
-    scan_rows = torch.from_numpy(scanned).to(dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     def minmax_norm(raw, feas):
@@ -1042,116 +1056,120 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios):
         rng = hi - lo
         return torch.where(rng > 0, (raw - lo) * MAX_SCORE // rng.clamp(min=1), zero)
 
-    for i in range(p):
-        u = cls[i]
-        rc, rm, re, nzc, nzm, has_req = reqs[u]
-        if not (host_place[:, i] >= 0).any() and not scan_any[i]:
-            continue  # inactive everywhere
-        gm, gc = gpu_cls[u] if plan.has_gpu else (0, 0)
-        if gm > 0:
-            # open-gpu-share device choice at every node (scan.py
-            # _gpu_allocate), from the state before this pod's commit
-            avail = per_dev[None, None, :] - gpu  # [S, G, N]
-            if gc == 1:
-                fits = dvalid[None] & (avail >= gm)
-                found = fits.any(dim=1)
-                best = torch.where(fits, avail, big).argmin(dim=1)  # first on ties
-                take = (torch.arange(gpu.shape[1], device=dev)[None, :, None]
-                        == best[:, None, :]).long() * found[:, None, :].long()
-            else:
-                cap = torch.where(dvalid[None], avail // max(gm, 1), zero).clamp(min=0)
-                prefix = cap.cumsum(dim=1) - cap
-                take = torch.minimum((gc - prefix).clamp(min=0), cap)
-                found = cap.sum(dim=1) >= gc
-            gpu_ok = (gpu_tot[None, :] >= gm) & found
-        # storage takes at every node, from the state before the commit
-        st = store.eval(u) if store is not None else None
-        if scan_any[i]:
-            feas = plan.feasible[u][None, :] & valid_b & (pods + 1 <= alloc_p)
-            if has_req:
-                feas &= (alloc_c >= used_c + rc) & (alloc_m >= used_m + rm) & (
-                    alloc_e >= used_e + re)
-                if plan.has_scal:
-                    feas &= (plan.scal_alloc[None] >= scal + scal_req[u][None, :, None]
-                             ).all(dim=1)
-            if plan.has_ports:
-                feas &= ((ports & confl_w[u][None, :, None]) == 0).all(dim=1)
+    for scan_np, fixed_np in passes:
+        scan_rows = torch.from_numpy(scan_np).to(dev)
+        fixed_t = torch.from_numpy(fixed_np).to(dev)
+        scan_any = scan_np.any(axis=0)
+        for i in range(p):
+            u = cls[i]
+            rc, rm, re, nzc, nzm, has_req = reqs[u]
+            if not (fixed_np[:, i] >= 0).any() and not scan_any[i]:
+                continue  # nothing to run or commit in this pass
+            gm, gc = gpu_cls[u] if plan.has_gpu else (0, 0)
             if gm > 0:
-                feas &= gpu_ok
-            if st is not None:
-                feas &= st[0]
-            if terms is not None:
-                term_ok, ipa_raw = terms.filter(u, valid_b)
-                feas &= term_ok
-            total = plan.cls_tab[3, u].unsqueeze(0).repeat(s_n, 1)
-            totc = nz_c + nzc
-            totm = nz_m + nzm
-            if w_least:
-                lc = torch.where((alloc_c > 0) & (totc <= alloc_c),
-                                 (alloc_c - totc) * MAX_SCORE // alloc_c1, zero)
-                lm = torch.where((alloc_m > 0) & (totm <= alloc_m),
-                                 (alloc_m - totm) * MAX_SCORE // alloc_m1, zero)
-                total += (lc + lm) // 2 * w_least
-            if w_bal:
-                cf = torch.where(alloc_c > 0, totc.double() / alloc_cf, 1.0)
-                mf = torch.where(alloc_m > 0, totm.double() / alloc_mf, 1.0)
-                bal = torch.where((cf >= 1) | (mf >= 1), zero,
-                                  ((1 - (cf - mf).abs()) * MAX_SCORE).long())
-                total += bal * w_bal
-            if w_simon:
-                total += minmax_norm(plan.cls_tab[0, u][None, :], feas) * w_simon
-            if w_na:
-                raw = plan.cls_tab[1, u][None, :]
-                mx = torch.where(feas, raw, zero).amax(dim=1, keepdim=True)
-                total += torch.where(
-                    mx > 0, MAX_SCORE * raw // mx.clamp(min=1), zero) * w_na
-            if w_tt:
-                raw = plan.cls_tab[2, u][None, :]
-                mx = torch.where(feas, raw, zero).amax(dim=1, keepdim=True)
-                total += torch.where(
-                    mx > 0, MAX_SCORE - MAX_SCORE * raw // mx.clamp(min=1),
-                    MAX_SCORE) * w_tt
-            if st is not None and w_local:
-                # a class without volumes scores 0 everywhere
-                total += minmax_norm(st[1], feas) * w_local
-            if terms is not None:
-                if w_ipa:
-                    # InterPodAffinity NormalizeScore: bounds include 0,
-                    # f64 divide, int64 truncation
-                    masked = torch.where(feas, ipa_raw, zero)
-                    mx = masked.amax(dim=1, keepdim=True).clamp(min=0)
-                    mn = masked.amin(dim=1, keepdim=True).clamp(max=0)
-                    diff = (mx - mn).double()
+                # open-gpu-share device choice at every node (scan.py
+                # _gpu_allocate), from the state before this pod's commit
+                avail = per_dev[None, None, :] - gpu  # [S, G, N]
+                if gc == 1:
+                    fits = dvalid[None] & (avail >= gm)
+                    found = fits.any(dim=1)
+                    best = torch.where(fits, avail, big).argmin(dim=1)  # first on ties
+                    take = (torch.arange(gpu.shape[1], device=dev)[None, :, None]
+                            == best[:, None, :]).long() * found[:, None, :].long()
+                else:
+                    cap = torch.where(dvalid[None], avail // max(gm, 1), zero).clamp(min=0)
+                    prefix = cap.cumsum(dim=1) - cap
+                    take = torch.minimum((gc - prefix).clamp(min=0), cap)
+                    found = cap.sum(dim=1) >= gc
+                gpu_ok = (gpu_tot[None, :] >= gm) & found
+            # storage takes at every node, from the state before the commit
+            st = store.eval(u) if store is not None else None
+            if scan_any[i]:
+                feas = plan.feasible[u][None, :] & valid_b & (pods + 1 <= alloc_p)
+                if has_req:
+                    feas &= (alloc_c >= used_c + rc) & (alloc_m >= used_m + rm) & (
+                        alloc_e >= used_e + re)
+                    if plan.has_scal:
+                        feas &= (plan.scal_alloc[None] >= scal + scal_req[u][None, :, None]
+                                 ).all(dim=1)
+                if plan.has_ports:
+                    feas &= ((ports & confl_w[u][None, :, None]) == 0).all(dim=1)
+                if gm > 0:
+                    feas &= gpu_ok
+                if st is not None:
+                    feas &= st[0]
+                if terms is not None:
+                    term_ok, ipa_raw = terms.filter(u, valid_b)
+                    feas &= term_ok
+                total = plan.cls_tab[3, u].unsqueeze(0).repeat(s_n, 1)
+                totc = nz_c + nzc
+                totm = nz_m + nzm
+                if w_least:
+                    lc = torch.where((alloc_c > 0) & (totc <= alloc_c),
+                                     (alloc_c - totc) * MAX_SCORE // alloc_c1, zero)
+                    lm = torch.where((alloc_m > 0) & (totm <= alloc_m),
+                                     (alloc_m - totm) * MAX_SCORE // alloc_m1, zero)
+                    total += (lc + lm) // 2 * w_least
+                if w_bal:
+                    cf = torch.where(alloc_c > 0, totc.double() / alloc_cf, 1.0)
+                    mf = torch.where(alloc_m > 0, totm.double() / alloc_mf, 1.0)
+                    bal = torch.where((cf >= 1) | (mf >= 1), zero,
+                                      ((1 - (cf - mf).abs()) * MAX_SCORE).long())
+                    total += bal * w_bal
+                if w_simon:
+                    total += minmax_norm(plan.cls_tab[0, u][None, :], feas) * w_simon
+                if w_na:
+                    raw = plan.cls_tab[1, u][None, :]
+                    mx = torch.where(feas, raw, zero).amax(dim=1, keepdim=True)
                     total += torch.where(
-                        diff > 0,
-                        ((MAX_SCORE * (ipa_raw - mn)).double() / diff.clamp(min=1.0)).long(),
-                        zero) * w_ipa
-                soft = terms.soft(u, feas) if w_spread else None
-                if soft is not None:
-                    total += soft * w_spread
-            masked = torch.where(feas, total, torch.iinfo(torch.int64).min)
-            chosen = torch.where(feas.any(dim=1), masked.argmax(dim=1), -1)
-            place = torch.where(scan_rows[:, i], chosen, host_place_t[:, i].long())
-            out[:, i] = place.int()
-        else:
-            place = host_place_t[:, i].long()
-        sel = (node_idx[None, :] == place[:, None]).long()  # [S, N]
-        used_c += sel * rc
-        used_m += sel * rm
-        used_e += sel * re
-        nz_c += sel * nzc
-        nz_m += sel * nzm
-        pods += sel
-        if plan.has_scal:
-            scal += sel[:, None, :] * scal_req[u][None, :, None]
-        if plan.has_ports:
-            ports |= sel[:, None, :].int() * want_w[u][None, :, None]
-        if gm > 0:
-            gpu += sel[:, None, :] * take * gm
-        if store is not None:
-            store.commit(sel, st)
-        if terms is not None:
-            terms.commit(u, place)
+                        mx > 0, MAX_SCORE * raw // mx.clamp(min=1), zero) * w_na
+                if w_tt:
+                    raw = plan.cls_tab[2, u][None, :]
+                    mx = torch.where(feas, raw, zero).amax(dim=1, keepdim=True)
+                    total += torch.where(
+                        mx > 0, MAX_SCORE - MAX_SCORE * raw // mx.clamp(min=1),
+                        MAX_SCORE) * w_tt
+                if st is not None and w_local:
+                    # a class without volumes scores 0 everywhere
+                    total += minmax_norm(st[1], feas) * w_local
+                if terms is not None:
+                    if w_ipa:
+                        # InterPodAffinity NormalizeScore: bounds include 0,
+                        # f64 divide, int64 truncation
+                        masked = torch.where(feas, ipa_raw, zero)
+                        mx = masked.amax(dim=1, keepdim=True).clamp(min=0)
+                        mn = masked.amin(dim=1, keepdim=True).clamp(max=0)
+                        diff = (mx - mn).double()
+                        total += torch.where(
+                            diff > 0,
+                            ((MAX_SCORE * (ipa_raw - mn)).double() / diff.clamp(min=1.0)).long(),
+                            zero) * w_ipa
+                    soft = terms.soft(u, feas) if w_spread else None
+                    if soft is not None:
+                        total += soft * w_spread
+                masked = torch.where(feas, total, torch.iinfo(torch.int64).min)
+                chosen = torch.where(feas.any(dim=1), masked.argmax(dim=1), -1)
+                place = torch.where(scan_rows[:, i], chosen, fixed_t[:, i].long())
+                out[:, i] = torch.where(scan_rows[:, i], chosen.int(), out[:, i])
+            else:
+                place = fixed_t[:, i].long()
+            sel = (node_idx[None, :] == place[:, None]).long()  # [S, N]
+            used_c += sel * rc
+            used_m += sel * rm
+            used_e += sel * re
+            nz_c += sel * nzc
+            nz_m += sel * nzm
+            pods += sel
+            if plan.has_scal:
+                scal += sel[:, None, :] * scal_req[u][None, :, None]
+            if plan.has_ports:
+                ports |= sel[:, None, :].int() * want_w[u][None, :, None]
+            if gm > 0:
+                gpu += sel[:, None, :] * take * gm
+            if store is not None:
+                store.commit(sel, st)
+            if terms is not None:
+                terms.commit(u, place)
     blocks = _state_blocks(plan, scal, gpu, ports,
                            store.final() if store is not None else None,
                            terms.final() if terms is not None else None)
@@ -1166,7 +1184,7 @@ def fused_scan_reference(plan: FusedPlan, class_of_pod, active, valid, pinned=No
 
 # length of the int64 argument vector of fused_scan_launch (the
 # kArg* enum of csrc/fused_scan.cu); checked against the library
-_N_ARGS = 107
+_N_ARGS = 108
 
 
 def _library():
@@ -1529,7 +1547,7 @@ def choose_cluster(plan: FusedPlan, scenarios: int, batch: bool) -> int:
 
 
 def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
-                   launch: LaunchShape):
+                   launch: LaunchShape, pins_first: bool = False):
     """The kernel's argument vector for the [S, ...] inputs in `launch`,
     and the
     (placements, state, block rows) it writes: outputs and scratch are
@@ -1594,7 +1612,7 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
           d["t"], d["r"], d["a"], d["gm"], d["ch"], d["hm"], d["cs"], d["sm"],
           d["vt"], d["va"], d["vs"], d["vr"], d["vgr"], d["vsr"],
           *plan.weights, s_n, _flags(plan, batch),
-          launch.cluster, launch.layout, launch.smem]
+          launch.cluster, launch.layout, launch.smem, int(pins_first)]
     assert len(args) == _N_ARGS
     blocks = _state_blocks(plan, scal, gpu, ports, store, terms)
     # the scratch rides along so that it outlives the call's enqueue
@@ -1602,19 +1620,20 @@ def _launch_inputs(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
 
 
 def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
-            cluster: Optional[int] = None) -> list:
+            cluster: Optional[int] = None, pins_first: bool = False) -> list:
     """Launch the kernel over the scenarios of the [S, ...] inputs: one
     cluster per scenario when `batch`, else one cluster (S == 1), of the
-    size the rule chooses unless `cluster` names one. Counts the launch
-    under its kernel's name and records the cluster size it ran."""
+    size the rule chooses unless `cluster` names one; `pins_first` runs
+    the pinned pods' pass before the free pods' (batch only). Counts the
+    launch under its kernel's name and records the cluster size it ran."""
     dev = plan.device
     s_n, p = act_t.shape[0], cls_t.shape[0]
     if cluster is None:
         cluster = choose_cluster(plan, s_n, batch)
     shape = launch_shape(plan, cluster)
     args, (placements, state, blocks, _scratch) = _launch_inputs(
-        plan, cls_t, act_t, val_t, pin_t, batch, shape)
-    name = kernel_name(plan, batch)
+        plan, cls_t, act_t, val_t, pin_t, batch, shape, pins_first)
+    name = PINS_FIRST_KERNEL_NAME if pins_first else kernel_name(plan, batch)
     if p == 0:
         state.copy_(plan.init.expand_as(state))
         for key, init in (("used_scalar", plan.scal_init), ("gpu_used", plan.gpu_init),
@@ -1654,21 +1673,24 @@ def run_fused_scan(plan: FusedPlan, class_of_pod, active, valid, pinned=None):
     return _launch(plan, *inputs, batch=False)[0]
 
 
-def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios):
+def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=False):
     """Several independent scans of one plan: `scenarios` is a list of
     (active[P], valid[N], pinned[P] or None). Returns [(placements,
     final), ...] in scenario order — the contract of the JAX package's
-    run_scan_pallas_batch. On a CUDA plan all scenarios go in one
-    launch on one stream (one cluster each); a CPU plan takes the plain
-    version."""
+    run_scan_pallas_batch. With `pins_first` each scenario commits its
+    pinned pods before any free pod schedules (two passes over the pod
+    order in the one launch: the JAX package's _scenario_pinned_impl).
+    On a CUDA plan all scenarios go in one launch on one stream (one
+    cluster each); a CPU plan takes the plain version."""
     if _device_of(plan) == "cpu":
-        return fused_scan_batch_reference(plan, class_of_pod, scenarios)
+        return fused_scan_batch_reference(plan, class_of_pod, scenarios,
+                                          pins_first=pins_first)
     inputs = _scenario_inputs(plan, class_of_pod, scenarios)
-    return _launch(plan, *inputs, batch=True)
+    return _launch(plan, *inputs, batch=True, pins_first=pins_first)
 
 
 def _run_with_cluster(plan: FusedPlan, class_of_pod, scenarios, batch: bool,
-                      cluster: int) -> list:
+                      cluster: int, pins_first: bool = False) -> list:
     """The kernel on a CUDA plan with the cluster size given, not
     chosen: for holding every size against the plain version
     (chip_smoke.py, the `cuda` tests). `batch` False takes one scenario.
@@ -1679,7 +1701,7 @@ def _run_with_cluster(plan: FusedPlan, class_of_pod, scenarios, batch: bool,
         raise ValueError("a single launch takes one scenario")
     launch_shape(plan, cluster)  # raises before any copy
     inputs = _scenario_inputs(plan, class_of_pod, scenarios)
-    return _launch(plan, *inputs, batch=batch, cluster=cluster)
+    return _launch(plan, *inputs, batch=batch, cluster=cluster, pins_first=pins_first)
 
 
 def kernel_label(plan: FusedPlan) -> str:
@@ -1709,6 +1731,7 @@ __all__ = [
     "NoCardError",
     "NotInKernelError",
     "OutOfSliceError",
+    "PINS_FIRST_KERNEL_NAME",
     "STORE_KERNEL_NAME",
     "STORE_TERMS_KERNEL_NAME",
     "TERMS_KERNEL_NAME",

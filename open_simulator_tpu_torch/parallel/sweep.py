@@ -13,13 +13,23 @@ every candidate count is one scenario of one encoded cluster:
 - a probe is one masked fused scan (ops/fused_scan.py run_fused_scan);
   two counts (`probe_pair`) or many (`probe_many`) go in ONE launch of
   the scenario-batch kernel, one cluster of blocks per scenario
+- a batch the kernel does not carry (custom score plugins;
+  fused_scan.torch_scan_reason names it) runs every probe on the eager
+  torch scan (ops/scan.py run_scan_masked), one scenario at a time, as
+  the JAX package's sweep runs it on its XLA scan (_probe_xla)
 
 Ported from the JAX package's parallel/sweep.py with the same search
-shape. There is no engine ladder: on a CUDA plan each probe launches
-the kernel or raises, on a CPU plan it takes the kernel's plain
-version. The mesh rungs, the resumable journal, the multi-spec what-if
-search and the serial/chaos scenario rows are not ported yet
-(ROADMAP.md A1).
+shape, plus its resumable journal (attach_journal), its multi-spec
+what-if search (find_min_count_multi) and the outage-scenario rows the
+chaos engine rides (serial_scenario, probe_scenarios: the batch
+kernel's pins-first mode). Device work goes through runtime/guard.py:
+a device OOM halves a chunk of scenarios; a single scenario that still
+runs out raises on the card (on the CPU it goes to the serial oracle,
+trace-noted); every other error propagates. There is
+no mesh (ROADMAP.md A11), and no counterpart of the reference's
+preload_plan_group (ops/pallas_scan.py), which packs every spec's plan
+into one host-to-TPU transfer for its relay: each plan here is built on
+the card by its own sweep, with no relay between.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from ..models import workloads as wl
 from ..models.decode import ResourceTypes
 from ..models.validation import InputError
 from ..ops import fused_scan
-from ..ops.fused_scan import INACTIVE, OutOfSliceError
+from ..ops.fused_scan import INACTIVE
+from ..runtime.guard import run_chunked
 from ..scheduler.core import AppResource, _sort_app_pods
 from ..scheduler.oracle import Oracle
 
@@ -44,12 +55,9 @@ __all__ = [
     "PrioritySignalError",
     "ProbeResult",
     "SweepResult",
-    "TorchScanBatchError",
+    "find_min_count_multi",
     "sweep_node_counts",
 ]
-
-# the ROADMAP.md item that carries a torch-scan batch through the sweep
-ITEM_TORCH_SCAN = "A1g"
 
 
 class PrioritySignalError(InputError):
@@ -58,17 +66,6 @@ class PrioritySignalError(InputError):
     silent non-preemptive plan would diverge from simulate() on the
     same input. Callers (apply/applier.py) route such a workload to the
     serial escalation loop, whose simulate() handles priority."""
-
-
-class TorchScanBatchError(OutOfSliceError):
-    """The sweep's batch is one the fused kernel does not carry (custom
-    score plugins; fused_scan.torch_scan_reason names it). The sweep's
-    probes ride the kernel only, so it raises before any probe; the
-    serial engine's caller (apply/applier.py) plans such a batch by
-    serial escalation instead."""
-
-    def __init__(self, reason: str):
-        super().__init__(f"{reason} in the capacity sweep", ITEM_TORCH_SCAN)
 
 
 @dataclass
@@ -93,6 +90,29 @@ class ProbeResult:
     mem_util: float
     vg_util: float
     placements: np.ndarray  # [P] node index / -1 / -2(inactive)
+
+
+def _probe_to_record(res: ProbeResult) -> dict:
+    """JSON-serializable journal record of one probe (runtime/journal)."""
+    return {
+        "count": int(res.count),
+        "unscheduled": int(res.unscheduled),
+        "cpuUtil": float(res.cpu_util),
+        "memUtil": float(res.mem_util),
+        "vgUtil": float(res.vg_util),
+        "placements": [int(x) for x in np.asarray(res.placements)],
+    }
+
+
+def _probe_from_record(rec: dict) -> ProbeResult:
+    return ProbeResult(
+        count=int(rec["count"]),
+        unscheduled=int(rec["unscheduled"]),
+        cpu_util=float(rec["cpuUtil"]),
+        mem_util=float(rec["memUtil"]),
+        vg_util=float(rec["vgUtil"]),
+        placements=np.asarray(rec["placements"], dtype=np.int64),
+    )
 
 
 def _new_nodes(spec: dict, count: int) -> List[dict]:
@@ -124,7 +144,9 @@ class CapacitySweep:
     every probe is a single masked scan with a different node-validity
     mask over the same plan (the reference re-runs the whole simulation
     per guess, pkg/apply/apply.go:186-239). The plan lives on `device`:
-    the card unless the caller names another.
+    the card unless the caller names another. `share_pods_from` (the
+    multi-spec what-if) reuses a sibling sweep's expanded pods where the
+    expansion does not depend on the spec.
     """
 
     def __init__(
@@ -136,6 +158,7 @@ class CapacitySweep:
         use_greed: bool = False,
         score_weights=None,
         device=None,
+        share_pods_from: "Optional[CapacitySweep]" = None,
     ):
         from ..ops.encode import (
             encode_batch,
@@ -152,43 +175,32 @@ class CapacitySweep:
 
         # Build oracle at full padding; generate the full pod sequence
         # the serial path would see (cluster pods, then apps in order).
+        # A multi-spec what-if (probe_plan_multi) reuses a sibling
+        # sweep's expanded pod list when expansion is spec-INDEPENDENT:
+        # the only node-dependent expansions are daemonsets (one pod per
+        # node) and greed_sort ordering. The shared dicts follow the
+        # same repeated-replay contract as one sweep replayed at several
+        # counts (had_node_name below).
+        if (
+            share_pods_from is None
+            or use_greed
+            or padded.daemon_sets
+            or any(app.resource.daemon_sets for app in apps)
+            or share_pods_from.max_count != self.max_count
+            or share_pods_from.n_base != len(cluster.nodes)
+        ):
+            share_pods_from = None
+        # replays MUTATE pod dicts (bind writes nodeName/phase), so a
+        # multi-spec caller gives each sweep its own copies before
+        # replaying (applier.probe_plan_multi checks this flag)
+        self.pods_shared = share_pods_from is not None
         with phase("sweep/expand"):
             self.oracle = Oracle(padded.nodes)
-            pods: List[dict] = []
-            pods.extend(wl.pods_excluding_daemon_sets(padded))
-            for ds in padded.daemon_sets:
-                pods.extend(wl.pods_from_daemon_set(ds, padded.nodes))
-            for app in apps:
-                app_pods = wl.generate_valid_pods_from_app(
-                    app.name, app.resource, padded.nodes
-                )
-                if use_greed:
-                    # same ordering the authoritative serial run will
-                    # use (scheduler/core.py schedule_app): greed_sort
-                    # ignores simon new nodes, so max-count padding and
-                    # the per-count serial cluster sort pods identically
-                    from ..scheduler.queues import greed_sort
-
-                    app_pods = greed_sort(padded.nodes, app_pods)
-                pods.extend(_sort_app_pods(app_pods))
-            from ..scheduler.preemption import (
-                build_priority_resolver,
-                pod_uses_priority,
-            )
-
-            resolver = build_priority_resolver(cluster.priority_classes)
-            if any(pod_uses_priority(p, resolver) for p in pods):
-                raise PrioritySignalError(
-                    "workload carries priority/priorityClassName; the "
-                    "batched scan has no priority/preemption semantics — "
-                    "use the serial engine"
-                )
-            if self.oracle.registry.needs_serial:
-                raise PrioritySignalError(
-                    "a registered plugin defines permit() or a stateful "
-                    "hook (reserve/prebind); the batched scan cannot "
-                    "honor per-pod host callbacks — use the serial engine"
-                )
+            if share_pods_from is not None:
+                # expansion (and its priority/plugin checks) shared
+                pods = share_pods_from.pods
+            else:
+                pods = self._expand(cluster, padded, apps, use_greed)
         self.pods = pods
         self.n = len(padded.nodes)
         self.n_base = self.n - self.max_count
@@ -200,13 +212,23 @@ class CapacitySweep:
             self.features = features_of_batch(
                 self.cluster_enc, self.batch, weights=score_weights
             )
-            reason = fused_scan.torch_scan_reason(self.features)
-            if reason is not None:
-                raise TorchScanBatchError(reason)
-            self.plan = fused_scan.build_plan(
-                self.cluster_enc, self.batch, self.dyn, self.features,
-                device=self.device,
+            # a batch the kernel does not carry (custom score plugins)
+            # runs every probe on the torch scan; else one kernel plan
+            self.scan_reason = fused_scan.torch_scan_reason(self.features)
+            self.plan = (
+                None
+                if self.scan_reason is not None
+                else fused_scan.build_plan(
+                    self.cluster_enc, self.batch, self.dyn, self.features,
+                    device=self.device,
+                )
             )
+        self._scan_inputs = None  # the torch scan's (static, init), lazily
+        self._pins_plan = None  # the plan with pins on, lazily
+        # optional resumable journal (runtime/journal.py): probe()
+        # serves journaled counts without touching the device and
+        # appends every fresh result (attach_journal)
+        self.journal = None
 
         # which pods arrived with spec.nodeName, recorded BEFORE any
         # replay binds pods (replay_scenario writes nodeName into these
@@ -223,7 +245,47 @@ class CapacitySweep:
             target = _daemonset_target(pod)
             if target is not None and target in name_to_idx:
                 self._ds_target[p_i] = name_to_idx[target]
-        GLOBAL.note("sweep-kernel", fused_scan.kernel_label(self.plan))
+        GLOBAL.note(
+            "sweep-kernel",
+            fused_scan.kernel_label(self.plan)
+            if self.plan is not None
+            else f"torch-scan ({self.scan_reason})",
+        )
+
+    def _expand(self, cluster, padded, apps, use_greed) -> List[dict]:
+        """The full pod sequence the serial path would see, with the
+        checks that route a workload to the serial engine."""
+        pods: List[dict] = []
+        pods.extend(wl.pods_excluding_daemon_sets(padded))
+        for ds in padded.daemon_sets:
+            pods.extend(wl.pods_from_daemon_set(ds, padded.nodes))
+        for app in apps:
+            app_pods = wl.generate_valid_pods_from_app(app.name, app.resource, padded.nodes)
+            if use_greed:
+                # same ordering the authoritative serial run will use
+                # (scheduler/core.py schedule_app): greed_sort ignores
+                # simon new nodes, so max-count padding and the
+                # per-count serial cluster sort pods identically
+                from ..scheduler.queues import greed_sort
+
+                app_pods = greed_sort(padded.nodes, app_pods)
+            pods.extend(_sort_app_pods(app_pods))
+        from ..scheduler.preemption import build_priority_resolver, pod_uses_priority
+
+        resolver = build_priority_resolver(cluster.priority_classes)
+        if any(pod_uses_priority(p, resolver) for p in pods):
+            raise PrioritySignalError(
+                "workload carries priority/priorityClassName; the "
+                "batched scan has no priority/preemption semantics — "
+                "use the serial engine"
+            )
+        if self.oracle.registry.needs_serial:
+            raise PrioritySignalError(
+                "a registered plugin defines permit() or a stateful "
+                "hook (reserve/prebind); the batched scan cannot "
+                "honor per-pod host callbacks — use the serial engine"
+            )
+        return pods
 
     # -- masks -------------------------------------------------------------
 
@@ -241,42 +303,103 @@ class CapacitySweep:
 
     # -- probes ------------------------------------------------------------
 
+    def attach_journal(self, journal):
+        """Serve journaled probes without device work; append fresh
+        ones (runtime/journal.py, `--journal` / `--resume`)."""
+        self.journal = journal
+
     def _scenario(self, count: int):
         valid = self.node_valid(count)
         return self.pod_active(valid), valid, self.batch.pinned_node
 
-    def _result(self, count, valid, placements, final) -> ProbeResult:
+    def _stats(self, valid, placements, used_c, used_m, vg_used):
         """Unscheduled count and utilization of one scan, on the host
-        (the JAX package's _pallas_result arithmetic)."""
+        (the JAX package's _pallas_result arithmetic). `vg_used` is
+        [N, V]."""
+        v = np.asarray(valid)[: self.n]
+        denom_c = max(int(np.asarray(self.cluster_enc.alloc_mcpu)[v].sum()), 1)
+        denom_m = max(int(np.asarray(self.cluster_enc.alloc_mem)[v].sum()), 1)
+        denom_vg = max(int(np.asarray(self.cluster_enc.vg_cap)[v].sum()), 1)
+        return (
+            int((placements == -1).sum()),
+            100.0 * float(used_c[v].sum()) / denom_c,
+            100.0 * float(used_m[v].sum()) / denom_m,
+            100.0 * float(vg_used[v].sum()) / denom_vg,
+        )
+
+    def _result(self, count, valid, placements, final) -> ProbeResult:
+        """ProbeResult of one kernel scan."""
         placements = placements.cpu().numpy().astype(np.int64)
-        v = valid[: self.n]
-        alloc_c = np.asarray(self.cluster_enc.alloc_mcpu)
-        alloc_m = np.asarray(self.cluster_enc.alloc_mem)
-        denom_c = max(int(alloc_c[v].sum()), 1)
-        denom_m = max(int(alloc_m[v].sum()), 1)
-        used_c = final["used_mcpu"].cpu().numpy()
-        used_m = final["used_mem"].cpu().numpy()
-        cpu_util = 100.0 * float(used_c[v].sum()) / denom_c
-        mem_util = 100.0 * float(used_m[v].sum()) / denom_m
         # the scan's final VG usage ([V, N]); a plan without the storage
         # block never grows it, so there the init is final
-        vg_cap = np.asarray(self.cluster_enc.vg_cap)
         vg_used = (final["vg_used"].cpu().numpy().T if "vg_used" in final
                    else np.asarray(self.dyn.vg_used))
-        denom_vg = max(int(vg_cap[v].sum()), 1)
-        vg_util = 100.0 * float(vg_used[v].sum()) / denom_vg
-        return ProbeResult(
-            count=count,
-            unscheduled=int((placements == -1).sum()),
-            cpu_util=cpu_util,
-            mem_util=mem_util,
-            vg_util=vg_util,
-            placements=placements,
-        )
+        unsched, cpu, mem, vg = self._stats(
+            valid, placements, final["used_mcpu"].cpu().numpy(),
+            final["used_mem"].cpu().numpy(), vg_used)
+        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
+                           mem_util=mem, vg_util=vg, placements=placements)
+
+    def _scan_static_state(self):
+        """The torch scan's (ScanStatic, ScanState) on the sweep's
+        device, built once."""
+        if self._scan_inputs is None:
+            from ..ops.encode import to_scan_state, to_scan_static
+
+            self._scan_inputs = (
+                to_scan_static(self.cluster_enc, self.batch, device=self.device),
+                to_scan_state(self.dyn, self.batch, device=self.device),
+            )
+        return self._scan_inputs
+
+    def _torch_scan(self, valid, active, pinned, pins_first: bool = False):
+        """One scenario on the torch scan (ops/scan.py run_scan_masked):
+        the capacity probe's single pass, or with `pins_first` the
+        reference's two chained passes (_scenario_pinned_impl): every
+        pinned pod commits, then every free pod schedules. Returns
+        (placements [P] int64 numpy, unscheduled, cpu, mem, vg)."""
+        from ..ops import scan as scan_ops
+
+        static, init = self._scan_static_state()
+        cls = self.batch.class_of_pod
+        valid = np.asarray(valid, dtype=bool)
+        active = np.asarray(active, dtype=bool)
+        pinned = np.asarray(pinned, dtype=np.int64)
+        if pins_first:
+            features = self.features._replace(pins=True)
+            p1, state1 = scan_ops.run_scan_masked(
+                static, init, cls, pinned, valid, active & (pinned >= 0), features=features)
+            p2, final = scan_ops.run_scan_masked(
+                static, state1, cls, pinned, valid, active & (pinned < 0), features=features)
+            placements = np.where(pinned >= 0, p1.cpu().numpy(), p2.cpu().numpy())
+        else:
+            placements, final = scan_ops.run_scan_masked(
+                static, init, cls, pinned, valid, active, features=self.features)
+            placements = placements.cpu().numpy()
+        placements = placements.astype(np.int64)
+        return (placements, *self._stats(
+            valid, placements, final.used_mcpu.cpu().numpy(),
+            final.used_mem.cpu().numpy(), final.vg_used.cpu().numpy()))
 
     def probe(self, count: int) -> ProbeResult:
         """Evaluate one candidate count: one masked scan (the
-        `fused_scan_base` / `fused_scan_ext` kernel on a CUDA plan)."""
+        `fused_scan_base` / `fused_scan_ext` kernel on a CUDA plan, the
+        torch scan for a batch the kernel does not carry); any error,
+        a device OOM too, propagates. Counts already in the attached
+        journal never touch the device."""
+        if self.journal is not None:
+            cached = self.journal.get_probe(count)
+            if cached is not None:
+                return _probe_from_record(cached)
+        if self.plan is not None:
+            res = self._probe_kernel(count)
+        else:
+            res = self._probe_torch_scan(count, self.node_valid(count))
+        if self.journal is not None:
+            self.journal.record_probe(_probe_to_record(res))
+        return res
+
+    def _probe_kernel(self, count: int) -> ProbeResult:
         from ..utils.trace import phase
 
         active, valid, pinned = self._scenario(count)
@@ -286,21 +409,73 @@ class CapacitySweep:
             )
             return self._result(count, valid, placements, final)
 
-    def probe_counts(self, counts: List[int]) -> List[ProbeResult]:
-        """Evaluate several counts in ONE launch of the scenario-batch
-        kernel (`fused_scan_batch`), one cluster of blocks per count."""
+    def _probe_torch_scan(self, count: int, valid) -> ProbeResult:
         from ..utils.trace import phase
 
-        scenarios = [self._scenario(c) for c in counts]
         with phase("sweep/probe"):
-            rows = fused_scan.run_fused_scan_batch(
-                self.plan, self.batch.class_of_pod, scenarios
+            pl, unsched, cpu, mem, vg = self._torch_scan(
+                valid, self.pod_active(valid), self.batch.pinned_node)
+        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
+                           mem_util=mem, vg_util=vg, placements=pl)
+
+    def _serial_floor(self, fn):
+        """`fn`, the chunked executor's serial floor, where the sweep's
+        work is on the CPU; None on the card, where a single scenario
+        that still runs out of device memory raises DeviceOOM rather
+        than move to the host."""
+        return fn if self.device.type == "cpu" else None
+
+    def _probe_serial(self, count: int, valid) -> ProbeResult:
+        """The serial floor: the deterministic host oracle, no device."""
+        placements, _reasons = self.serial_scenario(valid, self.pod_active(valid))
+        pl, unsched, cpu, mem, vg = self._host_scenario_stats(valid, placements)
+        return ProbeResult(count=count, unscheduled=int(unsched), cpu_util=float(cpu),
+                           mem_util=float(mem), vg_util=float(vg), placements=pl)
+
+    def launch_counts(self, counts: List[int]):
+        """Launch several counts in ONE batch-kernel launch (one cluster
+        of blocks a count) without waiting for it: the device rows,
+        for results_of. Needs a kernel plan."""
+        scenarios = [self._scenario(c) for c in counts]
+        return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios)
+
+    def results_of(self, counts: List[int], rows) -> List[ProbeResult]:
+        """ProbeResults of launch_counts' rows (the first read waits for
+        the launch)."""
+        return [self._result(c, self.node_valid(c), placements, final)
+                for c, (placements, final) in zip(counts, rows)]
+
+    def probe_counts(self, counts: List[int]) -> List[ProbeResult]:
+        """Evaluate several counts: in ONE launch of the scenario-batch
+        kernel (`fused_scan_batch`, one cluster of blocks per count),
+        through the chunked executor (a device OOM halves the batch, and
+        a single count that still runs out raises on the card); on the
+        torch scan one probe after another. Journaled counts are
+        served from the journal and fresh ones recorded."""
+        from ..utils.trace import phase
+
+        counts = list(counts)
+        if self.plan is None or (
+            self.journal is not None
+            and any(self.journal.get_probe(c) is not None for c in counts)
+        ):
+            # journaled counts must not ride the batch: probe() serves
+            # them from the journal, so batching would re-run them
+            return [self.probe(c) for c in counts]
+
+        def evaluate(lo, hi):
+            return self.results_of(counts[lo:hi], self.launch_counts(counts[lo:hi]))
+
+        with phase("sweep/probe"):
+            out = run_chunked(
+                evaluate, len(counts), label="sweep",
+                serial_fallback=self._serial_floor(lambda i: self._probe_serial(
+                    counts[i], self.node_valid(counts[i]))),
             )
-            return [
-                self._result(c, valid, placements, final)
-                for c, (_a, valid, _p), (placements, final)
-                in zip(counts, scenarios, rows)
-            ]
+        if self.journal is not None:
+            for r in out:
+                self.journal.record_probe(_probe_to_record(r))
+        return out
 
     def probe_pair(self, c1: int, c2: int):
         """Two candidate counts in one batch launch."""
@@ -320,6 +495,209 @@ class CapacitySweep:
             node_names=[ns.name for ns in self.oracle.nodes],
             vg_util=np.array([r.vg_util for r in res]),
         )
+
+    # -- serial (host-oracle) scenario evaluation ---------------------------
+
+    def serial_scenario(self, valid, active, pinned=None, pins_first=False):
+        """Deterministic host-side evaluation of ONE masked scenario
+        through the serial oracle (scheduler/oracle.py) — the chaos
+        engine's independent confirmation (an N+K verdict is only
+        trusted after one sampled outage re-simulates serially to the
+        same answer), and on the CPU the chunked executor's floor when
+        even a single scenario runs out of memory.
+
+        `pinned[p]` >= 0 force-binds the pod to that sweep node index
+        (committed placements / original spec.nodeName); -1 schedules
+        through the full filter+score cycle. Defaults to the batch's
+        original pins. `pins_first` commits every pinned pod before any
+        free pod schedules (the chaos model's two passes); the default
+        interleaves in pod order like the capacity scan. Returns
+        (placements[P] in SWEEP node indices with the scan's -1/-2
+        conventions, {pod_index: reason} for unscheduled pods)."""
+        if pinned is None:
+            pinned = np.asarray(self.batch.pinned_node)
+        valid = np.asarray(valid)
+        active = np.asarray(active)
+        kept = [i for i in range(self.n) if valid[i]]
+        oracle = Oracle(
+            [self.oracle.nodes[i].node for i in kept],
+            score_weights=self.features.weights,
+        )
+        local_of = {sweep_i: local_i for local_i, sweep_i in enumerate(kept)}
+        sweep_index = self.oracle.node_index
+        placements = np.full(len(self.pods), -1, dtype=np.int64)
+        reasons: dict = {}
+
+        def handle(p_i, pod, pins_only):
+            if not active[p_i]:
+                placements[p_i] = INACTIVE
+                return
+            pin = int(pinned[p_i])
+            if pins_only is not None and pins_only != (pin >= 0):
+                return
+            # repeated-replay contract (replay_scenario): a previous
+            # replay may have bound this shared dict — only original
+            # spec.nodeName pins survive into this scenario
+            if not self.had_node_name[p_i]:
+                (pod.get("spec") or {}).pop("nodeName", None)
+                (pod.get("status") or {}).pop("phase", None)
+            if pin >= 0:
+                if not valid[pin]:
+                    # pinned to a masked-out node: does not exist in
+                    # this scenario (scan INACTIVE convention)
+                    placements[p_i] = INACTIVE
+                    return
+                if self.had_node_name[p_i]:
+                    # original spec.nodeName: admit exactly like the
+                    # replay (GPU-index annotations honored)
+                    oracle.place_existing_pod(pod)
+                else:
+                    oracle._reserve_and_bind(pod, oracle.nodes[local_of[pin]])
+                placements[p_i] = pin
+                return
+            name, reason = oracle.schedule_pod(pod)
+            if name is None:
+                placements[p_i] = -1
+                reasons[p_i] = reason
+            else:
+                placements[p_i] = sweep_index[name]
+
+        if pins_first:
+            for p_i, pod in enumerate(self.pods):
+                handle(p_i, pod, pins_only=True)
+            for p_i, pod in enumerate(self.pods):
+                if active[p_i] and int(pinned[p_i]) < 0:
+                    handle(p_i, pod, pins_only=False)
+        else:
+            for p_i, pod in enumerate(self.pods):
+                handle(p_i, pod, pins_only=None)
+        return placements, reasons
+
+    def _host_scenario_stats(self, valid, placements):
+        """The (placements, unscheduled, cpu/mem/vg utilization) tuple
+        of a scan, recomputed on the host from serial placements — same
+        arithmetic, aggregate form (committed requests add onto the
+        encoded base usage; placements only land on valid nodes)."""
+        b, d, c_enc = self.batch, self.dyn, self.cluster_enc
+        v = np.asarray(valid)
+        placed = np.asarray(placements) >= 0
+        cls = np.asarray(b.class_of_pod)[placed]
+        used_c = int(d.used_mcpu[v].sum()) + int(b.req_mcpu[cls].sum())
+        used_m = int(d.used_mem[v].sum()) + int(b.req_mem[cls].sum())
+        used_v = int(d.vg_used[v].sum()) + int(b.lvm_sizes[cls].sum())
+        denom_c = max(int(c_enc.alloc_mcpu[v].sum()), 1)
+        denom_m = max(int(c_enc.alloc_mem[v].sum()), 1)
+        denom_v = max(int(c_enc.vg_cap[v].sum()), 1)
+        return (
+            np.asarray(placements),
+            np.int64((np.asarray(placements) == -1).sum()),
+            np.float64(100.0 * used_c / denom_c),
+            np.float64(100.0 * used_m / denom_m),
+            np.float64(100.0 * used_v / denom_v),
+        )
+
+    def _plan_with_pins(self) -> "fused_scan.FusedPlan":
+        """The kernel plan with pins on (the same tensors): the outage
+        rows pin survivors even when the batch itself carries no pin."""
+        if self._pins_plan is None:
+            import dataclasses
+
+            self._pins_plan = dataclasses.replace(self.plan, has_pins=True)
+        return self._pins_plan
+
+    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool):
+        """One batch launch over the rows; their (placements,
+        unscheduled, cpu, mem, vg) tuples, reduced on the device and
+        read back once."""
+        import torch
+
+        rows = fused_scan.run_fused_scan_batch(
+            self._plan_with_pins(), self.batch.class_of_pod,
+            list(zip(pod_active, node_valid, pinned)), pins_first=pins_first)
+        dev = self.plan.device
+        valid_t = torch.from_numpy(np.ascontiguousarray(node_valid)).to(dev)
+        alloc = self.plan.alloc
+        placements = torch.stack([r[0] for r in rows]).long()
+        used_c = torch.stack([r[1]["used_mcpu"] for r in rows])
+        used_m = torch.stack([r[1]["used_mem"] for r in rows])
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        sums = [torch.where(valid_t, used_c, zero).sum(1),
+                torch.where(valid_t, used_m, zero).sum(1),
+                torch.where(valid_t, alloc[0], zero).sum(1),
+                torch.where(valid_t, alloc[1], zero).sum(1),
+                (placements == -1).sum(1)]
+        if "vg_used" in rows[0][1]:
+            vg_used = torch.stack([r[1]["vg_used"].sum(0) for r in rows])
+            sums.append(torch.where(valid_t, vg_used, zero).sum(1))
+        host = [t.cpu().numpy() for t in [placements] + sums]
+        placements, uc, um, ac, am, unsched = host[:6]
+        if len(host) > 6:
+            uv = host[6]
+        else:
+            base = np.asarray(self.dyn.vg_used).sum(axis=1)
+            uv = np.array([int(base[v].sum()) for v in node_valid], dtype=np.int64)
+        vg_cap = np.asarray(self.cluster_enc.vg_cap).sum(axis=1)
+        out = []
+        for k, v in enumerate(node_valid):
+            out.append((
+                placements[k],
+                int(unsched[k]),
+                100.0 * float(uc[k]) / max(int(ac[k]), 1),
+                100.0 * float(um[k]) / max(int(am[k]), 1),
+                100.0 * float(uv[k]) / max(int(vg_cap[v].sum()), 1),
+            ))
+        return out
+
+    def probe_scenarios(self, node_valid, pod_active, pinned, budget=None,
+                        site: str = "chaos"):
+        """Batched masked scans with PER-SCENARIO pin vectors: the
+        fault-injection substrate (resilience/chaos.py). Each row of
+        `node_valid` [Sc, N] / `pod_active` [Sc, P] / `pinned` [Sc, P]
+        is one scenario, evaluated pins first: every pinned pod commits,
+        then every free pod schedules (the reference's two chained
+        scans, _scenario_pinned_impl). On a kernel plan a chunk of rows
+        is ONE launch of the batch kernel's pins-first mode, through the
+        chunked executor (a device OOM halves the chunk; a single row
+        that still runs out raises on the card and goes to the serial
+        oracle on the CPU); a batch the
+        kernel does not carry runs the two passes on the torch scan, row
+        by row, trace-noted `<site>-kernel`. Returns (placements
+        [Sc, P], unscheduled [Sc], cpu_util [Sc], mem_util [Sc],
+        vg_util [Sc]) as numpy arrays."""
+        from ..utils.trace import GLOBAL
+
+        node_valid = np.asarray(node_valid, dtype=bool)
+        pod_active = np.asarray(pod_active, dtype=bool)
+        pinned = np.asarray(pinned, dtype=np.int64)
+        sc = node_valid.shape[0]
+        if self.plan is not None:
+            GLOBAL.note(f"{site}-kernel", f"{fused_scan.PINS_FIRST_KERNEL_NAME} "
+                        f"({self.plan.device.type})")
+
+            def evaluate(lo, hi):
+                return self._kernel_rows(pod_active[lo:hi], node_valid[lo:hi],
+                                         pinned[lo:hi], pins_first=True)
+        else:
+            GLOBAL.note(f"{site}-kernel", f"torch-scan ({self.scan_reason})")
+
+            def evaluate(lo, hi):
+                return [self._torch_scan(node_valid[i], pod_active[i], pinned[i],
+                                         pins_first=True) for i in range(lo, hi)]
+
+        def serial_fallback(i):
+            placements, _ = self.serial_scenario(
+                node_valid[i], pod_active[i], pinned[i], pins_first=True
+            )
+            return self._host_scenario_stats(node_valid[i], placements)
+
+        rows = run_chunked(evaluate, sc, label=site,
+                           serial_fallback=self._serial_floor(serial_fallback), budget=budget)
+        placements = np.stack([np.asarray(r[0]) for r in rows])
+        unsched = np.array([int(r[1]) for r in rows], dtype=np.int64)
+        cpu = np.array([float(r[2]) for r in rows])
+        mem = np.array([float(r[3]) for r in rows])
+        vg = np.array([float(r[4]) for r in rows])
+        return placements, unsched, cpu, mem, vg
 
     # -- resource lower bound ----------------------------------------------
 
@@ -400,17 +778,24 @@ class CapacitySweep:
                 extra = max(extra, -(-need // alloc))
         return extra
 
-    def _search_gen(self, feasible, start: int = 0):
+    def _search_gen(self, feasible, start: int = 0, widen: bool = False):
         """The min-count search as a COROUTINE: yields lists of counts
         to probe, receives {count: ProbeResult}, and returns the best
-        result (or None) via StopIteration.
+        result (or None) via StopIteration. Keeping the control flow
+        apart from the probe transport lets find_min_count fulfil one
+        spec's requests while find_min_count_multi batches the requests
+        of MANY specs into one round.
 
-        Search shape (the JAX package's, on its kernel path): probe
-        `start`; on failure escalate by the unscheduled-request estimate
-        (with a doubling backstop) — asking for (hi-1, hi) together,
-        since the estimate usually lands exactly — then bisect the
-        bracket, confirming hi-1 first. Monotonicity (more nodes never
-        schedule fewer pods) is what makes the bisection sound."""
+        Search shape (the JAX package's): probe `start`; on failure
+        escalate by the unscheduled-request estimate (with a doubling
+        backstop) — on a kernel plan asking for (hi-1, hi) together in
+        one batch launch, since the estimate usually lands exactly —
+        then bisect the bracket, confirming hi-1 first; with `widen` (the
+        multi-spec search) a bracket of at most 16 probes every interior
+        count in one round. The torch-scan route asks for one count at a
+        time, as the reference's XLA route does. Monotonicity (more
+        nodes never schedule fewer pods) is what makes the bisection
+        sound."""
         probes: dict = {}
 
         probes.update((yield [start]))
@@ -422,7 +807,12 @@ class CapacitySweep:
         while True:
             step = max(self.estimate_extra(probes[lo]), 1 << escalations)
             hi = min(lo + step, self.max_count)
-            if hi - lo > 1 and hi not in probes and hi - 1 not in probes:
+            if (
+                hi - lo > 1
+                and hi not in probes
+                and hi - 1 not in probes
+                and self.plan is not None
+            ):
                 # hi-1 is usually the bisection's very next question:
                 # ask for both in one round
                 probes.update((yield [hi - 1, hi]))
@@ -438,6 +828,14 @@ class CapacitySweep:
         # bisect (lo infeasible, hi feasible]
         best = res
         lo_b, hi_b = lo, best.count
+        if widen and 2 < hi_b - lo_b <= 16 and self.plan is not None:
+            need = [c for c in range(lo_b + 1, hi_b) if c not in probes]
+            if need:
+                probes.update((yield need))
+            for c in range(lo_b + 1, hi_b):
+                if feasible(probes[c]):
+                    return probes[c]
+            return best
         if hi_b - lo_b > 1:
             c = hi_b - 1
             if c not in probes:
@@ -459,8 +857,9 @@ class CapacitySweep:
         return best
 
     def _fulfill(self, req: List[int], on_probe=None) -> dict:
-        """Probe the requested counts — two in one batch launch."""
-        if len(req) == 2:
+        """Probe the requested counts — two in one batch launch on a
+        kernel plan."""
+        if len(req) == 2 and self.plan is not None:
             r1, r2 = self.probe_pair(req[0], req[1])
             out = {r1.count: r1, r2.count: r2}
         else:
@@ -525,6 +924,75 @@ def _search_partial(fulfilled: dict, feasible) -> dict:
         "completedProbes": rows,
         "bestCount": best,
     }
+
+
+def find_min_count_multi(jobs, on_probe=None, budget=None) -> List[Optional[ProbeResult]]:
+    """Drive MANY specs' min-count searches in lockstep: `jobs` is a
+    list of (CapacitySweep, feasible, start). Each round collects every
+    live spec's requested counts, launches them as ONE batch-kernel
+    launch a spec (all specs' launches enqueued on the stream before any
+    result is read), then reads the round's results, so the host waits
+    on the card once a round. A spec on the torch scan probes its counts
+    one by one inside the round.
+
+    The reference's preload_plan_group (ops/pallas_scan.py) packs every
+    spec's plan into one host-to-TPU transfer before round 1, for its
+    relay; here each plan was built on the card where its sweep was
+    made, so nothing is packed. Replaces the reference's per-guess
+    re-simulation loop (pkg/apply/apply.go:186-239) across candidate
+    node SPECS, not just counts."""
+    import time
+
+    from ..utils.trace import GLOBAL, phase
+
+    gens = []
+    pending: List[Optional[List[int]]] = []
+    results: List[Optional[ProbeResult]] = []
+    for sweep, feasible, start in jobs:
+        g = sweep._search_gen(feasible, start, widen=True)
+        gens.append(g)
+        results.append(None)
+        pending.append(next(g))
+    live = list(range(len(jobs)))
+    rounds = launches = 0
+    round_log = []
+    while live:
+        if budget is not None:
+            budget.check("what-if probe round")
+        t0 = time.perf_counter()
+        n0 = launches
+        rounds += 1
+        answers: List[dict] = [dict() for _ in jobs]
+        with phase("sweep/probe-multi"):
+            launched = []
+            for i in live:
+                sweep = jobs[i][0]
+                if sweep.plan is None:
+                    answers[i].update((c, sweep.probe(c)) for c in pending[i])
+                    continue
+                launched.append((i, sweep.launch_counts(pending[i])))
+                launches += 1
+            # the round's one wait: the first read of a result
+            for i, rows in launched:
+                for r in jobs[i][0].results_of(pending[i], rows):
+                    answers[i][r.count] = r
+        nxt = []
+        for i in live:
+            if on_probe is not None:
+                for r in answers[i].values():
+                    on_probe(r)
+            try:
+                pending[i] = gens[i].send(answers[i])
+                nxt.append(i)
+            except StopIteration as stop:
+                results[i] = stop.value
+                pending[i] = None
+        live = nxt
+        round_log.append(f"{launches - n0}l/{time.perf_counter() - t0:.3f}s")
+    GLOBAL.note("whatif-rounds", rounds)
+    GLOBAL.note("whatif-launches", launches)
+    GLOBAL.note("whatif-round-log", ",".join(round_log))
+    return results
 
 
 def sweep_node_counts(

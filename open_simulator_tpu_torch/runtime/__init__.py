@@ -1,10 +1,7 @@
 """Execution-guard runtime: deadline budgets, the error taxonomy, fault
-injection and retrying external I/O.
-
-The slice of the JAX package's runtime that the serial oracle, the
-extender client and `simulate()` import. The resumable journal and the
-device degradation ladder (`journal.py`, `guard.py`) are not ported
-yet (ROADMAP.md, queue A).
+injection, retrying external I/O, the resumable planning journal
+(`journal.py`) and the chunked executor of device work (`guard.py`,
+imported where it is used).
 """
 
 from .budget import Budget, sigint_to_budget
@@ -25,10 +22,13 @@ from .errors import (
     Interrupted,
 )
 from .inject import INJECT, InjectedCrash
+from .journal import Journal, JournalMismatch
 
 __all__ = [
     "INJECT",
     "InjectedCrash",
+    "Journal",
+    "JournalMismatch",
     "Budget",
     "sigint_to_budget",
     "GuardError",

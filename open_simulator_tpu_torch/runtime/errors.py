@@ -5,8 +5,8 @@ Every way a plan can die maps to one typed error (docs/ROBUSTNESS.md):
 - ``DeviceOOM``: the accelerator ran out of memory (device
   out-of-memory / host MemoryError). Recoverable by the guard's
   chunk-halving ladder (runtime/guard.py).
-- ``CompileFailure``: compilation of a device program failed. Halving cannot help; the guard downgrades the whole batch to
-  the next engine rung.
+- ``CompileFailure``: compilation of a device program failed. Halving
+  cannot help, and the guard never downgrades it: it propagates.
 - ``BackendUnavailable``: the device backend died or refused to
   initialize mid-run.
 - ``DeadlineExceeded`` / ``Interrupted``: the run hit its ``--deadline``
@@ -51,11 +51,9 @@ EXIT_INTERRUPTED = 4
 class GuardError(Exception):
     """Base of the execution-guard taxonomy.
 
-    ``descent`` carries the degradation ladder's descent trace when
-    the error left ``guard.run_laddered`` after every rung failed:
-    one ``"<rung>: <why>"`` entry per rung tried, so a caller (or an
-    operator reading the typed report) sees the whole path down, not
-    just the final failure."""
+    ``descent`` is the reference's degradation-ladder trace, one
+    ``"<rung>: <why>"`` entry per rung tried; the port has no ladder, so
+    it stays empty."""
 
     descent: tuple = ()
 

@@ -325,16 +325,21 @@ def test_max_vg_cap_decides_the_count(tmp_path, monkeypatch):
     assert doc["success"] and doc["newNodeCount"] == 2
 
 
-def test_out_of_slice_planner_options_raise():
+def test_out_of_slice_planner_options_raise(tmp_path):
+    """kubeConfig clusters still name their ROADMAP item when the
+    Applier is built; N+K, the journal and the multi-spec what-if are
+    ported and take their options."""
     from open_simulator_tpu_torch.apply import applier
 
     config = applier.SimonConfig.from_file(GPUSHARE)
-    for kw, item in (({"tolerate_node_failures": 1}, "A1c"),
-                     ({"journal_path": "j.jsonl"}, "A1b")):
-        with pytest.raises(fused_scan.OutOfSliceError, match=item):
-            applier.Applier(config, device="cpu", **kw)
-    with pytest.raises(fused_scan.OutOfSliceError, match="A1d"):
-        applier.probe_plan_multi(None, [], [])
+    for kw in ({"tolerate_node_failures": 1}, {"journal_path": str(tmp_path / "j.jsonl")}):
+        applier.Applier(config, device="cpu", **kw)
+    assert applier.probe_plan_multi(None, [], [], device="cpu") == []
+    nodes, apps, new_node, _ = _synthetic("base")
+    kube = applier.SimonConfig.from_file(_config(tmp_path, nodes, apps, new_node, kube=True))
+    with pytest.raises(fused_scan.OutOfSliceError, match="A1e") as err:
+        applier.Applier(kube, device="cpu")
+    assert err.value.item == "A1e"
 
 
 def _name_plugin(pkg, weight):
@@ -382,8 +387,8 @@ def register():
 
 def test_custom_score_plugin_plans_serially_on_the_oracle_engine(register):
     """A registered custom score plugin: the serial engine plans the
-    quickstart as the JAX Applier does (+5), the sweep's hint skipped
-    and trace-noted; the cuda engine's sweep names ROADMAP item A1g."""
+    quickstart as the JAX Applier does (+5), from the hint of a sweep
+    whose probes ride the torch scan (trace-noted)."""
     from open_simulator_tpu.apply import applier as japplier
     from open_simulator_tpu_torch.apply import applier
     from open_simulator_tpu_torch.utils.trace import GLOBAL
@@ -396,13 +401,28 @@ def test_custom_score_plugin_plans_serially_on_the_oracle_engine(register):
     got = applier.Applier(applier.SimonConfig.from_file(QUICKSTART), engine="oracle",
                           device="cpu").run()
     assert (got.success, got.new_node_count) == (True, want.new_node_count)
-    assert "custom score plugins" in GLOBAL.notes.get("apply-serial-route", "")
+    assert GLOBAL.notes.get("sweep-kernel") == "torch-scan (custom score plugins)"
+    assert "apply-serial-route" not in GLOBAL.notes
     assert sorted(len(ns.pods) for ns in got.result.node_status) == sorted(
         len(ns.pods) for ns in want.result.node_status)
-    port_reset()
-    with pytest.raises(fused_scan.OutOfSliceError, match="A1g") as err:
-        applier.Applier(applier.SimonConfig.from_file(QUICKSTART), device="cpu").run()
-    assert err.value.item == "A1g"
+
+
+def test_custom_score_plugin_plans_on_the_cuda_engine(register):
+    """The cuda engine's capacity sweep probes a batch with a custom
+    score plugin on the torch scan, one count at a time as the JAX
+    package's XLA route does: +5 on the quickstart, the JSON report
+    byte-identical to the JAX CLI's, and no kernel launch counted."""
+    import json
+
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    register(3)
+    launches = dict(fused_scan.LAUNCHES)
+    (jrc, jout), (prc, pout) = _both(QUICKSTART, "--format", "json")
+    assert (prc, pout) == (jrc, jout) and prc == 0
+    assert json.loads(pout)["newNodeCount"] == 5
+    assert GLOBAL.notes.get("sweep-kernel") == "torch-scan (custom score plugins)"
+    assert fused_scan.LAUNCHES == launches
 
 
 def _sweeps(tmp_path):

@@ -373,7 +373,7 @@ def test_storage_term_launch_arguments_carry_the_split():
     src = fused_scan.SOURCE.read_text()
     enum = src[src.index("enum {\n  kArgAlloc"):]
     enum = re.findall(r"kArg\w+", enum[:enum.index("kArgCount")])
-    assert len(enum) == fused_scan._N_ARGS == 107
+    assert len(enum) == fused_scan._N_ARGS == 108
     plan, batch = _big_plan()
     scen = [(np.ones(len(batch.class_of_pod), bool), np.ones(plan.n, bool), None)] * 3
     inputs = fused_scan._scenario_inputs(plan, batch.class_of_pod, scen)
@@ -405,7 +405,8 @@ def test_launch_shape_refuses_what_the_kernel_does_not_take(cluster):
 
 def test_launch_arguments_carry_the_shape():
     """The argument vector has the C source's length (its kArg enum)
-    and ends in the scenario count, the flags and the shape."""
+    and ends in the scenario count, the flags, the shape and the
+    pins-first flag (off)."""
     src = (fused_scan.SOURCE).read_text()
     enum = src[src.index("enum {\n  kArgAlloc"):]
     enum = enum[:enum.index("kArgCount")]
@@ -417,7 +418,7 @@ def test_launch_arguments_carry_the_shape():
     args, (placements, state, blocks, _scratch) = fused_scan._launch_inputs(
         plan, *inputs, batch=True, launch=shape)
     assert len(args) == fused_scan._N_ARGS
-    assert args[-5:] == [3, 8 | 4 | 2 | 1, 2, 3, shape.smem]
+    assert args[-6:] == [3, 8 | 4 | 2 | 1, 2, 3, shape.smem, 0]
     assert shape.resident and shape.cached
     assert shape.smem == fused_scan.slice_bytes(plan, 3) + fused_scan.cache_bytes(plan, 3)
     assert tuple(state.shape) == (3, 6, 6) and tuple(placements.shape) == (3, 8)

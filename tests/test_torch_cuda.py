@@ -1008,3 +1008,80 @@ def test_cuda_torch_scan_equals_cpu(sample):
     for key in want_rows:
         assert torch.equal(got_rows[key], want_rows[key]), key
     assert (want[0] if sample else want).ge(0).sum() > 300
+
+
+# ---- B6's pins-first mode (the outage scenarios of chaos and N+K) ---------
+
+def _outage_scenarios(n_nodes, n_pods, seed, count):
+    """Outage-shaped rows: a few nodes off, most pods pinned (some to a
+    node that is off, some inactive), the rest free."""
+    rng = np.random.RandomState(seed)
+    scen = []
+    for k in range(count):
+        valid = rng.rand(n_nodes) > 0.1
+        valid[k % n_nodes] = False
+        pin = np.where(rng.rand(n_pods) < 0.6, rng.randint(n_nodes, size=n_pods), -1)
+        scen.append((rng.rand(n_pods) > 0.05, valid, pin))
+    return scen
+
+
+# every B6 instantiation: base, B2, storage, terms, storage + terms
+PINS_FIRST_CASES = {
+    "base": lambda: _scenario(1200, 500, 51, True),
+    "b2": lambda: _b2_scenario(1100, 500, 52),
+    "b3": lambda: _b3_scenario(1500, 400, 53, 6),
+    "b4": lambda: _b4_scenario(1500, 16, 20, 8, 54),
+    "b3-b4": lambda: _b4_scenario(1300, 12, 25, 8, 55, storage=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 16])
+@pytest.mark.parametrize("name", sorted(PINS_FIRST_CASES))
+def test_cuda_pins_first_batch_equals_plain(name, cluster):
+    """The pins-first kernel (pinned pods' pass, then the free pods')
+    equals its plain version row for row at every cluster size, and
+    counts its launch under its own name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    plan, batch = _built(("pf", name), lambda: _plan(*PINS_FIRST_CASES[name]()))
+    plan = _built(("pf", name, "cuda"), lambda: dataclasses.replace(
+        plan.to("cuda"), has_pins=True))
+    scen = _outage_scenarios(plan.n, len(batch.class_of_pod), 61, 5)
+    ref = _plain_once(("pf", name), lambda: fused_scan.fused_scan_batch_reference(
+        plan, batch.class_of_pod, scen, pins_first=True))
+    name_k = fused_scan.PINS_FIRST_KERNEL_NAME
+    before = fused_scan.LAUNCHES[name_k]
+    if cluster is None:
+        got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    else:
+        got = fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, True, cluster,
+                                           pins_first=True)
+    torch.cuda.synchronize()
+    assert fused_scan.LAUNCHES[name_k] == before + 1
+    for g, r in zip(got, ref):
+        _same(g, r)
+    # the free pods ran: some land, and the two orders differ somewhere
+    assert any(((r[0].cpu().numpy() >= 0) & (s[2] < 0)).any() for r, s in zip(ref, scen))
+
+
+@pytest.mark.cuda
+def test_cuda_pins_first_thousands_of_scenarios_in_waves():
+    """2,000 outage scenarios in one launch: far more clusters than the
+    card holds at once, so they run in waves at the rule's size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    plan, batch = _plan(*_scenario(64, 150, 62, False))
+    plan = dataclasses.replace(plan.to("cuda"), has_pins=True)
+    scen = _outage_scenarios(plan.n, len(batch.class_of_pod), 63, 2000)
+    c = fused_scan.choose_cluster(plan, len(scen), True)
+    assert fused_scan.max_active_clusters(plan, len(scen), True, c) < len(scen)
+    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen,
+                                                pins_first=True)
+    got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    for g, r in zip(got, ref):
+        _same(g, r)

@@ -22,7 +22,9 @@ print(len(mods), bad)
 assert not bad, bad
 assert "yaml" not in sys.modules, "PyYAML imported at module load"
 for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.chart",
-             "ops.scan", "tools.stream_bench", "utils.nvcc"):
+             "ops.scan", "tools.stream_bench", "utils.nvcc",
+             "runtime.journal", "runtime.guard", "scheduler.snapshot", "parallel.defrag",
+             "resilience", "resilience.chaos"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -66,6 +68,67 @@ def test_quickstart_apply_path_imports_no_jax():
     """The quickstart, with its Helm chart (models.chart), open-local
     storage and anti-affinity (the B3 and B4 plan rows)."""
     _apply("example/simon-config.yaml")
+
+
+# the chaos, N+K, snapshot and defrag paths in a fresh interpreter, on
+# the CPU: no JAX module gets loaded
+_RESILIENCE = r"""
+import runpy, sys
+cfg, snap = sys.argv[1], sys.argv[2]
+for argv, want in (
+    (["chaos", "-f", cfg, "--failures", "2", "--format", "json"], (0, 1)),
+    (["apply", "-f", cfg, "--format", "json", "--tolerate-node-failures", "1",
+      "--snapshot", snap], (0, 1)),
+    (["defrag", "--snapshot", snap, "--format", "json"], (0,)),
+):
+    sys.argv = ["cli", *argv, "--device", "cpu"]
+    try:
+        runpy.run_module("open_simulator_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code in want, (argv, e.code)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_resilience_paths_import_no_jax(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _RESILIENCE, "example/simon-gpushare-config.yaml",
+         str(tmp_path / "snap.json")],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert '"drainOrder"' in out.stdout and '"serialConfirmed"' in out.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["chaos", "-f", "example/simon-gpushare-config.yaml"],
+    ["defrag", "--snapshot", "SNAP"],
+])
+def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
+    """Without `--device cpu` the new commands ask for the card: with
+    none they exit 2 with the "needs a GPU" error."""
+    import contextlib
+    import io
+    import json
+
+    import torch
+
+    from open_simulator_tpu_torch import cli
+
+    snap = tmp_path / "snap.json"
+    snap.write_text(json.dumps({"version": 1, "nodes": [
+        {"metadata": {"name": f"n{i}"}, "status": {"allocatable": {
+            "cpu": "4", "memory": "8Gi", "pods": "110"}}} for i in range(2)],
+        "pods": [{"metadata": {"name": "p", "namespace": "d"},
+                  "spec": {"nodeName": "n0", "containers": [{"name": "c", "resources": {
+                      "requests": {"cpu": "1", "memory": "1Gi"}}}]}}]}))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([str(snap) if a == "SNAP" else a for a in argv])
+    assert rc == 2 and "needs a GPU" in err.getvalue()
 
 
 def test_chip_smoke_imports_no_jax():
