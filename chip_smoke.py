@@ -114,10 +114,38 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
 18. A1g: a capacity plan with a custom min-max score plugin (the
     capacity shape cut to 100 nodes x 1,000 pods) through the CLI: its
     probes ride the torch scan, no fused kernel launches, and stdout ==
-    the JAX package's bytes (tools/jax_custom_plan_answer.py).
+    the JAX package's bytes (tools/jax_custom_plan_answer.py);
+19. A1e: a live cluster (the capacity shape's 10,000 nodes, 20,000
+    Running pods bound to them, and DaemonSet-owned, Pending and
+    terminating pods the import must drop, with a PDB, a service, a
+    storage class and a PVC) served by a stub apiserver on 127.0.0.1 in
+    a thread, paged at 500 with one continue answered 410, planned with
+    the capacity apps through `apply --format json --trace-out` with the
+    counters at 0: the report == the same cluster as a customConfig
+    directory; one `launch/<site>` span a launch; the observatory block
+    holds costs, ledger and histograms; the launch counter == the
+    kernels' launches;
+20. phase 6's plan under the guard flags: `--journal --inject
+    budget.check=deadline@2` exits 3 with a PARTIAL JSON and `--resume`
+    answers +55 launching only what the journal lacks; `-i` on a
+    scripted shell prints that table report, one launch a guess;
+    `--inject jit.sweep_many=oom@1 --explain NS/NAME` halves the batch
+    launch and answers phase 6's JSON, the pod's chosen node its node
+    in the report and its verdicts covering every node;
+21. the quickstart with `--explain POD --profile-dir DIR`: stdout == the
+    JAX package's (tools/jax_explain_answer.py), and the captures name
+    the fused-scan kernel.
 
-Phases 14-18 fail the run when a trace note reports a downgrade or the
-serial floor, as do the CLI runs of phases 6 and 11.
+Phase 2 also times B1 through the instrumented wrapper against the bare
+launcher in turns; phases 2-10 and 17b hold one launch of each
+instantiation's counted workspace (obs/costs.py) at or above the
+allocator's measured peak rise; phase 17b also runs under `--inject
+ledger.predict_fit=lie:high` at its committed count: the rows split
+before launch, the same report, no OOM caught.
+
+Phases 14-21 fail the run when a trace note reports a downgrade or the
+serial floor, unless the phase injected that fault, as do the CLI runs
+of phases 6 and 11.
 
 Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
@@ -151,6 +179,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -254,6 +283,19 @@ CHAOS_JAX_NODES = 500
 CHAOS_JAX_PODS = 5_000
 JAX_CHAOS_ANSWER = "10fa0a4686fc573b7cc6e5f45f1ee66f1b4426a38e40f9fb8c3bd326f241c48f"
 JAX_NPLUSK_ANSWER = "280c47f34f8dd1fb433bb8ce111c778ebf81bc267ac46a0f58c57cf676930eaa"
+# phase 19: A1e, a live cluster behind a stub apiserver: the capacity
+# shape's nodes with this many Running pods bound to them, and for one
+# bound pod in KUBE_DROP_EVERY a DaemonSet-owned, a Pending and a
+# terminating pod the import must drop
+KUBE_BOUND_PODS = 20_000
+KUBE_DROP_EVERY = 50
+# phase 21: the quickstart's pod whose placement --explain records, and
+# the JAX package's stdout for it (tools/jax_explain_answer.py, sha256)
+EXPLAIN_POD = "default/web-frontend-482d9673cf-9537f"
+JAX_EXPLAIN_ANSWER = "433fdc2332ae03fc7b2bfd87fa397c2f318efbc6325d9aa618b1d934d12821f8"
+# each phase's workspace estimate beside the allocator's measured peak
+# rise (workspace_check), for the summary line
+WORKSPACE = []
 # phase 18: A1g, a capacity plan with a custom score plugin on the torch
 # scan, the capacity shape cut to A1G_NODES x A1G_PODS; the JAX package's
 # answer from tools/jax_custom_plan_answer.py (sha256 of stdout)
@@ -262,26 +304,6 @@ A1G_PODS = 1_000
 JAX_A1G_ANSWER = "26e7edb98805e7c69d5c09e6fd795ba07502490e4f9735969805be7f56c1a296"
 # phase 2: the cluster sizes B1 runs at beside the rule's choice
 PHASE2_CLUSTERS = (1, 8, 16)
-# bytes/s of HBM and the non-tensor f32 rate of one H100 SXM (NVIDIA
-# data sheet); the scan's int64/f64 work has no faster path than that
-HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
-# integer and f64 operations per (pod, node) visit: fit (~10),
-# least (~10), balanced (~10), normalisation bounds (~5), pass 2 (~15);
-# the B2 blocks add about 3 per scalar kind, 2 per port word and 4 per
-# GPU device (a GPU-share class only)
-OPS_PER_NODE_VISIT = 50
-OPS_PER_SCALAR, OPS_PER_PORT_WORD, OPS_PER_GPU_DEVICE = 3, 2, 4
-# the storage block, for a class with volumes: about 6 per (LVM volume,
-# VG) of the binpack, 8 per VG of the score and 4 per device of the
-# first-fit walk; the term block: about 14 per relevant term row (a
-# topology value, four counts, the filters and the raw score), 5 per
-# affinity-group row, 12 per hard-spread constraint (its minimum and
-# its filter) and 12 per soft-spread constraint (stamp, count, score)
-OPS_PER_VG_VOLUME, OPS_PER_VG, OPS_PER_DEVICE = 6, 8, 4
-OPS_PER_TERM_ROW, OPS_PER_GROUP_ROW, OPS_PER_HARD_SLOT, OPS_PER_SOFT_SLOT = 14, 5, 12, 12
-
-
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -707,67 +729,6 @@ def encode(nodes, pods, device):
     return plan, batch, names
 
 
-def visit_ops(plan):
-    """Integer and f64 operations of one (pod, node) visit, per class:
-    the base count plus the blocks the class runs (the counts are a
-    count of csrc/fused_scan.cu's source, not a measurement)."""
-    import numpy as np
-
-    from open_simulator_tpu_torch.ops import fused_scan
-
-    d = fused_scan.block_dims(plan)
-    visit = np.full(plan.u, OPS_PER_NODE_VISIT + OPS_PER_SCALAR * d["k"]
-                    + OPS_PER_PORT_WORD * d["w"], dtype=np.int64)
-    if plan.has_gpu:
-        visit += OPS_PER_GPU_DEVICE * d["g"] * (plan.gpu_cls[:, 0].cpu().numpy() > 0)
-    if plan.has_store:
-        lv = (plan.cls_lvm.cpu().numpy() > 0).sum(axis=1)
-        wants = plan.cls_wants.cpu().numpy() > 0
-        visit += wants * (OPS_PER_VG_VOLUME * lv * d["v"] + OPS_PER_VG * d["v"]
-                          + OPS_PER_DEVICE * (d["ds"] + d["dh"]))
-    if plan.has_terms:
-        def slots(t):
-            return (t.cpu().numpy() >= 0).sum(axis=1)
-
-        visit += (OPS_PER_TERM_ROW * slots(plan.cls_rows)
-                  + OPS_PER_GROUP_ROW * slots(plan.cls_grows)
-                  + OPS_PER_HARD_SLOT * slots(plan.cls_hrows)
-                  + OPS_PER_SOFT_SLOT * slots(plan.cls_srows))
-    return visit
-
-
-def bound(plan, class_of_pod, scenarios) -> tuple:
-    """(bound_ms, bound_by): the larger of the bytes the scans must move
-    (each input read once, each output written once) over HBM bandwidth
-    and the operations this run's pods need over the core rate."""
-    import numpy as np
-    import torch
-
-    from open_simulator_tpu_torch.ops import fused_scan
-
-    n, p = plan.n, len(class_of_pod)
-    d = fused_scan.block_dims(plan)
-    plan_bytes = sum(t.numel() * t.element_size() for t in vars(plan).values()
-                     if isinstance(t, torch.Tensor))
-    state_bytes = n * (6 * 8 + d["k"] * 8 + d["g"] * 8 + d["w"] * 4
-                       + d["v"] * 8 + d["ds"] + d["dh"])
-    state_bytes += 8 * (4 * d["vt"] + d["va"] + d["a"] + d["vs"])
-    per_scenario = p * (1 + 4) + n + p * 4 + state_bytes
-    total_bytes = plan_bytes + p * 4 + len(scenarios) * per_scenario
-    cls = np.asarray(class_of_pod)
-    visit = visit_ops(plan)
-    ops = 0
-    for active, _valid, pinned in scenarios:
-        # a new array: the caller's active rows stay as they are
-        scanned = np.array(active, bool)
-        if pinned is not None:
-            scanned &= np.asarray(pinned) < 0
-        ops += int(visit[cls[scanned]].sum()) * n
-    t_bytes = total_bytes / HBM_BYTES_PER_S
-    t_ops = ops / CORE_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
 def timed(fn, runs):
     import torch
 
@@ -830,7 +791,10 @@ def kernel_vs_plain(label, gpu, plan, batch, active, valid, runs=3) -> dict:
     err = max_abs_err(got, want)
     if err != 0:
         raise AssertionError(f"{label}: kernel != plain, max abs err {err}")
-    b_ms, b_by = bound(plan, batch.class_of_pod, [(active, valid, batch.pinned_node)])
+    from open_simulator_tpu_torch.obs import costs
+
+    b_ms, b_by = costs.bound(plan, batch.class_of_pod, [(active, valid, batch.pinned_node)])
+    workspace_check(label, gpu, plan, batch.class_of_pod, [(active, valid, batch.pinned_node)])
     name = fused_scan.kernel_name(plan)
     res = {"ms": statistics.median(k_times), "times": k_times, "plain_ms": r_times[0],
            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
@@ -965,9 +929,10 @@ def print_build(lib):
         for k, v in sorted(sizes.items())))
 
 
-def run_cli(argv, cwd=None):
+def run_cli(argv, cwd=None, allow=()):
     """The port's CLI in this process: (exit code, stdout, stderr), with
-    the pod-name counter reset first."""
+    the pod-name counter reset first; a degradation note fails it unless
+    `allow` names it."""
     import contextlib
     import io
     import os
@@ -982,7 +947,7 @@ def run_cli(argv, cwd=None):
     with contextlib.chdir(cwd or os.getcwd()), contextlib.redirect_stdout(out), \
             contextlib.redirect_stderr(err):
         rc = cli.main(argv)
-    check_notes(" ".join(argv[:3]), GLOBAL.notes)
+    check_notes(" ".join(argv[:3]), GLOBAL.notes, allow)
     return rc, out.getvalue(), err.getvalue()
 
 
@@ -1013,12 +978,12 @@ def plan_on_card(argv, cwd=None) -> dict:
         calls.append((plan, kind, list(scenarios), outs, start, end))
         return outs
 
-    def single(plan, cls, active, valid, pinned=None):
+    def single(plan, cls, active, valid, pinned=None, **kw):
         return recorded("single", plan, [(active, valid, pinned)],
-                        lambda: [real_single(plan, cls, active, valid, pinned)])[0]
+                        lambda: [real_single(plan, cls, active, valid, pinned, **kw)])[0]
 
-    def batch(plan, cls, scenarios):
-        return recorded("batch", plan, scenarios, lambda: real_batch(plan, cls, scenarios))
+    def batch(plan, cls, scenarios, **kw):
+        return recorded("batch", plan, scenarios, lambda: real_batch(plan, cls, scenarios, **kw))
 
     sweep_mod.CapacitySweep.find_min_count = find
     fused_scan.run_fused_scan, fused_scan.run_fused_scan_batch = single, batch
@@ -1155,7 +1120,9 @@ def phase6(gpu) -> dict:
     lower = sweep.lower_bound(*caps)
     if count > lower and feasible(sweep.probe(count - 1)):
         raise AssertionError(f"phase 6: +{count - 1} nodes already satisfy the caps")
-    b_ms, b_by = bound(plan, cls, cut)
+    from open_simulator_tpu_torch.obs import costs
+
+    b_ms, b_by = costs.bound(plan, cls, cut)
     print(f"phase 6: one batch launch of every scan of the plan (counts "
           f"{counts(scenarios)}) {full_ms:.1f} ms == the plan's own scans; their first "
           f"{CAP_PLAIN_PODS} pods (placements of the plan's scans, and one batch launch "
@@ -1166,10 +1133,13 @@ def phase6(gpu) -> dict:
           f"probe {statistics.median(single_ms):.1f} ms, one pair launch {pair_ms:.1f} ms "
           f"(CUDA events, {CAP_PODS} pods x {sweep.n} nodes; clusters of {batch_cluster}) "
           f"[{gpu}]", flush=True)
+    workspace_check("phase 6", gpu, plan, cls, cut, batch=True)
     batch_res = {"ms": batch_ms, "plain_ms": r_times[0], "max_abs_err": errs["batch"],
                  "bound_ms": b_ms, "bound_by": b_by, "cluster": batch_cluster,
                  "prev_ms": one_ms}
-    return {"launches": launches, "batch": batch_res, "single_err": errs["single"]}
+    return {"launches": launches, "batch": batch_res, "single_err": errs["single"],
+            "doc": doc, "launches_total": sum(launches.values()),
+            "shape": (CAP_NODES, CAP_PODS)}
 
 
 def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
@@ -1217,7 +1187,9 @@ def block_phase(label, gpu, nodes, pods, kernel, runs=1, simulate=True,
         if (placements[:plain_pods] != res["placements"][:plain_pods]).any():
             raise AssertionError(f"{label}: the full scan's first pods differ from the cut's")
         one = cluster_sweep(label, gpu, plan, batch, every, [(full, final)], (1,))
-        b_ms, b_by = bound(plan, batch.class_of_pod, every)
+        from open_simulator_tpu_torch.obs import costs
+
+        b_ms, b_by = costs.bound(plan, batch.class_of_pod, every)
         res.update(plain_pods=plain_pods, prefix_ms=res["ms"], ms=ms, bound_ms=b_ms,
                    bound_by=b_by, prev_ms=one[1])
         print(f"{label}: the kernel over all {p} pods {ms:.1f} ms (CUDA events; one block "
@@ -1279,7 +1251,11 @@ def phase10(gpu) -> dict:
     singles = cluster_sweep("phase 10", gpu, plan, batch, scen[:1], [one], (c_single, 1))
     batched = cluster_sweep("phase 10", gpu, plan, batch, scen, want, (c_batch, 1),
                             is_batch=True)
-    b_ms_bound, b_by = bound(plan, cls, scen[:1])
+    from open_simulator_tpu_torch.obs import costs
+
+    b_ms_bound, b_by = costs.bound(plan, cls, scen[:1])
+    workspace_check("phase 10", gpu, plan, cls, scen[:1])
+    workspace_check("phase 10", gpu, plan, cls, scen, batch=True)
     return {"ms": s_ms, "plain_ms": o_times[0], "max_abs_err": err, "bound_ms": b_ms_bound,
             "bound_by": b_by, "cluster": c_single, "prev_ms": singles[1],
             "batch_ms": b_ms, "batch_cluster": c_batch, "batch_prev_ms": batched[1]}
@@ -1357,6 +1333,7 @@ def phase12(gpu) -> dict:
     bytes; then the scan-step probe."""
     import torch
 
+    from open_simulator_tpu_torch.obs import costs
     from open_simulator_tpu_torch.tools import stream_bench as sb
 
     l2 = sb.l2_bytes(0)
@@ -1385,7 +1362,7 @@ def phase12(gpu) -> dict:
             expanded = state.unsqueeze(0).expand(steps, -1, -1)
             torch.amax(expanded, dim=1)  # warm
             _out, lib_ms = cuda_ms(lambda: torch.amax(expanded, dim=1))
-            bound_ms = nbytes * steps / HBM_BYTES_PER_S * 1e3
+            bound_ms = costs.bound_of(nbytes * steps, 0)[0]
             res.update(ms=statistics.median(times), plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by="bytes")
             print(f"phase 12: {mb} MiB x {steps} steps: kernel {res['ms']:.3f} ms (median "
@@ -1521,12 +1498,13 @@ def phase13(gpu) -> dict:
     return {"card_us": card_us, "cpu_us": cpu_us}
 
 
-def check_notes(label, notes) -> None:
+def check_notes(label, notes, allow=()) -> None:
     """Fail the phase when a trace note reports a downgrade or the
-    serial floor (the chunked executor's OOM path): on the card the
-    kernels run every scenario."""
-    bad = {k: v for k, v in notes.items()
-           if k.endswith("-downgrade") or "serial-fallback" in k or k.endswith("-degraded")}
+    serial floor (the chunked executor's OOM path), unless `allow` names
+    it (a phase that injects the fault): on the card the kernels run
+    every scenario."""
+    bad = {k: v for k, v in notes.items() if k not in allow and (
+           k.endswith("-downgrade") or "serial-fallback" in k or k.endswith("-degraded"))}
     if bad:
         raise AssertionError(f"{label}: degraded: {bad}")
 
@@ -1544,13 +1522,13 @@ def record_rows(pins_first_only=False):
     real = fused_scan.run_fused_scan_batch
     calls = []
 
-    def rows(plan, cls, scenarios, pins_first=False):
+    def rows(plan, cls, scenarios, pins_first=False, **kw):
         if pins_first_only and not pins_first:
-            return real(plan, cls, scenarios, pins_first=pins_first)
+            return real(plan, cls, scenarios, pins_first=pins_first, **kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        outs = real(plan, cls, scenarios, pins_first=pins_first)
+        outs = real(plan, cls, scenarios, pins_first=pins_first, **kw)
         end.record()
         calls.append((plan, cls, list(scenarios), pins_first, outs, start, end))
         return outs
@@ -1584,7 +1562,9 @@ def hold_rows(label, gpu, call, picks, plain_pods=None) -> dict:
         raise AssertionError(f"{label}: rows {picks} != plain version ({err})")
     _, ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios,
                                                             pins_first=pins_first))
-    b_ms, b_by = bound(plan, cls, scenarios)
+    from open_simulator_tpu_torch.obs import costs
+
+    b_ms, b_by = costs.bound(plan, cls, scenarios)
     print(f"{label}: rows {picks} of the {len(scenarios)}-scenario launch == plain version"
           + (f" over their first {plain_pods} pods" if plain_pods else "")
           + f" ({r_times[0]:.1f} ms), placements and every row; the launch "
@@ -1824,7 +1804,7 @@ def phase16(gpu, snap) -> dict:
             + b_launches[fused_scan.BATCH_KERNEL_NAME]}
 
 
-def chaos_cli(label, gpu, argv, want_digest=None) -> dict:
+def chaos_cli(label, gpu, argv, want_digest=None, allow=()) -> dict:
     """`simon chaos` (or `apply`) through the port's CLI on the card with
     the counters at 0, the pins-first rows recorded and the ChaosEngine
     kept; with `want_digest`, stdout's sha256 must equal it."""
@@ -1848,7 +1828,7 @@ def chaos_cli(label, gpu, argv, want_digest=None) -> dict:
         fused_scan.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc, out, err = run_cli([*argv, "--trace"])
+        rc, out, err = run_cli([*argv, "--trace"], allow=allow)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(fused_scan.LAUNCHES)
@@ -1857,8 +1837,8 @@ def chaos_cli(label, gpu, argv, want_digest=None) -> dict:
         chaos_mod.ChaosEngine.run = real_run
     if rc not in (0, 1):
         raise AssertionError(f"{label}: {argv[0]} exited {rc}: {err[-2000:]}")
-    trace = json.loads(err.strip().splitlines()[-1])
-    check_notes(label, trace.get("notes", {}))
+    trace = trace_json(err)
+    check_notes(label, trace.get("notes", {}), allow)
     digest = hashlib.sha256(out.encode()).hexdigest()
     if want_digest is not None and digest != want_digest:
         raise AssertionError(f"{label}: stdout digest {digest}, the JAX package's "
@@ -1960,6 +1940,8 @@ def phase17(gpu, root) -> dict:
     out["cut"] = hold_rows("phase 17b", gpu, call, [0, s_n // 2, s_n - 1])
     st = step_us(call, cluster)
     out["cut"].update(pin_us=st["pin_us"], free_us=st["free_us"], cluster=cluster)
+    workspace_check("phase 17b", gpu, call[0], call[1], call[2], batch=True, pins_first=True)
+    out["lie"] = chaos_lie(gpu, cfgs["cut"], b)
     engine = b["engines"][0]
     worst_label = max(doc["scenarios"], key=lambda o: (o["unschedulable"], o["displaced"]))
     scen = next(sc for sc in engine.build_scenarios(2, 1, 32)[0]
@@ -2002,6 +1984,34 @@ def phase17(gpu, root) -> dict:
           f"JAX package's (sha256 {jn['digest'][:16]}) [{gpu}]", flush=True)
     out["launches"] = sum(r["launches"][fused_scan.PINS_FIRST_KERNEL_NAME] for r in (a, b, c))
     return out
+
+
+def chaos_lie(gpu, cfg, b) -> dict:
+    """Phase 17b's outages at its committed count under
+    `--inject ledger.predict_fit=lie:high`: the ledger's first verdict
+    (the outage rows' chunk) says nothing fits, so the rows split in two
+    before any launch; the report is phase 17b's, and no OOM is caught."""
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    doc = json.loads(b["out"])
+    reactive = COUNTERS.get("guard_oom_reactive_total")
+    lie = chaos_cli("phase 17b (ledger.predict_fit=lie:high)", gpu,
+                    ["chaos", "-f", cfg, "--failures", "2", "--trials", "32", "--format", "json",
+                     "--new-node-count", str(doc["baselineNewNodeCount"]),
+                     "--inject", "ledger.predict_fit=lie:high"],
+                    allow=("chaos-chunk-predicted-split", "chaos-degraded"))
+    notes = lie["trace"]["notes"]
+    caught = COUNTERS.get("guard_oom_reactive_total") - reactive
+    if (lie["out"] != b["out"] or len(lie["calls"]) != 2 or caught
+            or "chaos-chunk-predicted-split" not in notes):
+        raise AssertionError(f"phase 17b (lie:high): same report {lie['out'] == b['out']}, "
+                             f"{len(lie['calls'])} launches, {caught} OOMs caught, notes {notes}")
+    print(f"phase 17b (--inject ledger.predict_fit=lie:high, --new-node-count "
+          f"{doc['baselineNewNodeCount']}): split before launch "
+          f"({notes['chaos-chunk-predicted-split']!r}), {len(lie['calls'])} pins-first launches "
+          f"of {[len(c[2]) for c in lie['calls']]} scenarios, 0 OOMs caught; the report is "
+          f"phase 17b's, byte for byte, in {lie['s']:.3f} s [{gpu}]", flush=True)
+    return {"s": lie["s"]}
 
 
 def a1g_plugin(base):
@@ -2067,6 +2077,497 @@ def phase18(gpu, root) -> dict:
     return {"s": secs}
 
 
+# ---- phases 19-21: the live-cluster import, the guard and observability
+# flags, the observatory against the card
+
+class StubApiServer:
+    """The seven LIST endpoints of a live cluster on 127.0.0.1, in a
+    thread: pages of `limit` items with `continue` tokens, and one
+    `continue` of `expire_path` answered with HTTP 410 (the client then
+    restarts its pagination anchored at the resourceVersion)."""
+
+    def __init__(self, routes, expire_path="/api/v1/pods"):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlsplit
+
+        self.routes = routes
+        self.requests = 0
+        self.expired = []
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                split = urlsplit(self.path)
+                query = parse_qs(split.query)
+                outer.requests += 1
+                route = outer.routes.get(split.path)
+                if route is None:
+                    self.send_response(404)
+                    self.end_headers()
+                    self.wfile.write(b"{}")
+                    return
+                kind, api_version, items = route
+                if "continue" in query and split.path == expire_path and not outer.expired:
+                    outer.expired.append(query["continue"][0])
+                    self.send_response(410)
+                    self.end_headers()
+                    self.wfile.write(b"{}")
+                    return
+                limit = int(query.get("limit", ["0"])[0] or 0)
+                start = int(query.get("continue", ["0"])[0] or 0)
+                meta = {"resourceVersion": "7"}
+                page = items
+                if limit:
+                    page = items[start:start + limit]
+                    if start + limit < len(items):
+                        meta["continue"] = str(start + limit)
+                body = json.dumps({"kind": kind, "apiVersion": api_version,
+                                   "metadata": meta, "items": page}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.server.server_port}"
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def build_live_cluster(n_nodes=CAP_NODES, n_bound=KUBE_BOUND_PODS):
+    """The capacity shape's nodes with `n_bound` Running pods bound to
+    them (a fifth owned by a ReplicaSet), the objects the import must
+    drop (DaemonSet-owned, Pending and terminating pods, one every
+    KUBE_DROP_EVERY), and a PDB, a service, a storage class and a PVC.
+    Returns (nodes, kept pods, every served pod, extras by kind)."""
+    nodes, _deployments, _new = build_capacity_scenario(n_nodes, 0)
+    def pod(i, node=None, phase="Running", owner=None, deleting=False):
+        # no requests (BestEffort, as sidecar-less agents often are): the
+        # capacity apps still plan within MAX_NUM_NEW_NODE new nodes
+        out = {"kind": "Pod", "apiVersion": "v1",
+               "metadata": {"name": f"live-{i:06d}", "namespace": "live",
+                            "labels": {"app": f"live-{i % 7}"}},
+               "spec": {"containers": [{"name": "c", "image": "img-live"}]},
+               "status": {"phase": phase}}
+        if node is not None:
+            out["spec"]["nodeName"] = node
+        if owner:
+            out["metadata"]["ownerReferences"] = [{"kind": owner, "name": f"{owner.lower()}-x"}]
+        if deleting:
+            out["metadata"]["deletionTimestamp"] = "2026-01-01T00:00:00Z"
+        return out
+
+    names = [n["metadata"]["name"] for n in nodes]
+    kept, served = [], []
+    for i in range(n_bound):
+        p = pod(i, names[i % n_nodes], owner="ReplicaSet" if i % 5 == 0 else None)
+        kept.append(p)
+        served.append(p)
+        if i % KUBE_DROP_EVERY == 0:
+            j = n_bound + i
+            served += [pod(j, names[i % n_nodes], owner="DaemonSet"),
+                       pod(j + 1, phase="Pending"),
+                       pod(j + 2, names[i % n_nodes], deleting=True)]
+    extras = {
+        "pod_disruption_budgets": [{"kind": "PodDisruptionBudget", "apiVersion": "policy/v1beta1",
+                                    "metadata": {"name": "live-pdb", "namespace": "live"},
+                                    "spec": {"minAvailable": 1,
+                                             "selector": {"matchLabels": {"app": "live-1"}}}}],
+        "services": [{"kind": "Service", "apiVersion": "v1",
+                      "metadata": {"name": "live-svc", "namespace": "live"},
+                      "spec": {"selector": {"app": "live-2"}}}],
+        "storage_classes": [{"kind": "StorageClass", "apiVersion": "storage.k8s.io/v1",
+                             "metadata": {"name": "standard"}, "provisioner": "x"}],
+        "persistent_volume_claims": [{"kind": "PersistentVolumeClaim", "apiVersion": "v1",
+                                      "metadata": {"name": "live-claim", "namespace": "live"},
+                                      "spec": {"storageClassName": "standard"}}],
+    }
+    return nodes, kept, served, extras
+
+
+def write_live_configs(root, n_nodes=CAP_NODES, n_bound=KUBE_BOUND_PODS, n_pods=CAP_PODS):
+    """The live cluster behind a stub apiserver, and two simon configs
+    that plan the capacity apps on it: one with `kubeConfig` (the
+    import), one with the same cluster as a customConfig directory (the
+    objects the import keeps). Returns (server, kube cfg, custom cfg,
+    kept pods, served pods)."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    nodes, kept, served, extras = build_live_cluster(n_nodes, n_bound)
+    _n, deployments, new_node = build_capacity_scenario(n_nodes, n_pods)
+    routes = {
+        "/api/v1/nodes": ("NodeList", "v1", nodes),
+        "/api/v1/pods": ("PodList", "v1", served),
+        "/apis/policy/v1beta1/poddisruptionbudgets": (
+            "PodDisruptionBudgetList", "policy/v1beta1", extras["pod_disruption_budgets"]),
+        "/api/v1/services": ("ServiceList", "v1", extras["services"]),
+        "/apis/storage.k8s.io/v1/storageclasses": (
+            "StorageClassList", "storage.k8s.io/v1", extras["storage_classes"]),
+        "/api/v1/persistentvolumeclaims": (
+            "PersistentVolumeClaimList", "v1", extras["persistent_volume_claims"]),
+        "/apis/apps/v1/daemonsets": ("DaemonSetList", "apps/v1", []),
+    }
+    server = StubApiServer(routes)
+    for sub, docs in (("cluster", nodes + kept + [o for v in extras.values() for o in v]),
+                      ("app", deployments), ("newnode", [new_node])):
+        (root / sub).mkdir()
+        with open(root / sub / "objects.yaml", "w") as f:
+            yaml.dump_all(docs, f, Dumper=dumper)
+    kubeconfig = root / "kubeconfig"
+    kubeconfig.write_text(yaml.safe_dump({
+        "apiVersion": "v1", "kind": "Config", "current-context": "live",
+        "contexts": [{"name": "live", "context": {"cluster": "live", "user": "u"}}],
+        "clusters": [{"name": "live", "cluster": {"server": server.url}}],
+        "users": [{"name": "u", "user": {"token": "stub"}}]}))
+    cfgs = []
+    for name, cluster in (("kube", {"kubeConfig": str(kubeconfig)}),
+                          ("custom", {"customConfig": str(root / "cluster")})):
+        cfg = root / f"simon-{name}.yaml"
+        cfg.write_text(yaml.safe_dump({
+            "apiVersion": "simon/v1alpha1", "kind": "Config", "metadata": {"name": name},
+            "spec": {"cluster": cluster, "appList": [{"name": "bench", "path": str(root / "app")}],
+                     "newNode": str(root / "newnode")}}))
+        cfgs.append(str(cfg))
+    return server, cfgs[0], cfgs[1], kept, served
+
+
+def trace_json(err) -> dict:
+    """The `--trace` JSON a CLI run printed to stderr (its last JSON
+    line: `--trace-out` prints its own line after it)."""
+    return json.loads(next(line for line in reversed(err.strip().splitlines())
+                           if line.startswith("{")))
+
+
+def launch_spans(path) -> list:
+    """The `launch/<site>` spans of a Chrome trace, by name."""
+    with open(path) as f:
+        doc = json.load(f)
+    return doc, [e["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "X" and e["name"].startswith("launch/")]
+
+
+def phase19(gpu, root, n_nodes=CAP_NODES, n_bound=KUBE_BOUND_PODS, n_pods=CAP_PODS,
+            device=None) -> dict:
+    """A1e: a live cluster (n_nodes nodes, n_bound bound Running pods and
+    the objects the import must drop) served by a stub apiserver, paged
+    at 500 with one continue answered 410, planned with the capacity
+    apps through `apply --format json --trace-out` on the card with the
+    counters at 0; the report == the same cluster as a customConfig
+    directory planned on the card; one span a launch; the observatory
+    block with costs, ledger and histograms; the launch counter == the
+    fused scan's launches."""
+    import torch
+
+    from open_simulator_tpu_torch.models import kubeclient
+    from open_simulator_tpu_torch.obs import profile
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    on_card = device is None
+    extra = [] if on_card else ["--device", device]
+    t0 = time.perf_counter()
+    server, kube_cfg, custom_cfg, kept, served = write_live_configs(root, n_nodes, n_bound,
+                                                                   n_pods)
+    print(f"phase 19: a stub apiserver at {server.url} serving {n_nodes} nodes and "
+          f"{len(served)} pods ({len(kept)} bound Running, {len(served) - len(kept)} the "
+          f"import must drop), a PDB, a service, a storage class and a PVC; the same cluster "
+          f"as a customConfig directory ({time.perf_counter() - t0:.2f} s set-up)", flush=True)
+    trace_path = str(Path(root) / "kube-trace.json")
+    try:
+        before = profile.snapshot()
+        fused_scan.reset_launch_counts()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(["apply", "-f", kube_cfg, "--format", "json", "--trace",
+                                "--trace-out", trace_path, *extra])
+        if on_card:
+            torch.cuda.synchronize()
+        kube_s = time.perf_counter() - t0
+        launches = dict(fused_scan.LAUNCHES)
+        delta = profile.delta(before)
+        requests, expired = server.requests, list(server.expired)
+    finally:
+        server.stop()
+    if rc != 0:
+        raise AssertionError(f"phase 19: the kubeConfig plan exited {rc}: {err[-2000:]}")
+    trace = trace_json(err)
+    if not expired or requests < len(served) // kubeclient.LIST_PAGE_LIMIT + 2:
+        raise AssertionError(f"phase 19: {requests} requests, expired continues {expired}")
+    t0 = time.perf_counter()
+    rc2, out2, err2 = run_cli(["apply", "-f", custom_cfg, "--format", "json", *extra])
+    custom_s = time.perf_counter() - t0
+    if rc2 != 0 or out2 != out:
+        raise AssertionError(f"phase 19: the kubeConfig report != the customConfig report "
+                             f"(rc {rc2}, {len(out)} vs {len(out2)} bytes)")
+    doc = json.loads(out)
+    placed = {p["name"] for n in doc["nodes"] for p in n["pods"]}
+    dropped = {p["metadata"]["name"] for p in served} - {p["metadata"]["name"] for p in kept}
+    if not doc["success"] or placed & dropped or not {
+            p["metadata"]["name"] for p in kept} <= placed:
+        raise AssertionError(f"phase 19: success {doc['success']}; the report holds "
+                             f"{len(placed & dropped)} dropped pods")
+    tdoc, spans = launch_spans(trace_path)
+    block = tdoc.get("simonObservatory", {})
+    want_blocks = {"costs", "histograms"} | ({"ledger"} if on_card else set())
+    kernel_launches = sum(launches.values())
+    if len(spans) != delta["launches_total"] or not want_blocks <= set(block):
+        raise AssertionError(f"phase 19: {len(spans)} launch spans for "
+                             f"{delta['launches_total']} launches; observatory "
+                             f"{sorted(block)}")
+    if on_card and delta["device_launches_total"] != kernel_launches:
+        raise AssertionError(f"phase 19: the launch counter {delta} != the fused scan's "
+                             f"launches {launches}")
+    load_ms = next(ph["seconds"] for ph in trace["phases"] if ph["name"] == "apply/load") * 1e3
+    print(f"phase 19 (A1e): apply on the kubeConfig cluster: +{doc['newNodeCount']} nodes, "
+          f"{len(placed)} pods placed ({len(kept)} bound pods kept, {len(dropped)} dropped) in "
+          f"{kube_s:.3f} s (the customConfig run {custom_s:.3f} s): the two reports are "
+          f"byte-identical ({len(out)} bytes); import and load (apply/load) {load_ms:.1f} ms "
+          f"over {requests} requests, one 410 on continue {expired[0]}; launches {launches}, "
+          f"counted {delta['launches_total']} ({delta['device_launches_total']} on the card), "
+          f"{len(spans)} launch spans; h2d {delta['device_transfer_h2d_bytes_total']} B, "
+          f"d2h {delta['device_transfer_d2h_bytes_total']} B [{gpu}]", flush=True)
+    print(f"phase 19: host clock by phase: " + ", ".join(
+        f"{ph['name']} {ph['seconds'] * 1e3:.1f} ms" for ph in trace["phases"]) + f" [{gpu}]",
+        flush=True)
+    costs_block = {k: v for k, v in block["costs"].items() if k != "_totals"}
+    hist = {k: {q: v[q] for q in ("count", "p50_ms", "p95_ms")}
+            for k, v in block["histograms"].items()}
+    print(f"phase 19: observatory: cost records {json.dumps(costs_block)}; launch "
+          f"histograms {json.dumps(hist)}; ledger "
+          f"{json.dumps({k: block.get('ledger', {}).get(k) for k in ('peak_bytes', 'samples', 'watermarks')})} "
+          f"[{gpu}]", flush=True)
+    return {"launches": launches, "doc": doc, "load_ms": load_ms, "s": kube_s}
+
+
+def phase20(gpu, root, cap, device=None) -> dict:
+    """Phase 6's plan under the guard and observability flags: (a)
+    `--journal J --inject budget.check=deadline@2` exits 3 with a PARTIAL
+    JSON; `--resume J` (table) answers phase 6's count and launches only
+    the probes the journal lacks; (b) `-i` on a scripted shell (all apps,
+    add 55 nodes, all nodes) prints that table report, one launch a
+    guess; (c) `--inject jit.sweep_many=oom@1 --explain NS/NAME` halves
+    the batch launch, notes it and answers phase 6's JSON; the named
+    pod's chosen node is its node in the report and its verdicts cover
+    every node."""
+    import torch
+
+    from open_simulator_tpu_torch.obs import profile
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    extra = [] if device is None else ["--device", device]
+    want = cap["doc"]
+    count = want["newNodeCount"]
+    d = Path(root) / "guard"
+    d.mkdir()
+    cfg = write_capacity_config(d, *cap["shape"])
+    journal = str(d / "plan.jsonl")
+
+    def cli(argv, stdin=None, allow=()):
+        """(exit code, stdout, stderr, launches counted by the
+        instrumented launch, seconds); on the card the counter must
+        equal the fused scan's launches."""
+        fused_scan.reset_launch_counts()
+        before = profile.snapshot()
+        if device is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _stdin(stdin or ""):
+            rc, out, err = run_cli(argv + extra, allow=allow)
+        if device is None:
+            torch.cuda.synchronize()
+        launches = profile.delta(before)["launches_total"]
+        if device is None and launches != sum(fused_scan.LAUNCHES.values()):
+            raise AssertionError(f"phase 20: {launches} counted launches, the fused scan's "
+                                 f"{fused_scan.LAUNCHES}")
+        return rc, out, err, launches, time.perf_counter() - t0
+
+    rc, out, err, l_halt, s_halt = cli(["apply", "-f", cfg, "--format", "json", "--journal",
+                                        journal, "--inject", "budget.check=deadline@2"])
+    partial = json.loads(out)
+    done = [p["count"] for p in partial["detail"]["completedProbes"]]
+    if rc != 3 or not partial["partial"] or partial["reason"] != "deadline" or not done:
+        raise AssertionError(f"phase 20a: exit {rc}, {out[:500]}")
+    rc, table, err, l_res, s_res = cli(["apply", "-f", cfg, "--resume", journal])
+    if rc != 0 or f"new nodes added: {count}\n" not in table:
+        raise AssertionError(f"phase 20a: --resume exited {rc} without +{count}: {err[-800:]}")
+    if l_res != cap["launches_total"] - l_halt:
+        raise AssertionError(f"phase 20a: the resume launched {l_res} times, the plan "
+                             f"{cap['launches_total']} of which {l_halt} before the halt")
+    print(f"phase 20a (--deadline/--inject, --journal, --resume): the halted plan exited 3 "
+          f"after {s_halt:.3f} s with a PARTIAL JSON ({len(done)} probe(s) {done} journaled, "
+          f"{l_halt} launch(es)); --resume answered +{count} in {s_res:.3f} s with {l_res} "
+          f"launch(es), the plan's {cap['launches_total']} less the journaled [{gpu}]",
+          flush=True)
+
+    script = f"\n1\n{count}\n\n"
+    rc, shell_out, err, l_i, s_i = cli(["apply", "-f", cfg, "-i"], stdin=script)
+    if rc != 0 or not shell_out.endswith(table) or l_i != 2:
+        raise AssertionError(f"phase 20b: -i exited {rc}, report == the table "
+                             f"{shell_out.endswith(table)}, launches {l_i}")
+    print(f"phase 20b (-i): the scripted shell (all apps; add {count} nodes; all nodes) "
+          f"printed the --resume run's table report ({len(table)} bytes) after its prompts, "
+          f"in {s_i:.3f} s; one launch a guess: {l_i} [{gpu}]", flush=True)
+
+    pod = next(p for n in want["nodes"] for p in n["pods"] if p["app"] == "bench")
+    node_of = {p["name"]: n["name"] for n in want["nodes"] for p in n["pods"]}
+    target = f"{pod['namespace']}/{pod['name']}"
+    rc, out, err, l_oom, s_oom = cli(
+        ["apply", "-f", cfg, "--format", "json", "--trace", "--inject", "jit.sweep_many=oom@1",
+         "--explain", target], allow=("sweep-chunk-halving", "sweep-degraded"))
+    doc = json.loads(out)
+    explain = doc.pop("explain")
+    notes = trace_json(err)["notes"]
+    if rc != 0 or doc != want or "sweep-chunk-halving" not in notes:
+        raise AssertionError(f"phase 20c: exit {rc}, same JSON {doc == want}, notes {notes}")
+    rec = next(r for r in explain if r["name"] == pod["name"])
+    seen = len(rec["verdicts"]) + rec["truncatedNodes"]
+    if rec["chosenNode"] != node_of[pod["name"]] or seen != rec["totalNodes"] or (
+            rec["totalNodes"] != len(want["nodes"])):
+        raise AssertionError(f"phase 20c: explain of {target}: chosen {rec['chosenNode']} "
+                             f"(report {node_of[pod['name']]}), {seen} verdicts of "
+                             f"{rec['totalNodes']} nodes")
+    print(f"phase 20c (--inject jit.sweep_many=oom@1, --explain {target}): the first batch "
+          f"launch raised a device OOM and was halved (note "
+          f"{notes['sweep-chunk-halving']!r}); the JSON == phase 6's (+{count}) in "
+          f"{s_oom:.3f} s, launches {l_oom}; the pod's chosen node {rec['chosenNode']} is its "
+          f"node in the report, {rec['feasibleNodes']} of {rec['totalNodes']} nodes feasible, "
+          f"{len(rec['verdicts'])} verdict rows + {rec['truncatedNodes']} counted [{gpu}]",
+          flush=True)
+    return {"resume": l_res, "shell": l_i, "oom": l_oom}
+
+
+@contextlib.contextmanager
+def _stdin(text):
+    """sys.stdin reads `text` (a scripted shell)."""
+    import io
+
+    real = sys.stdin
+    sys.stdin = io.StringIO(text)
+    try:
+        yield
+    finally:
+        sys.stdin = real
+
+
+def phase21(gpu, root, device=None) -> dict:
+    """The quickstart with `--explain POD --profile-dir D` on the card:
+    stdout == the JAX package's (tools/jax_explain_answer.py), and the
+    captures of the device phases name the fused-scan kernel."""
+    import hashlib
+    import os
+
+    extra = [] if device is None else ["--device", device]
+    prof = Path(root) / "profile"
+    rc, out, err = run_cli(["apply", "-f", QUICKSTART, "--format", "json", "--explain",
+                            EXPLAIN_POD, "--profile-dir", str(prof), *extra], cwd=ROOT)
+    digest = hashlib.sha256(out.encode()).hexdigest()
+    if rc != 0 or digest != JAX_EXPLAIN_ANSWER:
+        raise AssertionError(f"phase 21: exit {rc}, stdout sha256 {digest}, the JAX package's "
+                             f"{JAX_EXPLAIN_ANSWER}: {err[-1000:]}")
+    kernels, files = {}, sorted(os.listdir(prof))
+    for name in files:
+        with open(prof / name) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"][:60]] = kernels.get(e["name"][:60], 0) + 1
+    if device is None and not any("fused_scan" in k for k in kernels):
+        raise AssertionError(f"phase 21: the captures {files} name no fused-scan kernel: "
+                             f"{sorted(kernels)}")
+    print(f"phase 21 (--explain {EXPLAIN_POD}, --profile-dir): stdout == the JAX package's "
+          f"(sha256 {digest[:16]}); torch.profiler captures {files}, kernels by name "
+          f"{kernels} [{gpu}]", flush=True)
+    return {"captures": files, "kernels": kernels}
+
+
+def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
+    """One launch of `scenarios` with the allocator's peak reset: the cost
+    count's workspace (obs/costs.py) must be at or above what the peak
+    rose by, or a doomed launch would pass the ledger."""
+    import torch
+
+    from open_simulator_tpu_torch.obs import costs
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if batch:
+        out = fused_scan.run_fused_scan_batch(plan, cls, scenarios, pins_first=pins_first,
+                                              site="workspace")
+    else:
+        out = fused_scan.run_fused_scan(plan, cls, *scenarios[0], site="workspace")
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    del out
+    name = (fused_scan.PINS_FIRST_KERNEL_NAME if pins_first
+            else fused_scan.kernel_name(plan, batch))
+    est = costs.workspace_bytes(plan, len(cls), len(scenarios), fused_scan.CLUSTERS[name])
+    WORKSPACE.append({"label": label, "kernel": name, "scenarios": len(scenarios),
+                      "estimate": est, "measured": measured,
+                      "ratio": round(est / max(measured, 1), 4)})
+    print(f"{label}: workspace of one {name} launch of {len(scenarios)} scenario(s): estimate "
+          f"{est} B, the allocator's peak rose {measured} B (x{est / max(measured, 1):.3f}) "
+          f"[{gpu}]", flush=True)
+    if est < measured:
+        raise AssertionError(f"{label}: the workspace estimate {est} B is below the measured "
+                             f"{measured} B")
+
+
+def instrumentation_cost(gpu, plan, batch, runs=3) -> dict:
+    """B1 at phase 2's shape through the instrumented wrapper and through
+    the bare launcher at the same cluster size, in turns (instrumented,
+    bare, bare, instrumented, ...): card ms by CUDA events and host ms
+    to the synchronised result."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    n, p = plan.n, len(batch.class_of_pod)
+    scen = [(np.ones(p, bool), np.ones(n, bool), batch.pinned_node)]
+    cls = batch.class_of_pod
+    cluster = fused_scan.choose_cluster(plan, 1, False)
+
+    def inst():
+        return fused_scan.run_fused_scan(plan, cls, *scen[0])
+
+    def bare():
+        return fused_scan._run_with_cluster(plan, cls, scen, False, cluster)
+
+    times = {"instrumented": [], "bare": []}
+    host = {"instrumented": [], "bare": []}
+    for i in range(runs * 2):
+        for name in (("instrumented", "bare") if i % 2 == 0 else ("bare", "instrumented")):
+            fn = inst if name == "instrumented" else bare
+            _, ms = cuda_ms(fn)
+            _, h = timed(fn, 1)
+            times[name].append(ms)
+            host[name].append(h[0])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    hmed = {k: statistics.median(v) for k, v in host.items()}
+    print(f"phase 2: B1 at {n} x {p}, cluster {cluster}, instrumented against bare in turns: "
+          f"card {med['instrumented']:.3f} vs {med['bare']:.3f} ms "
+          f"(x{med['instrumented'] / med['bare']:.4f}; CUDA events, medians of {2 * runs}), "
+          f"host to the synchronised result {hmed['instrumented']:.3f} vs {hmed['bare']:.3f} "
+          f"ms (x{hmed['instrumented'] / hmed['bare']:.4f}) [{gpu}]", flush=True)
+    return {"card": med, "host": hmed}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2104,6 +2605,7 @@ def main() -> int:
                           [(np.ones(p, bool), np.ones(n, bool), batch.pinned_node)],
                           [base.pop("want")], PHASE2_CLUSTERS)
     base["prev_ms"] = sweep[1]
+    instrumentation_cost(gpu, plan, batch)
 
     # ---- phase 3: the base main path
     base_launches = simulate_path("phase 3", gpu, nodes, pods, names, base["placements"],
@@ -2151,7 +2653,10 @@ def main() -> int:
     if batch_err or single_err:
         raise AssertionError(f"phase 5: batch kernel != plain ({batch_err}) or != single "
                              f"launches ({single_err})")
-    b_bound = bound(plan, cls, scenarios)
+    from open_simulator_tpu_torch.obs import costs
+
+    b_bound = costs.bound(plan, cls, scenarios)
+    workspace_check("phase 5", gpu, plan, cls, scenarios, batch=True)
     print(f"phase 5: clusters of {fused_scan.CLUSTERS[fused_scan.BATCH_KERNEL_NAME]} blocks; "
           f"{len(scenarios)} scenarios in one batch launch == single launches, "
           f"and over their first {PHASE5_PLAIN_PODS} pods == batch plain; batch kernel "
@@ -2216,7 +2721,10 @@ def main() -> int:
         walls = {}
         for name, run in (("14", lambda: phase14(gpu)), ("15", lambda: phase15(gpu, root)),
                           ("16", lambda: phase16(gpu, walls["snap"])),
-                          ("17", lambda: phase17(gpu, root)), ("18", lambda: phase18(gpu, root))):
+                          ("17", lambda: phase17(gpu, root)), ("18", lambda: phase18(gpu, root)),
+                          ("19", lambda: phase19(gpu, root)),
+                          ("20", lambda: phase20(gpu, root, cap)),
+                          ("21", lambda: phase21(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
             if name == "15":
@@ -2227,6 +2735,11 @@ def main() -> int:
     print(f"phases 14-18: B6 launches on the new paths: {whatif['launches']} in the 8-spec "
           f"what-if's {whatif['rounds']} rounds, {defrag['launches']} for two defrag plans, "
           f"{outage['launches']} pins-first in phase 17's three runs [{gpu}]", flush=True)
+    print(f"phases 19-21: the kubeConfig plan's launches {walls['19']['launches']}; the "
+          f"resume, shell and halved plans' {[walls['20'][k] for k in ('resume', 'shell', 'oom')]} "
+          f"[{gpu}]", flush=True)
+    print("workspace estimate against the measured peak rise, a launch of each "
+          "instantiation: " + json.dumps(WORKSPACE), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
     def entry(name, replaces, launches, res):

@@ -4,8 +4,8 @@ Mirrors pkg/apply/apply.go, ported from the JAX package's
 apply/applier.py:
 - Simon CR config parsing (apiVersion simon/v1alpha1, kind Config;
   pkg/api/v1alpha1/types.go) with path validation (apply.go:249-286)
-- the cluster from a customConfig dir; the app list from plain YAML dirs
-  or Helm charts (models/chart.py, the reference's pkg/chart rendering)
+- the cluster from a customConfig dir or a live cluster's kubeConfig
+  (models/kubeclient.py); the app list from plain YAML dirs or Helm charts (models/chart.py, the reference's pkg/chart rendering)
 - the capacity loop (apply.go:186-239): instead of interactively asking
   the user for a node count per iteration, candidate counts up to
   MaxNumNewNode are evaluated via bisection probes over ONE encoded
@@ -28,9 +28,7 @@ scan (parallel/sweep.py), trace-noted. Kernel, build and launch errors
 propagate: the only route from the batched plan to the serial loop is a
 priority-bearing (or permit/stateful-plugin) workload, which the scan
 cannot model (PrioritySignalError), and that route is trace-noted.
-
-Not ported yet: kubeConfig clusters (OutOfSliceError naming ROADMAP.md
-A1e); the interactive shell has no entry point here.
+The interactive shell (`simon apply -i`) is apply/interactive.py.
 """
 
 from __future__ import annotations
@@ -50,16 +48,12 @@ from ..models.decode import (
     yaml_content_from_directory,
 )
 from ..models.validation import InputError
-from ..ops.fused_scan import OutOfSliceError
 from ..runtime.errors import ConformanceError
 from ..scheduler.core import AppResource, SimulateResult, simulate
 from ..utils.memo import clear_all_memos
 from .report import report
 
 MAX_NUM_NEW_NODE = wl.MAX_NUM_NEW_NODE
-
-# the ROADMAP.md item of the apply feature the port does not carry yet
-ITEM_KUBECONFIG = "A1e"
 
 
 @dataclass
@@ -219,7 +213,7 @@ def replay_masked(sweep, valid, placements):
     from ..scheduler.core import NodeStatus, SimulateResult, UnscheduledPod
     from ..scheduler.engine import build_bulk_tables
     from ..scheduler.oracle import ClassCommitCache, Oracle, simple_commit_mask
-    from ..utils.trace import profiled
+    from ..utils.trace import phase
 
     if EXPLAIN.enabled:
         EXPLAIN.set_context(engine="capacity-replay")
@@ -244,7 +238,7 @@ def replay_masked(sweep, valid, placements):
     pods = sweep.pods
     failed = []
     commit_cache = ClassCommitCache()
-    with profiled("engine/replay"):
+    with phase("engine/replay"):
         # event pods (inactive / pinned / failed / side-effect classes)
         # take the exact per-pod path in order; runs between them bulk
         bulk_mask = (
@@ -596,6 +590,7 @@ class Applier:
     def __init__(
         self,
         config: SimonConfig,
+        interactive: bool = False,
         extended_resources: Optional[List[str]] = None,
         engine: str = "cuda",
         use_sweep: bool = True,
@@ -610,10 +605,9 @@ class Applier:
     ):
         if engine not in ("cuda", "oracle"):
             raise InputError(f"unknown engine {engine!r}: cuda or oracle")
-        if config.kube_config:
-            raise OutOfSliceError("kubeConfig clusters", ITEM_KUBECONFIG)
         config.validate()
         self.config = config
+        self.interactive = interactive
         self.extended_resources = extended_resources or []
         self.engine = engine
         self.use_sweep = use_sweep
@@ -648,6 +642,10 @@ class Applier:
     # -- loading ------------------------------------------------------------
 
     def load_cluster(self) -> ResourceTypes:
+        if self.config.kube_config:
+            from ..models.kubeclient import create_cluster_resource_from_client
+
+            return create_cluster_resource_from_client(self.config.kube_config)
         return cluster_from_config_dir(self.config.custom_cluster)
 
     def load_apps(self) -> List[AppResource]:

@@ -1,30 +1,40 @@
-"""simon-compatible CLI of the GPU port: `apply`, `chaos` and `defrag`.
+"""simon-compatible CLI of the GPU port: `apply`, `chaos`, `defrag`,
+`doctor`, `version` and `gen-doc`.
 
-  python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml>
+  python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml> [-i]
         [--format table|json] [--extended-resources gpu,open-local]
         [--engine cuda|oracle] [--device DEVICE] [--no-sweep]
         [--use-greed] [--default-scheduler-config FILE] [--trace]
         [--tolerate-node-failures K [--chaos-seed S] [--chaos-trials T]]
         [--journal PATH | --resume PATH] [--snapshot FILE]
+        [--deadline SECONDS] [--inject SPEC]
+        [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
   python -m open_simulator_tpu_torch.cli chaos -f <simon-config.yaml>
         [--failures K] [--seed S] [--trials T] [--new-node-count N]
         [--cordon NODE,...] [--taint key[=value]:Effect[@nodes]]
         [--degrade PCT[@nodes]] [--journal PATH | --resume PATH]
+        [--deadline SECONDS] [--inject SPEC]
+        [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
         [--format table|json] [--device DEVICE] [--trace]
   python -m open_simulator_tpu_torch.cli defrag --snapshot FILE
         [--max-drain N] [--keep-new-nodes] [--format table|json]
-        [--device DEVICE]
+        [--device DEVICE] [--trace-out PATH] [--explain [POD]]
+        [--profile-dir DIR]
+  python -m open_simulator_tpu_torch.cli doctor BASELINE CANDIDATE
+  python -m open_simulator_tpu_torch.cli version
+  python -m open_simulator_tpu_torch.cli gen-doc [--output DIR]
 
-Mirrors the JAX package's `simon apply`, `simon chaos` and `simon
-defrag` (cli.py cmd_apply, cmd_chaos, cmd_defrag), whose reports these
-reproduce byte for byte. The scans run on the card unless `--device
-cpu` is given (the kernels' plain versions); without a card the default
-exits 2 with the "needs a GPU" error. Log level comes from the LogLevel
-env var (cmd/simon/simon.go:60-80).
+Mirrors the JAX package's CLI (cli.py cmd_apply, cmd_chaos, cmd_defrag,
+cmd_doctor, cmd_version, cmd_gen_doc), whose reports these reproduce
+byte for byte, its exit codes included: 3 for a --deadline partial
+report, 4 for an interrupted one, 2 for bad input or a failed external
+dependency. The scans run on the card unless `--device cpu` is given
+(the kernels' plain versions); without a card the default exits 2 with
+the "needs a GPU" error. `--inject` sites keep the JAX package's names
+(obs/profile.py). Log level comes from the LogLevel env var
+(cmd/simon/simon.go:60-80).
 
-Not ported yet (ROADMAP.md A1a and later): the interactive shell (-i),
-explain, mesh, deadline, fault-injection and observability flags, and
-the other subcommands.
+Not ported yet: `--mesh` (ROADMAP.md A11) and the other subcommands.
 """
 
 from __future__ import annotations
@@ -47,16 +57,138 @@ def _setup_logging():
     logging.basicConfig(level=levels.get(level, logging.INFO), format="%(levelname)s %(message)s")
 
 
+def _obs_begin(args):
+    """Arm the flight recorder (obs/) from the shared observability
+    flags (--trace-out / --explain / --profile-dir). Returns a finish
+    callback that exports the trace and disarms, called from
+    _with_obs's finally so every exit path exports."""
+    from .obs import profile as obs_profile
+    from .obs import spans
+    from .obs.explain import EXPLAIN
+
+    trace_out = getattr(args, "trace_out", "")
+    explain = getattr(args, "explain", None)
+    profile_dir = getattr(args, "profile_dir", "")
+    if profile_dir:
+        obs_profile.set_profile_dir(profile_dir)
+    if trace_out:
+        sink = spans.JsonlSink(trace_out) if trace_out.endswith(".jsonl") else None
+        spans.RECORDER.enable(sink)
+    if explain is not None:
+        EXPLAIN.enable(explain or None)
+
+    def finish():
+        if trace_out:
+            if not trace_out.endswith(".jsonl"):
+                spans.export_chrome_trace(trace_out)
+            dropped = spans.RECORDER.dropped
+            spans.RECORDER.disable()
+            note = f" ({dropped} span(s) dropped at cap)" if dropped else ""
+            print(f"span trace written to {trace_out}{note}", file=sys.stderr)
+        if explain is not None:
+            EXPLAIN.disable()
+        if profile_dir:
+            obs_profile.set_profile_dir(None)
+            print(f"torch.profiler capture(s) in {profile_dir}", file=sys.stderr)
+
+    return finish
+
+
+def _with_obs(name: str):
+    """Decorator for the long-running commands: arm the recorder from
+    the obs flags, run the command under a root span (`simon <name>`:
+    phases and launches nest under it), export on ANY exit."""
+
+    def deco(fn):
+        import functools
+
+        @functools.wraps(fn)
+        def wrapper(args):
+            from .obs.spans import RECORDER
+
+            finish = _obs_begin(args)
+            try:
+                with RECORDER.span(f"simon {name}", command=name):
+                    return fn(args)
+            finally:
+                finish()
+
+        return wrapper
+
+    return deco
+
+
+def _print_explanations(args, out=None):
+    """Append the --explain block to the human-readable output."""
+    if getattr(args, "explain", None) is None:
+        return
+    from .obs.explain import render_explanations
+
+    print(render_explanations(), file=out)
+
+
+def _explanations_payload(args):
+    """The --explain block for JSON output (None when off)."""
+    if getattr(args, "explain", None) is None:
+        return None
+    from .obs.explain import explanations_dict
+
+    return explanations_dict()
+
+
+def _emit_partial(e, args, journal_path: str) -> int:
+    """Render an ExecutionHalted (deadline / SIGINT at a safe boundary)
+    as a well-formed machine-readable partial report, never a
+    traceback, and return its distinct exit code (runtime/errors.py:
+    3 deadline, 4 interrupt)."""
+    import json
+
+    payload = {
+        "partial": True,
+        "reason": e.reason,
+        "message": str(e),
+        "exitCode": e.exit_code,
+        "journal": journal_path or None,
+        "detail": e.partial,
+    }
+    if getattr(args, "format", "table") == "json":
+        print(json.dumps(payload))
+    else:
+        print(f"PARTIAL RESULT ({e.reason}): {e}")
+        if journal_path:
+            print(
+                f"completed work journaled in {journal_path}; rerun with "
+                f"--resume {journal_path} to continue"
+            )
+        if e.partial is not None:
+            print(json.dumps(e.partial, indent=2))
+    return e.exit_code
+
+
+@_with_obs("apply")
 def cmd_apply(args) -> int:
     from .apply.applier import Applier, SimonConfig
     from .models.validation import InputError
     from .ops.fused_scan import NoCardError, OutOfSliceError
-    from .runtime import ExternalIOError
+    from .runtime import (
+        Budget,
+        ExecutionHalted,
+        ExternalIOError,
+        Interrupted,
+        sigint_to_budget,
+    )
+    from .utils.trace import ProfileCaptureError
 
     try:
+        if args.interactive and args.deadline is not None:
+            raise InputError(
+                "--deadline is not available in interactive mode (the "
+                "shell blocks on user input; press ^C to leave it)"
+            )
         config = SimonConfig.from_file(args.simon_config)
         applier = Applier(
             config,
+            interactive=args.interactive,
             extended_resources=args.extended_resources,
             engine=args.engine,
             use_sweep=not args.no_sweep,
@@ -69,10 +201,36 @@ def cmd_apply(args) -> int:
             resume_path=args.resume,
             device=args.device,
         )
-        result = applier.run()
-    except (OSError, InputError, ExternalIOError, OutOfSliceError, NoCardError) as e:
-        # malformed input, a feature the port does not carry yet, or no
-        # card for the default device: a clean exit 2; internal errors
+        budget = Budget(args.deadline)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    journal_path = args.resume or args.journal
+    try:
+        if args.interactive:
+            # the reference's survey shell (apply.go:157-239, 510-530).
+            # NOT budget-guarded: the shell blocks on stdin, so ^C must
+            # interrupt at once (KeyboardInterrupt below)
+            from .apply.interactive import run_interactive
+
+            result = run_interactive(applier)
+        else:
+            with sigint_to_budget(budget):
+                result = applier.run(budget=budget)
+    except ExecutionHalted as e:
+        return _emit_partial(e, args, journal_path)
+    except KeyboardInterrupt:
+        # SIGINT outside a guarded boundary (interactive shell, or
+        # during load): still a clean partial exit, nothing to report
+        return _emit_partial(
+            Interrupted("interrupted before any safe boundary"), args, journal_path)
+    except (OSError, InputError, ExternalIOError, OutOfSliceError, NoCardError,
+            ProfileCaptureError) as e:
+        # malformed input, a failed external dependency (apiserver,
+        # credential plugin, extender), a feature the port does not
+        # carry yet, no card for the default device, or a profiler
+        # that cannot trace the card: a clean exit 2; internal errors
         # (a kernel launch, a conformance check) stay loud
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -85,7 +243,7 @@ def cmd_apply(args) -> int:
 
         save_snapshot(result.result, args.snapshot, cluster=applier.last_cluster)
     if args.format == "json":
-        print(_result_json(result))
+        print(_result_json(result, explain=_explanations_payload(args)))
         return 0 if result.success else 1
     if not result.success:
         print(result.message)
@@ -93,11 +251,13 @@ def cmd_apply(args) -> int:
             for i, up in enumerate(result.result.unscheduled_pods):
                 meta = up.pod.get("metadata") or {}
                 print(f"{i:4d} {meta.get('namespace')}/{meta.get('name')}: {up.reason}")
+        _print_explanations(args)
         return 1
     print("Simulation success!")
     if result.new_node_count:
         print(f"new nodes added: {result.new_node_count}")
     print(result.report_text)
+    _print_explanations(args)
     return 0
 
 
@@ -123,10 +283,12 @@ def _parse_degrade(spec: str):
     return pct, ([n for n in nodes.split(",") if n] or None) if nodes else None
 
 
+@_with_obs("chaos")
 def cmd_chaos(args) -> int:
     """Fault-injection survivability of a committed plan
     (resilience/chaos.py): exit 0 when every scenario survives, 1
-    otherwise, 2 on bad input."""
+    otherwise, 2 on bad input, 3 / 4 on a deadline / interrupt partial
+    report."""
     import json
 
     from .apply.applier import (
@@ -141,8 +303,15 @@ def cmd_chaos(args) -> int:
     from .ops.fused_scan import NoCardError, OutOfSliceError
     from .parallel.sweep import CapacitySweep, PrioritySignalError
     from .resilience.chaos import ChaosEngine, perturbed_scenario_sweep
-    from .runtime import ExternalIOError, Journal
-    from .utils.trace import GLOBAL
+    from .runtime import (
+        Budget,
+        ExecutionHalted,
+        ExternalIOError,
+        Interrupted,
+        Journal,
+        sigint_to_budget,
+    )
+    from .utils.trace import GLOBAL, ProfileCaptureError
 
     try:
         config = SimonConfig.from_file(args.simon_config)
@@ -153,14 +322,18 @@ def cmd_chaos(args) -> int:
         taints = [_parse_taint(t) for t in args.taint or []]
         degrade = _parse_degrade(args.degrade) if args.degrade else None
         cordon = [n for n in (args.cordon or "").split(",") if n]
+        budget = Budget(args.deadline)
     except (OSError, ValueError, ExternalIOError, OutOfSliceError) as e:
+        # ExternalIOError: a live-cluster import (kubeConfig) whose
+        # apiserver or credential plugin failed after retries
         print(f"error: {e}", file=sys.stderr)
         return 2
 
     journal = None
+    journal_path = args.resume or args.journal
     GLOBAL.reset()
     try:
-        if args.resume or args.journal:
+        if journal_path:
             fp = plan_fingerprint(
                 cluster, apps, new_node, command="chaos", use_greed=args.use_greed,
                 failures=args.failures, seed=args.seed, trials=args.trials,
@@ -173,50 +346,57 @@ def cmd_chaos(args) -> int:
         # repeated in-process runs (and the perturbed re-encoding below)
         # expand the identical pod sequence
         reset_name_counter()
-        if args.new_node_count is not None:
-            count = args.new_node_count
-            if count < 0:
-                raise InputError("--new-node-count must be >= 0")
-            if count > 0 and new_node is None:
-                raise InputError(
-                    f"--new-node-count {count} needs a newNode spec in "
-                    "the config, which has none"
-                )
-            sweep = CapacitySweep(cluster, apps, new_node, count,
-                                  use_greed=args.use_greed, device=args.device)
-            if journal is not None:
-                sweep.attach_journal(journal)
-            baseline = sweep.probe(count).placements
-        else:
-            # plan first: the chaos sweep evaluates the committed plan
-            max_count = 0 if new_node is None else MAX_NUM_NEW_NODE
-            sweep = CapacitySweep(cluster, apps, new_node, max_count,
-                                  use_greed=args.use_greed, device=args.device)
-            if journal is not None:
-                sweep.attach_journal(journal)
-            feasible, (mc, mm, mv) = _capacity_feasible()
-            best = sweep.find_min_count(feasible, start=sweep.lower_bound(mc, mm, mv))
-            if best is None:
-                print(
-                    "error: no feasible plan to inject faults into "
-                    f"(infeasible even with {max_count} new node(s)); "
-                    "pass --new-node-count to analyze an infeasible "
-                    "placement anyway",
-                    file=sys.stderr,
-                )
-                return 1
-            count, baseline = best.count, best.placements
-        scen_sweep = perturbed_scenario_sweep(
-            cluster, apps, new_node, sweep.max_count, cordon=cordon, taints=taints,
-            degrade=degrade, use_greed=args.use_greed, device=args.device,
-        )
-        engine = ChaosEngine(sweep, count, baseline, scenario_sweep=scen_sweep)
-        report = engine.run(failures=args.failures, seed=args.seed, trials=args.trials,
-                            journal=journal)
+        with sigint_to_budget(budget):
+            if args.new_node_count is not None:
+                count = args.new_node_count
+                if count < 0:
+                    raise InputError("--new-node-count must be >= 0")
+                if count > 0 and new_node is None:
+                    raise InputError(
+                        f"--new-node-count {count} needs a newNode spec in "
+                        "the config, which has none"
+                    )
+                sweep = CapacitySweep(cluster, apps, new_node, count,
+                                      use_greed=args.use_greed, device=args.device)
+                if journal is not None:
+                    sweep.attach_journal(journal)
+                baseline = sweep.probe(count).placements
+            else:
+                # plan first: the chaos sweep evaluates the committed plan
+                max_count = 0 if new_node is None else MAX_NUM_NEW_NODE
+                sweep = CapacitySweep(cluster, apps, new_node, max_count,
+                                      use_greed=args.use_greed, device=args.device)
+                if journal is not None:
+                    sweep.attach_journal(journal)
+                feasible, (mc, mm, mv) = _capacity_feasible()
+                best = sweep.find_min_count(
+                    feasible, start=sweep.lower_bound(mc, mm, mv), budget=budget)
+                if best is None:
+                    print(
+                        "error: no feasible plan to inject faults into "
+                        f"(infeasible even with {max_count} new node(s)); "
+                        "pass --new-node-count to analyze an infeasible "
+                        "placement anyway",
+                        file=sys.stderr,
+                    )
+                    return 1
+                count, baseline = best.count, best.placements
+            scen_sweep = perturbed_scenario_sweep(
+                cluster, apps, new_node, sweep.max_count, cordon=cordon, taints=taints,
+                degrade=degrade, use_greed=args.use_greed, device=args.device,
+            )
+            engine = ChaosEngine(sweep, count, baseline, scenario_sweep=scen_sweep)
+            report = engine.run(failures=args.failures, seed=args.seed, trials=args.trials,
+                                budget=budget, journal=journal)
+    except ExecutionHalted as e:
+        return _emit_partial(e, args, journal_path)
+    except KeyboardInterrupt:
+        return _emit_partial(
+            Interrupted("interrupted before any safe boundary"), args, journal_path)
     except PrioritySignalError as e:
         print(f"error: chaos analysis needs the batched scan path: {e}", file=sys.stderr)
         return 2
-    except (OSError, InputError, ExternalIOError, NoCardError) as e:
+    except (OSError, InputError, ExternalIOError, NoCardError, ProfileCaptureError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
@@ -225,12 +405,18 @@ def cmd_chaos(args) -> int:
     if args.trace:
         print(GLOBAL.as_json(), file=sys.stderr)
     if args.format == "json":
-        print(json.dumps(report.as_dict()))
+        payload = report.as_dict()
+        explain = _explanations_payload(args)
+        if explain is not None:
+            payload["explain"] = explain
+        print(json.dumps(payload))
     else:
         print(report.render_text())
+        _print_explanations(args)
     return 0 if report.all_survived else 1
 
 
+@_with_obs("defrag")
 def cmd_defrag(args) -> int:
     """Pod-migration plan from a cluster snapshot (parallel/defrag.py)."""
     import json
@@ -238,6 +424,7 @@ def cmd_defrag(args) -> int:
     from .ops.fused_scan import NoCardError
     from .parallel.defrag import plan_defrag
     from .scheduler.snapshot import load_snapshot
+    from .utils.trace import ProfileCaptureError
 
     try:
         snapshot = load_snapshot(args.snapshot)
@@ -255,7 +442,7 @@ def cmd_defrag(args) -> int:
     try:
         plan = plan_defrag(snapshot, max_drain=args.max_drain, protect=protect,
                            device=args.device)
-    except NoCardError as e:
+    except (NoCardError, ProfileCaptureError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.trace:
@@ -278,10 +465,14 @@ def cmd_defrag(args) -> int:
                 for m in plan.moves
             ],
         }
+        explain = _explanations_payload(args)
+        if explain is not None:
+            payload["explain"] = explain
         print(json.dumps(payload))
         return 0
     if plan.chosen_depth == 0:
         print("no node can be fully drained")
+        _print_explanations(args)
         return 0
     print(f"drainable nodes ({plan.chosen_depth}): {', '.join(plan.drained_nodes)}")
     print(f"migrations required: {len(plan.moves)}")
@@ -297,13 +488,129 @@ def cmd_defrag(args) -> int:
         for m in plan.moves
     ]
     print(render_table(["Namespace", "Pod", "From", "To"], rows))
+    _print_explanations(args)
     return 0
 
 
-def _result_json(result) -> str:
+def cmd_doctor(args) -> int:
+    """Perf-regression doctor (obs/doctor.py): diff a candidate bench
+    record against a baseline (the JAX package's bench-record format)
+    and exit 1 on any regression past thresholds, 2 on a bad file."""
+    import json
+
+    from .models.validation import InputError
+    from .obs import doctor
+
+    try:
+        base = doctor.load_bench_record(args.baseline)
+        cand = doctor.load_bench_record(args.candidate)
+    except (OSError, InputError) as e:
+        print(f"simon doctor: {e}", file=sys.stderr)
+        return 2
+    report = doctor.diff_records(
+        base, cand, doctor.Thresholds.from_args(args)
+    )
+    doc = report.as_dict()
+    doc["baseline"] = args.baseline
+    doc["candidate"] = args.candidate
+    if args.format == "json":
+        print(json.dumps(doc, indent=2))
+    else:
+        print(doctor.render_text(report, args.baseline, args.candidate))
+    if args.out:
+        try:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=2)
+        except OSError as e:
+            print(f"simon doctor: cannot write --out: {e}", file=sys.stderr)
+            return 2
+    return 0 if report.ok else 1
+
+
+def cmd_version(_args) -> int:
+    from . import __version__
+
+    print(f"simon-torch version {__version__}")
+    return 0
+
+
+def cmd_gen_doc(args) -> int:
+    """Markdown CLI docs (cmd/doc/generate_markdown.go -> cobra
+    doc.GenMarkdownTree): one page per command — title, synopsis,
+    usage, options, SEE ALSO cross-links — not a single dump. We
+    create the output directory when missing (the reference instead
+    errors on a missing directory — friendlier here, noted)."""
+    parser = build_parser()
+    out_dir = args.output
+    os.makedirs(out_dir, exist_ok=True)
+
+    def page(path: str, title: str, p: argparse.ArgumentParser, see_also):
+        desc = (p.description or "").strip()
+        lines = [
+            f"## {title}",
+            "",
+            desc,
+            "",
+            "### Synopsis",
+            "",
+            desc,
+            "",
+            "```",
+            p.format_usage().strip(),
+            "```",
+            "",
+            "### Options",
+            "",
+            "```",
+        ]
+        opts = p.format_help()
+        # keep only the options tail of the help text (cobra pages
+        # list flags, not the usage/positional preamble)
+        for marker in ("options:", "optional arguments:"):
+            if marker in opts:
+                opts = opts.split(marker, 1)[1]
+                break
+        lines.append(opts.strip("\n"))
+        lines += ["```", "", "### SEE ALSO", ""]
+        for target, file_name, blurb in see_also:
+            lines.append(f"* [{target}]({file_name})\t - {blurb}")
+        lines.append("")
+        with open(path, "w") as f:
+            f.write("\n".join(lines))
+
+    sub_action = next(
+        a for a in parser._actions if isinstance(a, argparse._SubParsersAction)
+    )
+    helps = {
+        a.dest: a.help or "" for a in sub_action._choices_actions
+    } if sub_action._choices_actions else {}
+    root_desc = (parser.description or "").strip()
+    subs = sorted(sub_action.choices.items())
+    page(
+        os.path.join(out_dir, "simon.md"),
+        "simon",
+        parser,
+        [
+            (f"simon {name}", f"simon_{name}.md", helps.get(name, ""))
+            for name, _p in subs
+        ],
+    )
+    for name, sp in subs:
+        sp.description = sp.description or helps.get(name, "")
+        page(
+            os.path.join(out_dir, f"simon_{name}.md"),
+            f"simon {name}",
+            sp,
+            [("simon", "simon.md", root_desc)],
+        )
+    print(f"wrote {len(subs) + 1} pages to {out_dir}")
+    return 0
+
+
+def _result_json(result, explain=None) -> str:
     """Structured results (SURVEY.md §5: structured results + optional
-    table renderer instead of ASCII-only), the JAX package's
-    `_result_json` without its --explain block."""
+    table renderer instead of ASCII-only). `explain` (the --explain
+    recorder payload) rides along as an `explain` key when armed."""
     import json
 
     from .models.workloads import LABEL_NEW_NODE
@@ -315,6 +622,8 @@ def _result_json(result) -> str:
         "nodes": [],
         "unscheduledPods": [],
     }
+    if explain is not None:
+        out["explain"] = explain
     if result.result is not None:
         for ns in result.result.node_status:
             meta = ns.node.get("metadata") or {}
@@ -354,6 +663,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p_apply = sub.add_parser("apply", help="simulate deploying applications")
     p_apply.add_argument("-f", "--simon-config", required=True, help="simon config file path")
+    p_apply.add_argument("-i", "--interactive", action="store_true", help="interactive mode")
     p_apply.add_argument(
         "--extended-resources",
         type=lambda s: [x for x in s.split(",") if x],
@@ -393,7 +703,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--chaos-trials", type=int, default=32,
         help="sampled K-failure scenarios per escalation (K >= 2)",
     )
-    _add_journal_flags(p_apply)
+    _add_guard_flags(p_apply)
+    _add_obs_flags(p_apply)
     p_apply.add_argument(
         "--format", choices=["table", "json"], default="table", help="result output format"
     )
@@ -422,6 +733,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_device_flag(p_defrag)
     _add_trace_flag(p_defrag)
+    _add_obs_flags(p_defrag)
     p_defrag.set_defaults(func=cmd_defrag)
 
     p_chaos = sub.add_parser(
@@ -466,13 +778,101 @@ def build_parser() -> argparse.ArgumentParser:
         "on the named nodes (default all)",
     )
     p_chaos.add_argument("--use-greed", action="store_true", help=argparse.SUPPRESS)
-    _add_journal_flags(p_chaos)
+    _add_guard_flags(p_chaos)
+    _add_obs_flags(p_chaos)
     _add_device_flag(p_chaos)
     p_chaos.add_argument(
         "--format", choices=["table", "json"], default="table", help="result output format"
     )
     _add_trace_flag(p_chaos)
     p_chaos.set_defaults(func=cmd_chaos)
+
+    p_doctor = sub.add_parser(
+        "doctor",
+        help="diff two bench records and gate on perf regressions",
+        description="Diff a candidate bench record against a baseline "
+        "(headline value, device dispatches, XLA recompiles, peak HBM "
+        "from the memory ledger, per-site latency p95s) and exit 1 on "
+        "any regression past thresholds. Reads the JAX package's bench "
+        "records: raw bench JSON lines, JSONL runs, or the checked-in "
+        "BENCH_r*.json wrappers. Counts use ABSOLUTE slack (default 0 — "
+        "dispatches are semantic on a fixed scenario); times/rates/bytes "
+        "use FRACTIONAL slack (default 0.5 — wall-clock on shared "
+        "runners is noisy). Dimensions absent from either record are "
+        "skipped, never invented.",
+    )
+    p_doctor.add_argument(
+        "baseline", help="recorded bench file to diff against"
+    )
+    p_doctor.add_argument(
+        "candidate", help="fresh bench record (file) to judge"
+    )
+    p_doctor.add_argument(
+        "--time-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the headline value (default 0.5; "
+        "direction from the unit — seconds regress up, rates down)",
+    )
+    p_doctor.add_argument(
+        "--dispatch-tolerance", type=int, default=0, metavar="N",
+        help="absolute slack on device dispatches (default 0)",
+    )
+    p_doctor.add_argument(
+        "--recompile-tolerance", type=int, default=0, metavar="N",
+        help="absolute slack on XLA recompiles (default 0)",
+    )
+    p_doctor.add_argument(
+        "--hbm-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the ledger peak-HBM watermark",
+    )
+    p_doctor.add_argument(
+        "--p95-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on per-site latency p95s",
+    )
+    p_doctor.add_argument(
+        "--suffix-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the incremental suffix fraction "
+        "(regresses up: a growing fraction re-scans reusable rows)",
+    )
+    p_doctor.add_argument(
+        "--store-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the artifact-store hit rate "
+        "(regresses down: cold starts paying avoidable compiles)",
+    )
+    p_doctor.add_argument(
+        "--fleet-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the fleet dimensions: qps_scaling "
+        "(regresses down: lost horizontal scaling) and "
+        "failover_seconds (regresses up: slower recovery after a "
+        "replica kill)",
+    )
+    p_doctor.add_argument(
+        "--ckpt-tolerance", type=float, default=0.5, metavar="FRAC",
+        help="fractional slack on the aged-failover checkpoint "
+        "restore seconds (regresses up: recovery time growing with "
+        "absorbed-delta age means the bounded-recovery contract broke)",
+    )
+    p_doctor.add_argument(
+        "--store-reject-tolerance", type=int, default=0, metavar="N",
+        help="absolute slack on artifact-store rejects (default 0: a "
+        "reject is a corrupt/stale entry, worth a look even though "
+        "the recovery is clean)",
+    )
+    p_doctor.add_argument(
+        "--format", choices=["text", "json"], default="text",
+        help="report format (default text)",
+    )
+    p_doctor.add_argument(
+        "--out", default="", metavar="PATH",
+        help="also write the JSON report to PATH (CI artifact)",
+    )
+    p_doctor.set_defaults(func=cmd_doctor)
+
+    p_version = sub.add_parser("version", help="print version")
+    p_version.set_defaults(func=cmd_version)
+
+    p_doc = sub.add_parser("gen-doc", help="generate markdown CLI docs")
+    p_doc.add_argument("--output", default="docs/commandline-torch")
+    p_doc.set_defaults(func=cmd_gen_doc)
     return parser
 
 
@@ -491,15 +891,103 @@ def _add_trace_flag(p: argparse.ArgumentParser):
     )
 
 
-def _add_journal_flags(p: argparse.ArgumentParser):
+def _add_obs_flags(p: argparse.ArgumentParser):
+    """Flight-recorder flags shared by the long-running commands: span
+    trace export, per-pod placement explanations, torch.profiler
+    capture of the device phases."""
     p.add_argument(
-        "--journal", default="", metavar="PATH",
+        "--trace-out",
+        default="",
+        metavar="PATH",
+        help="record a hierarchical span trace of the whole run and "
+        "write it on exit: a .json path gets Chrome trace-event format "
+        "(loadable in Perfetto / chrome://tracing), a .jsonl path gets "
+        "streaming JSONL with each span fsync'd as it closes (a crash "
+        "keeps every finished span)",
+    )
+    p.add_argument(
+        "--explain",
+        nargs="?",
+        const="",
+        default=None,
+        metavar="POD",
+        help="record per-pod placement explanations — per-node filter "
+        "verdicts, score vectors, and preemption/escape provenance — "
+        "and append them to the output (JSON output gains an `explain` "
+        "key). With POD (a pod name or namespace/name) the named pod's "
+        "full decision is explained even when it schedules; without, "
+        "unschedulable pods are explained (capped)",
+    )
+    p.add_argument(
+        "--profile-dir",
+        default="",
+        metavar="DIR",
+        help="capture torch.profiler traces (CPU and CUDA activity) of "
+        "the device phases into DIR, one Chrome trace a phase run "
+        "(viewable in Perfetto; equivalent to setting SIMON_PROFILE_DIR)",
+    )
+
+
+def _add_inject_flag(p: argparse.ArgumentParser):
+    """Chaos fault-injection flag shared by the guarded commands
+    (runtime/inject.py)."""
+    p.add_argument(
+        "--inject",
+        default="",
+        metavar="SPEC",
+        help="arm deterministic fault injection at the named guard "
+        "seams (equivalent to SIMON_INJECT). SPEC is ';'-separated "
+        "SITE=FAULT[:PARAM][@N][xCOUNT][%%EVERY][~PROB] clauses, e.g. "
+        "'jit.scenario_scan=oom@2' (device OOM at the 2nd dispatch) or "
+        "'io.kube*=reset@1x3' (3 connection resets). Sites (the JAX "
+        "package's names): jit.<site> (scan, sweep_probe, sweep_many, "
+        "<site>_sweep, defrag_sweep, stream_bench: a launch), io.<label>, "
+        "journal.fsync.<subsystem>, budget.check, ledger.predict_fit. "
+        "Production paths are unmodified when unset",
+    )
+
+
+def _arm_injection(args) -> None:
+    """Arm the injector from --inject (overriding any SIMON_INJECT the
+    process imported with). Bad specs raise InputError -> exit 2,
+    including a malformed SIMON_INJECT the import stashed instead of
+    crashing on (runtime/inject.py IMPORT_SPEC_ERROR)."""
+    from .runtime import inject as _inject
+
+    spec = getattr(args, "inject", "")
+    if spec:
+        _inject.INJECT.configure(spec)
+    elif _inject.IMPORT_SPEC_ERROR is not None:
+        # the stashed value IS an InputError (taxonomy-rooted); the
+        # lint cannot see through the variable
+        raise _inject.IMPORT_SPEC_ERROR  # simonlint: disable=EXC001
+
+
+def _add_guard_flags(p: argparse.ArgumentParser):
+    """Execution-guard flags shared by the long-running commands:
+    fault injection, wall-clock budget and the resumable journal."""
+    _add_inject_flag(p)
+    p.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="wall-clock budget: on expiry (or SIGINT) the run stops at "
+        "the next safe boundary and emits a machine-readable PARTIAL "
+        "report (exit 3 deadline / 4 interrupt) instead of a traceback",
+    )
+    p.add_argument(
+        "--journal",
+        default="",
+        metavar="PATH",
         help="append completed probe results and scenario verdicts to "
         "this crash-safe JSONL journal (created when missing, continued "
         "when it matches this run's config fingerprint)",
     )
     p.add_argument(
-        "--resume", default="", metavar="PATH",
+        "--resume",
+        default="",
+        metavar="PATH",
         help="resume from a journal written by --journal: validates the "
         "config fingerprint (mismatch refuses loudly), replays complete "
         "records, re-executes zero journaled work, and keeps appending",
@@ -513,6 +1001,11 @@ def main(argv=None) -> int:
     if not getattr(args, "func", None):
         parser.print_help()
         return 0
+    try:
+        _arm_injection(args)
+    except ValueError as e:  # InputError: a typo'd --inject is exit 2
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     return args.func(args)
 
 

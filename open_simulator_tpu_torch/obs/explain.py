@@ -311,3 +311,63 @@ class ExplainRecorder:
 
 
 EXPLAIN = ExplainRecorder()
+
+
+# ------------------------------------------------------------- rendering
+
+
+def render_explanations(recorder: Optional[ExplainRecorder] = None) -> str:
+    """Human-readable explain block (appended to the apply report).
+    Imports the table renderer lazily — report imports models, and this
+    module must stay import-light for the oracle."""
+    from ..apply.report import render_table
+
+    recorder = recorder or EXPLAIN
+    records = recorder.snapshot()
+    if not records:
+        return (
+            "Placement Explanations\n(no pods matched --explain"
+            + (f" {recorder.target!r}" if recorder.target else "")
+            + ")"
+        )
+    out = ["Placement Explanations"]
+    for rec in records:
+        out.append("")
+        if rec.chosen_node is not None:
+            head = (
+                f"pod {rec.namespace}/{rec.name}: scheduled on "
+                f"{rec.chosen_node} ({rec.feasible_count}/{rec.total_nodes} "
+                "nodes feasible)"
+            )
+        else:
+            head = f"pod {rec.namespace}/{rec.name}: {rec.failure_message()}"
+        out.append(head)
+        if rec.provenance:
+            prov = ", ".join(f"{k}={v}" for k, v in sorted(rec.provenance.items()))
+            out.append(f"  provenance: {prov}")
+        score_of = dict(rec.scores)
+        rows = []
+        for node, reason, _code in rec.verdicts:
+            verdict = "feasible" if reason is None else reason
+            score = score_of.get(node)
+            rows.append([node, verdict, "" if score is None else str(score)])
+        if rows:
+            out.append(render_table(["Node", "Filter Verdict", "Score"], rows))
+        if rec.truncated_nodes:
+            out.append(
+                f"  ... {rec.truncated_nodes} more node(s) omitted "
+                f"(per-pod cap {MAX_VERDICT_ROWS}; aggregate counts above "
+                "cover all nodes)"
+            )
+    if recorder.dropped:
+        out.append("")
+        out.append(
+            f"({recorder.dropped} additional pod(s) not recorded — "
+            f"record cap {MAX_RECORDS}; pass --explain POD to target one)"
+        )
+    return "\n".join(out)
+
+
+def explanations_dict(recorder: Optional[ExplainRecorder] = None) -> List[dict]:
+    recorder = recorder or EXPLAIN
+    return [rec.as_dict() for rec in recorder.snapshot()]

@@ -473,11 +473,34 @@ def export_chrome_trace(path: str, spans: Optional[List[SpanRecord]] = None):
 
 
 def observatory_block() -> dict:
-    """The observatory snapshot attached to trace artifacts. The
-    compiled-cost, memory-ledger, histogram and artifact-store blocks
-    of the JAX package have no counterpart here yet; what remains is
-    the recorder's own truncation count."""
+    """The cost-record / memory-ledger / histogram snapshot attached to
+    trace artifacts, in the JAX package's shape but for `costs`, whose
+    records are the port's (obs/costs.py CostRecord). Lazy sibling
+    imports keep this module stdlib-only at load time. The JAX
+    package's `incremental` and `aot_store` blocks have no counterpart
+    in the port yet."""
+    from . import profile
+    from .costs import COSTS
+    from .histo import HISTOS
+    from .ledger import LEDGER
+
+    # the device times of card launches the caller has synchronised
+    profile.resolve_pending(wait=True)
     out = {}
+    costs = COSTS.summary()
+    if costs:
+        out["costs"] = costs
+    ledger = LEDGER.summary()
+    if ledger.get("samples"):
+        out["ledger"] = ledger
+    # buckets included: tools/validate_trace.py cross-checks bucket
+    # sums against counts
+    histos = HISTOS.summary(with_buckets=True)
+    if histos:
+        out["histograms"] = histos
+    per_device = LEDGER.device_summary()
+    if per_device:
+        out["per_device"] = per_device
     if RECORDER.dropped:
         out["spans_dropped"] = RECORDER.dropped
     return out

@@ -69,6 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs import profile
 from ..utils import nvcc
 
 MAX_SCORE = 100
@@ -712,12 +713,11 @@ def _scenario_inputs(plan: FusedPlan, class_of_pod, scenarios):
         vals.append(val)
         pins.append(pin)
     dev = plan.device
-    return (
-        torch.from_numpy(cls.astype(np.int32)).to(dev),
-        torch.from_numpy(np.stack(acts).astype(np.uint8)).to(dev),
-        torch.from_numpy(np.stack(vals).astype(np.uint8)).to(dev),
-        torch.from_numpy(np.stack(pins).astype(np.int32)).to(dev),
-    )
+    host = (cls.astype(np.int32), np.stack(acts).astype(np.uint8),
+            np.stack(vals).astype(np.uint8), np.stack(pins).astype(np.int32))
+    if dev.type == "cuda":
+        profile.record_h2d(sum(a.nbytes for a in host))
+    return tuple(torch.from_numpy(a).to(dev) for a in host)
 
 
 def _final(s: int, state, blocks: dict) -> dict:
@@ -1642,12 +1642,18 @@ def _launch(plan: FusedPlan, cls_t, act_t, val_t, pin_t, batch: bool,
                 blocks[key].copy_(init.expand_as(blocks[key]))
     else:
         argv = (ctypes.c_int64 * _N_ARGS)(*args)
+        lib = _library()
+        ln = profile.current()
         # the kernel runs after this returns; tensors freed here go back
         # to the caching allocator on this stream, which orders any
         # reuse after the kernel
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _library().fused_scan_launch(argv, _N_ARGS, stream)
+            if ln is not None:
+                ln.start()
+            err = lib.fused_scan_launch(argv, _N_ARGS, stream)
+            if ln is not None:
+                ln.stop()
         if err != 0:
             raise RuntimeError(f"{name} launch of {shape} failed: cudaError {err}")
         LAUNCHES[name] += 1
@@ -1662,18 +1668,38 @@ def _device_of(plan: FusedPlan) -> str:
     return dev.type
 
 
-def run_fused_scan(plan: FusedPlan, class_of_pod, active, valid, pinned=None):
+def _cost(ln, plan: FusedPlan, class_of_pod, scenarios, name: str) -> None:
+    """Count this launch under the cost record of its shape (obs/costs.py):
+    the cluster the card ran it on, none for the plain version."""
+    from ..obs import costs
+
+    cluster = CLUSTERS[name] if plan.device.type == "cuda" else None
+    p = len(class_of_pod)
+    key = (name, len(scenarios), p, plan.n, cluster)
+    ln.cost(key, lambda: costs.fused_scan_record(
+        ln.site, name, plan, class_of_pod, scenarios, cluster))
+
+
+def run_fused_scan(plan: FusedPlan, class_of_pod, active, valid, pinned=None,
+                   site: str = "scan"):
     """Run one scan. Returns (placements[P] int32, final state dict of
     [N] int64 rows keyed by STATE_FIELDS, plus the rows of the blocks
     the plan has), on the plan's device. A plan on the CPU takes the
-    plain version; a plan on a CUDA device takes the kernel or raises."""
-    if _device_of(plan) == "cpu":
-        return fused_scan_reference(plan, class_of_pod, active, valid, pinned)
-    inputs = _scenario_inputs(plan, class_of_pod, [(active, valid, pinned)])
-    return _launch(plan, *inputs, batch=False)[0]
+    plain version; a plan on a CUDA device takes the kernel or raises.
+    The launch is instrumented at `site` (obs/profile.py)."""
+    scenarios = [(active, valid, pinned)]
+    with profile.launch(site, plan.device) as ln:
+        if _device_of(plan) == "cpu":
+            out = fused_scan_reference(plan, class_of_pod, active, valid, pinned)
+        else:
+            inputs = _scenario_inputs(plan, class_of_pod, scenarios)
+            out = _launch(plan, *inputs, batch=False)[0]
+        _cost(ln, plan, class_of_pod, scenarios, kernel_name(plan))
+    return out
 
 
-def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=False):
+def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=False,
+                         site: str = "scan"):
     """Several independent scans of one plan: `scenarios` is a list of
     (active[P], valid[N], pinned[P] or None). Returns [(placements,
     final), ...] in scenario order — the contract of the JAX package's
@@ -1681,12 +1707,18 @@ def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=Fa
     pinned pods before any free pod schedules (two passes over the pod
     order in the one launch: the JAX package's _scenario_pinned_impl).
     On a CUDA plan all scenarios go in one launch on one stream (one
-    cluster each); a CPU plan takes the plain version."""
-    if _device_of(plan) == "cpu":
-        return fused_scan_batch_reference(plan, class_of_pod, scenarios,
-                                          pins_first=pins_first)
-    inputs = _scenario_inputs(plan, class_of_pod, scenarios)
-    return _launch(plan, *inputs, batch=True, pins_first=pins_first)
+    cluster each); a CPU plan takes the plain version. The launch is
+    instrumented at `site` (obs/profile.py)."""
+    with profile.launch(site, plan.device) as ln:
+        if _device_of(plan) == "cpu":
+            out = fused_scan_batch_reference(plan, class_of_pod, scenarios,
+                                             pins_first=pins_first)
+        else:
+            inputs = _scenario_inputs(plan, class_of_pod, scenarios)
+            out = _launch(plan, *inputs, batch=True, pins_first=pins_first)
+        _cost(ln, plan, class_of_pod, scenarios,
+              PINS_FIRST_KERNEL_NAME if pins_first else BATCH_KERNEL_NAME)
+    return out
 
 
 def _run_with_cluster(plan: FusedPlan, class_of_pod, scenarios, batch: bool,

@@ -56,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs import profile
 from ..scheduler.schedconfig import DEFAULT_SCORE_WEIGHTS as _DEFAULT_WEIGHTS
 from .encode import features_of
 
@@ -748,7 +749,20 @@ def _host_array(x, dtype):
 
 
 def run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_node,
-                    node_valid, pod_active, features=None, weights=None):
+                    node_valid, pod_active, features=None, weights=None, site: str = "scan"):
+    """The masked scan below, as one instrumented dispatch at `site`
+    (obs/profile.py): counted, its device time taken by CUDA events
+    around the whole eager loop on the card."""
+    with profile.launch(site, static.alloc_mcpu.device) as ln:
+        ln.start()
+        out = _run_scan_masked(static, init, class_of_pod, pinned_node, node_valid,
+                               pod_active, features=features, weights=weights)
+        ln.stop()
+    return out
+
+
+def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_node,
+                     node_valid, pod_active, features=None, weights=None):
     """run_scan with scenario masks: `node_valid[n]` gates candidate
     nodes, `pod_active[p]` skips pods that do not exist in this
     scenario. An inactive pod commits nothing, consumes no Go-RNG word

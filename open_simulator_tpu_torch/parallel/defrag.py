@@ -127,10 +127,14 @@ def plan_defrag(
 ) -> DefragResult:
     """Find the deepest feasible drain and its migration plan. The depth
     scans run on `device` (None = the card)."""
+    import torch
+
+    from ..obs.costs import COSTS
+    from ..obs.profile import to_host
     from ..ops import fused_scan
     from ..ops.encode import encode_batch, encode_cluster, encode_dynamic, features_of_batch
     from ..scheduler.oracle import Oracle
-    from ..utils.trace import GLOBAL, phase
+    from ..utils.trace import GLOBAL, phase, profiled
 
     statuses = snapshot.node_status
     nodes = [ns.node for ns in statuses]
@@ -214,8 +218,11 @@ def plan_defrag(
             # one batch launch for the chunk's depths; one read back
             rows = fused_scan.run_fused_scan_batch(
                 plan, batch.class_of_pod,
-                list(zip(pod_active[lo:hi], node_valid[lo:hi], pinned[lo:hi])))
-            return list(np.stack([r[0].cpu().numpy() for r in rows]).astype(np.int64))
+                list(zip(pod_active[lo:hi], node_valid[lo:hi], pinned[lo:hi])),
+                site="defrag_sweep")
+            return list(to_host(torch.stack([r[0] for r in rows])).astype(np.int64))
+
+        estimate = COSTS.chunk_estimator("defrag_sweep", plan, len(batch.class_of_pod))
     else:
         from ..ops import scan as scan_ops
         from ..ops.encode import to_scan_state, to_scan_static
@@ -226,19 +233,21 @@ def plan_defrag(
 
         def evaluate(lo, hi):
             return [
-                scan_ops.run_scan_masked(
+                to_host(scan_ops.run_scan_masked(
                     static, init, batch.class_of_pod, pinned[s_i], node_valid[s_i],
-                    pod_active[s_i], features=features,
-                )[0].cpu().numpy().astype(np.int64)
+                    pod_active[s_i], features=features, site="defrag_sweep",
+                )[0]).astype(np.int64)
                 for s_i in range(lo, hi)
             ]
+
+        estimate = None
 
     # the chunked executor (runtime/guard.py): a depth batch that
     # exhausts device memory is halved and launched again
     from ..runtime.guard import run_chunked
 
-    with phase("defrag/scan"):
-        place_by_depth = run_chunked(evaluate, sc, label="defrag")
+    with profiled("defrag/scan"):
+        place_by_depth = run_chunked(evaluate, sc, label="defrag", estimate=estimate)
     unsched = np.array([int((pl == -1).sum()) for pl in place_by_depth], dtype=np.int64)
     with phase("defrag/validate"):
         return _pick_depth(

@@ -43,6 +43,8 @@ import numpy as np
 from ..models import workloads as wl
 from ..models.decode import ResourceTypes
 from ..models.validation import InputError
+from ..obs.costs import COSTS
+from ..obs.profile import to_host
 from ..ops import fused_scan
 from ..ops.fused_scan import INACTIVE
 from ..runtime.guard import run_chunked
@@ -329,14 +331,14 @@ class CapacitySweep:
 
     def _result(self, count, valid, placements, final) -> ProbeResult:
         """ProbeResult of one kernel scan."""
-        placements = placements.cpu().numpy().astype(np.int64)
+        placements = to_host(placements).astype(np.int64)
         # the scan's final VG usage ([V, N]); a plan without the storage
         # block never grows it, so there the init is final
-        vg_used = (final["vg_used"].cpu().numpy().T if "vg_used" in final
+        vg_used = (to_host(final["vg_used"]).T if "vg_used" in final
                    else np.asarray(self.dyn.vg_used))
         unsched, cpu, mem, vg = self._stats(
-            valid, placements, final["used_mcpu"].cpu().numpy(),
-            final["used_mem"].cpu().numpy(), vg_used)
+            valid, placements, to_host(final["used_mcpu"]), to_host(final["used_mem"]),
+            vg_used)
         return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
                            mem_util=mem, vg_util=vg, placements=placements)
 
@@ -352,12 +354,14 @@ class CapacitySweep:
             )
         return self._scan_inputs
 
-    def _torch_scan(self, valid, active, pinned, pins_first: bool = False):
+    def _torch_scan(self, valid, active, pinned, pins_first: bool = False,
+                    site: str = "sweep_probe"):
         """One scenario on the torch scan (ops/scan.py run_scan_masked):
         the capacity probe's single pass, or with `pins_first` the
         reference's two chained passes (_scenario_pinned_impl): every
-        pinned pod commits, then every free pod schedules. Returns
-        (placements [P] int64 numpy, unscheduled, cpu, mem, vg)."""
+        pinned pod commits, then every free pod schedules; each pass one
+        dispatch at `site`. Returns (placements [P] int64 numpy,
+        unscheduled, cpu, mem, vg)."""
         from ..ops import scan as scan_ops
 
         static, init = self._scan_static_state()
@@ -368,18 +372,20 @@ class CapacitySweep:
         if pins_first:
             features = self.features._replace(pins=True)
             p1, state1 = scan_ops.run_scan_masked(
-                static, init, cls, pinned, valid, active & (pinned >= 0), features=features)
+                static, init, cls, pinned, valid, active & (pinned >= 0), features=features,
+                site=site)
             p2, final = scan_ops.run_scan_masked(
-                static, state1, cls, pinned, valid, active & (pinned < 0), features=features)
-            placements = np.where(pinned >= 0, p1.cpu().numpy(), p2.cpu().numpy())
+                static, state1, cls, pinned, valid, active & (pinned < 0), features=features,
+                site=site)
+            placements = np.where(pinned >= 0, to_host(p1), to_host(p2))
         else:
             placements, final = scan_ops.run_scan_masked(
-                static, init, cls, pinned, valid, active, features=self.features)
-            placements = placements.cpu().numpy()
+                static, init, cls, pinned, valid, active, features=self.features, site=site)
+            placements = to_host(placements)
         placements = placements.astype(np.int64)
         return (placements, *self._stats(
-            valid, placements, final.used_mcpu.cpu().numpy(),
-            final.used_mem.cpu().numpy(), final.vg_used.cpu().numpy()))
+            valid, placements, to_host(final.used_mcpu), to_host(final.used_mem),
+            to_host(final.vg_used)))
 
     def probe(self, count: int) -> ProbeResult:
         """Evaluate one candidate count: one masked scan (the
@@ -400,19 +406,19 @@ class CapacitySweep:
         return res
 
     def _probe_kernel(self, count: int) -> ProbeResult:
-        from ..utils.trace import phase
+        from ..utils.trace import profiled
 
         active, valid, pinned = self._scenario(count)
-        with phase("sweep/probe"):
+        with profiled("sweep/probe"):
             placements, final = fused_scan.run_fused_scan(
-                self.plan, self.batch.class_of_pod, active, valid, pinned=pinned
-            )
+                self.plan, self.batch.class_of_pod, active, valid, pinned=pinned,
+                site="sweep_probe")
             return self._result(count, valid, placements, final)
 
     def _probe_torch_scan(self, count: int, valid) -> ProbeResult:
-        from ..utils.trace import phase
+        from ..utils.trace import profiled
 
-        with phase("sweep/probe"):
+        with profiled("sweep/probe"):
             pl, unsched, cpu, mem, vg = self._torch_scan(
                 valid, self.pod_active(valid), self.batch.pinned_node)
         return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
@@ -437,7 +443,8 @@ class CapacitySweep:
         of blocks a count) without waiting for it: the device rows,
         for results_of. Needs a kernel plan."""
         scenarios = [self._scenario(c) for c in counts]
-        return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios)
+        return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios,
+                                               site="sweep_many")
 
     def results_of(self, counts: List[int], rows) -> List[ProbeResult]:
         """ProbeResults of launch_counts' rows (the first read waits for
@@ -452,7 +459,7 @@ class CapacitySweep:
         a single count that still runs out raises on the card); on the
         torch scan one probe after another. Journaled counts are
         served from the journal and fresh ones recorded."""
-        from ..utils.trace import phase
+        from ..utils.trace import profiled
 
         counts = list(counts)
         if self.plan is None or (
@@ -466,11 +473,12 @@ class CapacitySweep:
         def evaluate(lo, hi):
             return self.results_of(counts[lo:hi], self.launch_counts(counts[lo:hi]))
 
-        with phase("sweep/probe"):
+        with profiled("sweep/probe"):
             out = run_chunked(
                 evaluate, len(counts), label="sweep",
                 serial_fallback=self._serial_floor(lambda i: self._probe_serial(
                     counts[i], self.node_valid(counts[i]))),
+                estimate=COSTS.chunk_estimator("sweep_many", self.plan, len(self.pods)),
             )
         if self.journal is not None:
             for r in out:
@@ -605,15 +613,15 @@ class CapacitySweep:
             self._pins_plan = dataclasses.replace(self.plan, has_pins=True)
         return self._pins_plan
 
-    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool):
-        """One batch launch over the rows; their (placements,
+    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool, site: str):
+        """One batch launch over the rows at `site`; their (placements,
         unscheduled, cpu, mem, vg) tuples, reduced on the device and
         read back once."""
         import torch
 
         rows = fused_scan.run_fused_scan_batch(
             self._plan_with_pins(), self.batch.class_of_pod,
-            list(zip(pod_active, node_valid, pinned)), pins_first=pins_first)
+            list(zip(pod_active, node_valid, pinned)), pins_first=pins_first, site=site)
         dev = self.plan.device
         valid_t = torch.from_numpy(np.ascontiguousarray(node_valid)).to(dev)
         alloc = self.plan.alloc
@@ -629,7 +637,7 @@ class CapacitySweep:
         if "vg_used" in rows[0][1]:
             vg_used = torch.stack([r[1]["vg_used"].sum(0) for r in rows])
             sums.append(torch.where(valid_t, vg_used, zero).sum(1))
-        host = [t.cpu().numpy() for t in [placements] + sums]
+        host = [to_host(t) for t in [placements] + sums]
         placements, uc, um, ac, am, unsched = host[:6]
         if len(host) > 6:
             uv = host[6]
@@ -670,19 +678,24 @@ class CapacitySweep:
         pod_active = np.asarray(pod_active, dtype=bool)
         pinned = np.asarray(pinned, dtype=np.int64)
         sc = node_valid.shape[0]
+        launch_site = f"{site}_sweep"
+        estimate = None
         if self.plan is not None:
             GLOBAL.note(f"{site}-kernel", f"{fused_scan.PINS_FIRST_KERNEL_NAME} "
                         f"({self.plan.device.type})")
+            estimate = COSTS.chunk_estimator(launch_site, self._plan_with_pins(),
+                                             len(self.pods))
 
             def evaluate(lo, hi):
                 return self._kernel_rows(pod_active[lo:hi], node_valid[lo:hi],
-                                         pinned[lo:hi], pins_first=True)
+                                         pinned[lo:hi], pins_first=True, site=launch_site)
         else:
             GLOBAL.note(f"{site}-kernel", f"torch-scan ({self.scan_reason})")
 
             def evaluate(lo, hi):
                 return [self._torch_scan(node_valid[i], pod_active[i], pinned[i],
-                                         pins_first=True) for i in range(lo, hi)]
+                                         pins_first=True, site=launch_site)
+                        for i in range(lo, hi)]
 
         def serial_fallback(i):
             placements, _ = self.serial_scenario(
@@ -691,7 +704,8 @@ class CapacitySweep:
             return self._host_scenario_stats(node_valid[i], placements)
 
         rows = run_chunked(evaluate, sc, label=site,
-                           serial_fallback=self._serial_floor(serial_fallback), budget=budget)
+                           serial_fallback=self._serial_floor(serial_fallback), budget=budget,
+                           estimate=estimate)
         placements = np.stack([np.asarray(r[0]) for r in rows])
         unsched = np.array([int(r[1]) for r in rows], dtype=np.int64)
         cpu = np.array([float(r[2]) for r in rows])

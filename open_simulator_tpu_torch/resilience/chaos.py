@@ -573,7 +573,7 @@ class ChaosEngine:
         chunks: the raised ExecutionHalted carries a PARTIAL ChaosReport
         (completed scenarios only, journaled) as its payload."""
         from ..runtime.errors import ExecutionHalted
-        from ..utils.trace import GLOBAL, phase
+        from ..utils.trace import GLOBAL, profiled
 
         scens, mode = self.build_scenarios(failures, seed, trials)
         report = ChaosReport(
@@ -608,7 +608,7 @@ class ChaosEngine:
         rows: dict = {}
         if eval_idx:
             try:
-                with phase("chaos/sweep"):
+                with profiled("chaos/sweep"):
                     placements, _unsched, cpu, mem, _vg = self.scen.probe_scenarios(
                         np.stack([masks[i][0] for i in eval_idx]),
                         np.stack([masks[i][1] for i in eval_idx]),

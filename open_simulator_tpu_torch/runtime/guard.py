@@ -20,9 +20,13 @@ defrag's depth batch — goes through here.
   kernel or raises. So the reference's ``note_downgrade``,
   ``try_downgrade`` and ``run_laddered`` have no counterpart here.
 
-Not ported: the memory ledger's predictive split (the reference's
-``obs/costs`` estimators and ``obs/ledger``, ROADMAP.md A5), so
-``run_chunked`` reacts to a fault and never predicts one.
+The memory ledger's predictive split is ported: given an ``estimate``
+(obs/costs.py ``chunk_estimator``), ``run_chunked`` asks the ledger
+(obs/ledger.py) before each chunk and splits one predicted not to fit
+before launching it. One departure from the reference: a single item
+predicted not to fit goes to the serial floor only where the caller
+passes one (work on the CPU); on the card it is launched anyway, and a
+real OOM raises DeviceOOM.
 """
 
 from __future__ import annotations
@@ -75,16 +79,21 @@ def run_chunked(
     exhausts memory raises DeviceOOM, or goes through
     ``serial_fallback(i)`` (the host oracle), trace-noted, where the
     caller's work is on the CPU and passes one. Every
-    other error propagates unchanged. ``estimate`` is the reference's
-    predictive split, which needs the memory ledger (not ported): it
-    must be None. ``budget.check`` runs between chunks; on expiry the
-    raised ExecutionHalted carries ``partial_results`` (None where
+    other error propagates unchanged.
+
+    ``estimate(lo, hi)`` is the predictive half: the device workspace
+    bytes of launching that chunk (obs/costs.py). When the memory ledger
+    predicts the chunk will not fit beside what is in use, it is split
+    without being launched (``guard_oom_predicted_total``, note
+    ``<label>-chunk-predicted-split``); a single item predicted not to
+    fit takes ``serial_fallback`` where there is one and is launched
+    otherwise. Each launch after a verdict counts a hit or a miss
+    (``ledger_predict_hit_total`` / ``ledger_predict_miss_total``).
+    ``budget.check`` runs between chunks; on expiry the raised
+    ExecutionHalted carries ``partial_results`` (None where
     incomplete)."""
     from ..utils.trace import COUNTERS, GLOBAL
 
-    if estimate is not None:
-        raise ValueError("the predictive chunk split needs the memory ledger "
-                         "(ROADMAP.md A5); pass estimate=None")
     tr = trace or GLOBAL
     out = [None] * n_items
     done = [False] * n_items
@@ -98,12 +107,44 @@ def run_chunked(
                 e.partial_results = [r if ok else None for r, ok in zip(out, done)]
                 raise
         lo, hi = pending.pop()
+        predicted_fit = None
+        if estimate is not None:
+            est = estimate(lo, hi)
+            if est is not None:
+                from ..obs.ledger import LEDGER
+
+                predicted_fit = LEDGER.predict_fit(int(est), label=label)
+                if predicted_fit is False and hi - lo > 1:
+                    COUNTERS.inc("guard_oom_predicted_total")
+                    mid = (lo + hi) // 2
+                    halvings += 1
+                    tr.append_note(f"{label}-chunk-predicted-split",
+                                   f"[{lo},{hi}) -> [{lo},{mid})+[{mid},{hi}): ledger "
+                                   f"predicts {est} workspace bytes will not fit")
+                    log.info("%s: ledger predicts chunk [%d,%d) (%d workspace bytes) "
+                             "will not fit; splitting before launch", label, lo, hi, est)
+                    pending.append((mid, hi))
+                    pending.append((lo, mid))
+                    continue
+                if predicted_fit is False and serial_fallback is not None:
+                    COUNTERS.inc("guard_oom_predicted_total")
+                    serial += 1
+                    tr.append_note(f"{label}-serial-fallback",
+                                   f"item {lo} via serial oracle after ledger "
+                                   f"predicted {est} bytes will not fit")
+                    out[lo] = serial_fallback(lo)
+                    done[lo] = True
+                    continue
+                # a single item on the card: nothing to split it into, and
+                # card work never moves to the host; launch it
         try:
             results = evaluate(lo, hi)
         except Exception as e:  # classified, then re-raised or halved
             if classify_device_error(e) is None:
                 raise
             COUNTERS.inc("guard_oom_reactive_total")
+            if predicted_fit is True:
+                COUNTERS.inc("ledger_predict_miss_total")
             reason = _reason(e)
             if hi - lo == 1:
                 if serial_fallback is None:
@@ -128,6 +169,8 @@ def run_chunked(
             pending.append((mid, hi))
             pending.append((lo, mid))
             continue
+        if predicted_fit is True:
+            COUNTERS.inc("ledger_predict_hit_total")
         out[lo:hi] = results
         done[lo:hi] = [True] * (hi - lo)
     if halvings or serial:

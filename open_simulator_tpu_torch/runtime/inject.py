@@ -45,11 +45,11 @@ the kubeclient's 410 handling — is exercised for real):
 =============  ========================================================
 fault          effect at the injection point
 =============  ========================================================
-``oom``        RuntimeError("RESOURCE_EXHAUSTED: ...") — classifies
-               DeviceOOM, drives halving / predictive splits
-``compile``    RuntimeError("... compilation failure ...") —
-               classifies CompileFailure (straight to the next rung)
-``backend``    RuntimeError("UNAVAILABLE: ...") — BackendUnavailable
+``oom``        torch.cuda.OutOfMemoryError — what the caching
+               allocator raises; classifies DeviceOOM, drives halving
+``compile``    RuntimeError("... compilation failure ...") — the port's
+               guard classifies nothing but memory: it propagates
+``backend``    RuntimeError("UNAVAILABLE: ...") — propagates alike
 ``reset``      ConnectionResetError — retried by retry_io, counts
                against the endpoint's breaker when exhausted
 ``timeout``    TimeoutError (an OSError) — ditto
@@ -271,7 +271,9 @@ def _build_error(rule: Rule, site: str) -> BaseException:
     tag = f"injected by {SPEC_ENV} ({rule.clause}) at {site}"
     fault = rule.fault
     if fault == "oom":
-        return RuntimeError(f"RESOURCE_EXHAUSTED: out of memory; {tag}")
+        import torch
+
+        return torch.cuda.OutOfMemoryError(f"CUDA out of memory; {tag}")
     if fault == "compile":
         return RuntimeError(f"XLA compilation failure; {tag}")
     if fault == "backend":

@@ -595,7 +595,7 @@ class Simulator:
         import numpy as np
 
         from .engine import TorchEngine
-        from ..utils.trace import profiled
+        from ..utils.trace import phase
 
         p = len(pods)
         if self._engine is None or self._engine.oracle is not self.oracle:
@@ -682,7 +682,7 @@ class Simulator:
             eng.rewind_sample_rng(int(pos_of[escape_at]))
         failed: List[UnscheduledPod] = []
         stop = p if escape_at is None else escape_at
-        with profiled("engine/replay"):
+        with phase("engine/replay"):
             self._replay_window(pods, placements, start, stop, prios, failed)
         return failed, escape_at
 

@@ -38,6 +38,7 @@ from ..ops.encode import (
     encode_dynamic,
     features_of_batch,
 )
+from ..obs.profile import to_host
 from ..ops.fused_scan import resolve_device
 from ..runtime.errors import GuardError
 from .oracle import Oracle
@@ -160,7 +161,7 @@ class TorchEngine:
                 node_valid,
                 pinned=batch.pinned_node,
             )
-            return out.cpu().numpy()  # waits for the device
+            return to_host(out)  # waits for the device
 
     def _torch_scan(self, cluster, dyn, active, node_valid, reason) -> np.ndarray:
         """scan_active for a batch the kernel does not carry: the eager
@@ -192,7 +193,7 @@ class TorchEngine:
             )
             if sample:
                 placements, consumed = placements
-            out = placements.cpu().numpy()  # waits for the device
+            out = to_host(placements)  # waits for the device
         if sample:
             if bool(final.rng_overflow):
                 # oracle state is untouched (commits replay only after

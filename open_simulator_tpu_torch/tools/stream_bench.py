@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ..obs import profile
 from ..ops.fused_scan import NoCardError, resolve_device
 from ..utils import nvcc
 
@@ -97,13 +98,33 @@ def _library():
     return _LIB
 
 
+def stream_record(state: torch.Tensor, steps: int, grid: int):
+    """The cost record of one launch (obs/costs.py): the state read once
+    a step, one max a value a step, and the partial and output rows it
+    allocates."""
+    from ..obs import costs
+
+    nbytes = state.numel() * state.element_size()
+    return costs.CostRecord(
+        site="stream_bench", kernel=KERNEL_NAME,
+        shape={"rows": int(state.shape[0]), "steps": int(steps), "grid": grid},
+        bytes=nbytes * int(steps), ops=state.numel() * int(steps),
+        workspace_bytes=costs.alloc_bytes(2 * grid * LANES * 4) + costs.alloc_bytes(LANES * 4))
+
+
 def run_stream(state: torch.Tensor, steps: int) -> torch.Tensor:
     """out [1, 128] int32 of `steps` streaming steps over `state`. A
     state on the CPU takes the plain version; one on a CUDA device
     launches the kernel (asynchronously, on the current stream) or
-    raises."""
-    if state.device.type == "cpu":
-        return stream_reference(state, steps)
+    raises. The launch is instrumented at site `stream_bench`
+    (obs/profile.py)."""
+    with profile.launch("stream_bench", state.device) as ln:
+        if state.device.type == "cpu":
+            return stream_reference(state, steps)
+        return _launch(state, steps, ln)
+
+
+def _launch(state: torch.Tensor, steps: int, ln) -> torch.Tensor:
     if state.device.type != "cuda":
         raise ValueError(f"stream_bench runs on the CPU or a CUDA device, not {state.device}")
     if state.dtype != torch.int32 or state.dim() != 2 or state.shape[1] != LANES:
@@ -120,11 +141,15 @@ def run_stream(state: torch.Tensor, steps: int) -> torch.Tensor:
         partial = torch.empty((2, grid.value, LANES), dtype=torch.int32, device=state.device)
         out = torch.empty((1, LANES), dtype=torch.int32, device=state.device)
         stream = torch.cuda.current_stream(state.device).cuda_stream
+        ln.start()
         err = lib.stream_bench_launch(state.data_ptr(), state.shape[0], int(steps),
                                       partial.data_ptr(), out.data_ptr(), grid.value, stream)
+        ln.stop()
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
     LAUNCHES[KERNEL_NAME] += 1
+    ln.cost((int(state.shape[0]), int(steps), grid.value),
+            lambda: stream_record(state, steps, grid.value))
     return out
 
 

@@ -5,7 +5,9 @@ One `nvcc` per source, for `sm_90a`, into `build/torch_kernels/` beside
 the package (listed in `.gitignore`), keyed by a hash of the source: a
 library that exists is reused, so a source is compiled once per
 checkout and edit. `build_libraries` starts the compilers of several
-sources together and waits for all of them. The compiler's register and
+sources together and waits for all of them; it counts each build and
+each library found built (`nvcc_builds_total`, `nvcc_cache_hits_total`:
+the port's counterpart of the JAX package's recompile counters). The compiler's register and
 spill report (`-Xptxas -v`) is kept beside each library as `.log`.
 """
 
@@ -47,12 +49,16 @@ def build_libraries(sources: Sequence[Path]) -> List[Path]:
     """Compile every source whose library does not exist yet, all
     compilers started together; returns the libraries' paths in the
     order of `sources`. Raises if a compiler fails, with its report."""
+    from .trace import COUNTERS
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = [library_path(s) for s in sources]
     running = []
     for src, lib in zip(sources, libs):
         if lib.exists():
+            COUNTERS.inc("nvcc_cache_hits_total")
             continue
+        COUNTERS.inc("nvcc_builds_total")
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

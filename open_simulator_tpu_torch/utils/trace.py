@@ -301,13 +301,27 @@ def _count_dropped_spans(n: int = 1) -> None:
 _set_span_drop_hook(_count_dropped_spans)
 
 
+class ProfileCaptureError(RuntimeError):
+    """A `--profile-dir` capture on the card that recorded no CUDA
+    activity: the profiler's device tracing (CUPTI) is refused there,
+    and a capture of host activity alone would be passed off as the
+    device's."""
+
+
+_CAPTURES: Dict[str, int] = {}
+
+
 @contextmanager
 def profiled(name: str, trace: Optional[Trace] = None):
     """phase() + a `torch.profiler` capture when SIMON_PROFILE_DIR is set.
 
-    The capture lands in $SIMON_PROFILE_DIR/<name>.json as a Chrome
-    trace (viewable in Perfetto or chrome://tracing); it records CUDA
-    activity too when a card is present."""
+    The capture lands in $SIMON_PROFILE_DIR/<name>-<n>.json (the n-th
+    run of the phase) as a Chrome trace (viewable in Perfetto or
+    chrome://tracing). When the phase launched work on the card
+    (obs/profile.py `device_launches_total` moved), the capture records
+    CUDA activity too and must hold it: a capture that recorded no
+    device event raises ProfileCaptureError, with what the profiler
+    recorded, rather than keep a host-only trace."""
     profile_dir = os.environ.get("SIMON_PROFILE_DIR")
     if not profile_dir:
         with phase(name, trace):
@@ -320,8 +334,19 @@ def profiled(name: str, trace: Optional[Trace] = None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    target = os.path.join(profile_dir, name.replace("/", "_") + ".json")
+    with _lock:
+        n = _CAPTURES[name] = _CAPTURES.get(name, 0) + 1
+    target = os.path.join(profile_dir, f"{name.replace('/', '_')}-{n}.json")
+    launches = COUNTERS.get("device_launches_total")
     with phase(name, trace):
         with profile(activities=activities) as prof:
             yield
+    if COUNTERS.get("device_launches_total") > launches:
+        kinds = {str(e.device_type) for e in prof.events()}
+        if not any("CUDA" in k for k in kinds):
+            raise ProfileCaptureError(
+                f"--profile-dir: torch.profiler recorded no CUDA activity in phase "
+                f"{name!r} although it launched work on the card (event device "
+                f"types: {sorted(kinds)}); the profiler's device tracing is not "
+                "available on this machine")
     prof.export_chrome_trace(target)

@@ -288,11 +288,10 @@ def test_default_device_needs_a_card(monkeypatch):
     assert "needs a GPU" in err
 
 
-@pytest.mark.parametrize("what,item", [("chart", "A1f"), ("kube", "A1e")])
+@pytest.mark.parametrize("what,item", [("chart", "A1f")])
 def test_out_of_slice_config_names_its_roadmap_item(what, item, tmp_path):
-    """kubeConfig clusters are out of slice and name their item. Helm
-    charts (A1f) are ported: a chart app that is no chart fails as the
-    JAX CLI fails it, and names no ROADMAP item."""
+    """Helm charts (A1f) are ported: a chart app that is no chart fails
+    as the JAX CLI fails it, and names no ROADMAP item."""
     nodes, apps, new_node, _ = _synthetic("base")
     cfg = _config(tmp_path, nodes, apps, new_node,
                   chart=what == "chart", kube=what == "kube")
@@ -326,9 +325,8 @@ def test_max_vg_cap_decides_the_count(tmp_path, monkeypatch):
 
 
 def test_out_of_slice_planner_options_raise(tmp_path):
-    """kubeConfig clusters still name their ROADMAP item when the
-    Applier is built; N+K, the journal and the multi-spec what-if are
-    ported and take their options."""
+    """N+K, the journal, the multi-spec what-if and kubeConfig clusters
+    are ported: the Applier takes their options and builds."""
     from open_simulator_tpu_torch.apply import applier
 
     config = applier.SimonConfig.from_file(GPUSHARE)
@@ -337,9 +335,8 @@ def test_out_of_slice_planner_options_raise(tmp_path):
     assert applier.probe_plan_multi(None, [], [], device="cpu") == []
     nodes, apps, new_node, _ = _synthetic("base")
     kube = applier.SimonConfig.from_file(_config(tmp_path, nodes, apps, new_node, kube=True))
-    with pytest.raises(fused_scan.OutOfSliceError, match="A1e") as err:
-        applier.Applier(kube, device="cpu")
-    assert err.value.item == "A1e"
+    built = applier.Applier(kube, device="cpu")
+    assert built.config.kube_config and not built.config.custom_cluster
 
 
 def _name_plugin(pkg, weight):

@@ -1085,3 +1085,109 @@ def test_cuda_pins_first_thousands_of_scenarios_in_waves():
     got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
     for g, r in zip(got, ref):
         _same(g, r)
+
+
+# ---- the device observatory (obs/profile.py, obs/costs.py, obs/ledger.py)
+
+@pytest.mark.cuda
+def test_cuda_instrumented_launch_counts_and_times_on_the_card():
+    """Each wrapper launch is one `launches_<site>` count and one
+    `device_launches_total`, its CUDA-event time lands in the
+    `launch/<site>` histogram once read, and the ledger polls the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from open_simulator_tpu_torch.obs import profile
+    from open_simulator_tpu_torch.obs.histo import HISTOS
+    from open_simulator_tpu_torch.obs.ledger import LEDGER
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    plan, batch, scen = _b1_case("overload-wide")
+    plan = plan.to("cuda")
+    before = profile.snapshot()
+    site_before = COUNTERS.get("launches_cudatest")
+    hist = HISTOS.summary().get("launch/cudatest", {}).get("count", 0)
+    samples = LEDGER.samples
+    for _ in range(3):
+        fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen * 2, site="cudatest")
+    torch.cuda.synchronize()
+    profile.resolve_pending(wait=True)
+    d = profile.delta(before)
+    assert d["launches_total"] == d["device_launches_total"] == 3
+    assert COUNTERS.get("launches_cudatest") - site_before == 3
+    row = HISTOS.summary()["launch/cudatest"]
+    assert row["count"] - hist == 3 and row["p50_ms"] > 0
+    assert LEDGER.samples - samples == 3 and LEDGER.peak_bytes > 0
+    assert d["device_transfer_h2d_bytes_total"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,scenarios", [("b1", 1), ("b1", 4), ("fuzz", 1), ("fuzz", 3)])
+def test_cuda_workspace_estimate_covers_the_measured_peak(kind, scenarios):
+    """The cost count's workspace (obs/costs.py) is at or above what the
+    caching allocator's peak rises by over one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from chip_smoke import build_fuzz_scenario
+    from open_simulator_tpu_torch.obs import costs
+
+    if kind == "b1":
+        plan, batch, scen = _b1_case("multi-node-threads")
+    else:
+        plan, batch = _plan(*build_fuzz_scenario(400, 800, seed=5))
+        p = len(batch.class_of_pod)
+        scen = [(np.ones(p, bool), np.ones(plan.n, bool), batch.pinned_node)]
+    plan = plan.to("cuda")
+    scen = scen * scenarios
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, site="cudatest")
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    del out
+    name = fused_scan.BATCH_KERNEL_NAME
+    est = costs.workspace_bytes(plan, len(batch.class_of_pod), len(scen),
+                                fused_scan.CLUSTERS[name])
+    assert 0 < measured <= est
+
+
+@pytest.mark.cuda
+def test_cuda_predicted_split_on_the_card(monkeypatch):
+    """Under a budget that holds two scenarios' workspace, a sweep's
+    outage rows split before launch into chunks that fit, and the rows
+    equal one unsplit launch's; a single row predicted not to fit is
+    launched all the same (card work never moves to the host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    from open_simulator_tpu_torch.obs import costs
+    from open_simulator_tpu_torch.runtime import guard
+
+    plan, batch = _plan(*_scenario(64, 150, 62, False))
+    plan = dataclasses.replace(plan.to("cuda"), has_pins=True)
+    p = len(batch.class_of_pod)
+    scen = _outage_scenarios(plan.n, p, 63, 8)
+    whole = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    torch.cuda.synchronize()
+    in_use = torch.cuda.memory_allocated()
+    two = costs.workspace_bytes(plan, p, 2)
+    monkeypatch.setenv("SIMON_DEVICE_MEM_BUDGET", str(int((in_use + two) / 0.92) + 1))
+    sizes = []
+
+    def evaluate(lo, hi):
+        sizes.append(hi - lo)
+        return fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen[lo:hi],
+                                               pins_first=True)
+
+    est = costs.CostRegistry().chunk_estimator("cudatest", plan, p)
+    rows = guard.run_chunked(evaluate, len(scen), label="cudatest", estimate=est)
+    assert max(sizes) <= 2 and sum(sizes) == len(scen)
+    for g, r in zip(rows, whole):
+        _same(g, r)
+    monkeypatch.setenv("SIMON_DEVICE_MEM_BUDGET", "1")
+    sizes.clear()
+    rows = guard.run_chunked(evaluate, 2, label="cudatest", estimate=est)
+    assert sizes == [1, 1]
+    for g, r in zip(rows, whole):
+        _same(g, r)

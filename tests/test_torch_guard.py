@@ -93,11 +93,6 @@ def test_the_reference_degrades_where_the_port_raises():
     assert guard.classify_device_error(MemoryError()) is DeviceOOM
 
 
-def test_run_chunked_takes_no_estimator():
-    with pytest.raises(ValueError, match="A5"):
-        guard.run_chunked(lambda lo, hi: [], 1, label="x", estimate=lambda lo, hi: 1)
-
-
 def _small_sweep():
     from open_simulator_tpu_torch.models.decode import ResourceTypes
     from open_simulator_tpu_torch.parallel.sweep import CapacitySweep

@@ -24,7 +24,8 @@ assert "yaml" not in sys.modules, "PyYAML imported at module load"
 for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.chart",
              "ops.scan", "tools.stream_bench", "utils.nvcc",
              "runtime.journal", "runtime.guard", "scheduler.snapshot", "parallel.defrag",
-             "resilience", "resilience.chaos"):
+             "resilience", "resilience.chaos", "models.kubeclient", "apply.interactive",
+             "obs.costs", "obs.ledger", "obs.histo", "obs.profile", "obs.doctor"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -100,6 +101,40 @@ def test_resilience_paths_import_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert '"drainOrder"' in out.stdout and '"serialConfirmed"' in out.stdout
+
+
+# the slice-8 paths in a fresh interpreter, on the CPU: the observability
+# and guard flags, the interactive shell, doctor and version
+_OBS = r"""
+import io, runpy, sys
+tmp = sys.argv[1]
+for argv, want, stdin in (
+    (["apply", "-f", "example/simon-config.yaml", "--format", "json", "--explain",
+      "--trace-out", tmp + "/t.json", "--profile-dir", tmp + "/prof"], (0,), ""),
+    (["apply", "-f", "example/simon-config.yaml", "--inject", "budget.check=deadline@1"],
+     (3,), ""),
+    (["apply", "-f", "example/simon-config.yaml", "-i"], (0,), "\n1\n1\n\n"),
+    (["chaos", "-f", "example/simon-config.yaml", "--trace-out", tmp + "/c.jsonl"], (0, 1), ""),
+    (["doctor", "BENCH_r01.json", "BENCH_r02.json"], (0, 1), None),
+    (["version"], (0,), None),
+):
+    sys.argv = ["cli", *argv] + (["--device", "cpu"] if stdin is not None else [])
+    sys.stdin = io.StringIO(stdin or "")
+    try:
+        runpy.run_module("open_simulator_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code in want, (argv, e.code)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_observability_paths_import_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _OBS, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "PARTIAL RESULT" in out.stdout and "simon-torch version" in out.stdout
 
 
 @pytest.mark.parametrize("argv", [

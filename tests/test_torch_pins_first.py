@@ -224,21 +224,20 @@ def test_pins_first_differs_from_the_interleaved_pass():
 
 
 def test_chip_smoke_bound_leaves_the_rows_alone():
-    """chip_smoke.bound() counts the operations of each scenario's free
-    pods (the pinned ones only commit) without touching the caller's
-    rows: a check run after it on the same scenarios sees them as they
-    were."""
-    import runpy
+    """The bound chip_smoke.py prints (obs/costs.py bound(), where its
+    count moved) counts the operations of each scenario's free pods (the
+    pinned ones only commit) without touching the caller's rows: a check
+    run after it on the same scenarios sees them as they were."""
+    from open_simulator_tpu_torch.obs import costs
 
-    smoke = runpy.run_path("chip_smoke.py", run_name="chip_smoke_module")
     nodes, pods = _case("base", 16, 40, seed=5)
     pc, pb, pd, pf = _encode("open_simulator_tpu_torch", nodes, pods)
     plan = dataclasses.replace(fused_scan.build_plan(pc, pb, pd, pf), has_pins=True)
     valids, actives, pins = _outage_rows(16, 40, 3, seed=9)
     before = actives.copy()
     scen = list(zip(actives, valids, pins))
-    ms, by = smoke["bound"](plan, pb.class_of_pod, scen)
+    ms, by = costs.bound(plan, pb.class_of_pod, scen)
     np.testing.assert_array_equal(actives, before)
     free_only = [(a & (q < 0), v, q) for a, v, q in scen]
-    assert (ms, by) == smoke["bound"](plan, pb.class_of_pod, free_only)
+    assert (ms, by) == costs.bound(plan, pb.class_of_pod, free_only)
     assert ms > 0 and by in ("bytes", "operations")
