@@ -134,7 +134,27 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     in the report and its verdicts covering every node;
 21. the quickstart with `--explain POD --profile-dir DIR`: stdout == the
     JAX package's (tools/jax_explain_answer.py), and the captures name
-    the fused-scan kernel.
+    the fused-scan kernel;
+22. the timeline (`simon timeline`) on the default scenario's 10,000
+    nodes with a day-0 pod bound to every untainted node (TL_FREE_CPU
+    cores left free on each) and the capacity scenario's 96-cpu new node
+    as a pool of 64 candidates: a synthetic trace of 20,000 arrivals
+    (TL_FLAGS) through static:0, threshold and probe with the counters
+    at 0. Every window and probe decision is one pins-first launch of
+    the batch kernel (launches == `launches_timeline_sweep` == the
+    report's dispatches), threshold and probe scale up, static:0 ends
+    with pods pending, no trace note reports a downgrade; the first
+    window's launch == run_fused_scan_batch on the CPU plain version;
+    at two cuts the report == the JAX package's
+    (tools/jax_timeline_answer.py, engine aside), at the smaller one
+    the port's serial oracle's too;
+23. the shadow auditor (`simon shadow`) on the same nodes: `--record` of
+    the default pods' first SHADOW_DECISIONS decisions on the serial
+    oracle, then `--decision-log` on the card with the counters at 0:
+    agreement 1.0, one `fused_scan_base` launch a decision, zero nvcc
+    builds; `timeline --from-decision-log` over the log; at a cut the
+    log's bytes and the replay report == the JAX package's
+    (tools/jax_shadow_answer.py, the engine and compiler fields aside).
 
 Phase 2 also times B1 through the instrumented wrapper against the bare
 launcher in turns; phases 2-10 and 17b hold one launch of each
@@ -143,9 +163,14 @@ allocator's measured peak rise; phase 17b also runs under `--inject
 ledger.predict_fit=lie:high` at its committed count: the rows split
 before launch, the same report, no OOM caught.
 
-Phases 14-21 fail the run when a trace note reports a downgrade or the
+Phases 14-23 fail the run when a trace note reports a downgrade or the
 serial floor, unless the phase injected that fault, as do the CLI runs
 of phases 6 and 11.
+
+    python3 chip_smoke.py --only 22,23
+
+runs phase 1 and the named phases that stand alone (14, 17, 18, 19, 21,
+22, 23), and prints no kernels or ok line.
 
 Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
@@ -171,8 +196,10 @@ their `plain_ms` the plain version over the first `plain_pods` and their
 `prefix_ms` the kernel's on that cut; the
 `fused_scan_store_terms` entry is phase 10's single launch with the
 launches of phase 11's full-width plan; the `fused_scan_batch
-(pins-first)` entry is phase 17b's launch, with phase 17's launches and
-its us a pinned and a free pod step), and
+(pins-first)` entry is phase 17b's launch, with phase 17's and phase
+22's launches and its us a pinned and a free pod step; the
+`fused_scan_base` entry's launches are phase 3's and phase 23's, each
+entry's `launches_by_phase` splits them), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -304,6 +331,48 @@ A1G_PODS = 1_000
 JAX_A1G_ANSWER = "26e7edb98805e7c69d5c09e6fd795ba07502490e4f9735969805be7f56c1a296"
 # phase 2: the cluster sizes B1 runs at beside the rule's choice
 PHASE2_CLUSTERS = (1, 8, 16)
+# phase 22: the timeline on the default scenario's nodes, a day-0 pod
+# bound to every untainted node that leaves it TL_FREE_CPU cores (and
+# 4 GiB) free, and the capacity shape's 96-cpu new node as the candidate
+# pool; the synthetic trace and the policies below. The JAX package's
+# answers are for two cuts (tools/jax_timeline_answer.py, its XLA scan on
+# a CPU; timeline_digest of its stdout): TL_JAX_NODES nodes and
+# TL_JAX_ARRIVALS arrivals with TL_JAX_MAX_NODES candidates, which the
+# port's cuda engine on the card must print, and a smaller one
+# (TL_ORACLE_*) that the port's serial oracle prints too (the oracle
+# re-schedules every pending pod of every window on the host, so it is
+# held at the smaller cut)
+TL_NODES = N_NODES
+TL_ARRIVALS = 20_000
+TL_FREE_CPU = 1
+TL_FLAGS = ["--arrival-rate", "20", "--mean-lifetime", "300", "--long-running-frac", "0.7",
+            "--spot-frac", "0.01", "--spot-hazard", "0.0005", "--seed", "11",
+            "--compare", "static:0,threshold,probe", "--cadence", "60", "--warmup", "30",
+            "--window-arrivals", "256"]
+TL_MAX_NODES = 64
+TL_JAX_NODES = 500
+TL_JAX_ARRIVALS = 2_000
+TL_JAX_MAX_NODES = 8
+JAX_TIMELINE_ANSWER = "fc853f2c2202c683dde429b3aef685fc3cbace229cc8adc4b6f24a067325da0a"
+TL_ORACLE_NODES = 60
+TL_ORACLE_ARRIVALS = 300
+TL_ORACLE_MAX_NODES = 2
+JAX_TIMELINE_ORACLE_ANSWER = "9c0db1b0be0cbb2ce90c720f008113afbaa3cefee9f46b0120a5222ffb14add8"
+# phase 23: the shadow auditor on the default scenario's nodes: `--record`
+# of its first SHADOW_DECISIONS pods on the serial oracle, replayed on
+# the card; the JAX package's answers (tools/jax_shadow_answer.py: the
+# log's sha256 and shadow_digest of the replay report) for a cut of
+# SHADOW_JAX_NODES nodes and SHADOW_JAX_DECISIONS pods
+SHADOW_NODES = N_NODES
+SHADOW_DECISIONS = 200
+SHADOW_JAX_NODES = 500
+SHADOW_JAX_DECISIONS = 1_000
+JAX_SHADOW_LOG_ANSWER = "62fbd9fa2a04a4447b9d8fb3787a06fe4c96631b0a794058e7c21e3d7fdae4be"
+JAX_SHADOW_ANSWER = "250ba829407fe5b662460d960f16153396e6c093da8bd30acc219ca4af83a58b"
+# the report fields that name the engine or count its compiler, set aside
+# when a shadow report is held against the JAX package's
+SHADOW_ASIDE = ("engine", "obs", "recompileSteps", "newShapeRecompiles", "warmRecompiles",
+                "buildSteps", "newShapeBuilds", "warmBuilds")
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2495,6 +2564,314 @@ def phase21(gpu, root, device=None) -> dict:
     return {"captures": files, "kernels": kernels}
 
 
+# ---- phases 22-23: the timeline and the shadow auditor
+
+
+def write_timeline_config(root, n_nodes=TL_NODES) -> str:
+    """Phase 22's cluster as a simon config under `root`: the default
+    scenario's `n_nodes` nodes, one day-0 pod bound to each untainted
+    node requesting all but TL_FREE_CPU cores and 4 GiB of it, and the
+    capacity scenario's 96 cpu / 384 GiB new node."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    nodes, _ = build_scenario(n_nodes, 0)
+    day0 = []
+    for i, node in enumerate(nodes):
+        if node.get("spec", {}).get("taints"):
+            continue
+        cpu = int(node["status"]["allocatable"]["cpu"])
+        name = node["metadata"]["name"]
+        day0.append({"kind": "Pod", "metadata": {"name": f"day0-{i:05d}", "namespace": "day0"},
+                     "spec": {"nodeName": name, "containers": [{
+                         "name": "c", "image": "img-day0", "resources": {"requests": {
+                             "cpu": str(cpu - TL_FREE_CPU),
+                             "memory": f"{4 * cpu - 4}Gi"}}}]}})
+    for sub, docs in (("cluster", nodes + day0), ("newnode", [cap_node("template", 96, 384)])):
+        (root / sub).mkdir(parents=True)
+        with open(root / sub / "objects.yaml", "w") as f:
+            yaml.dump_all(docs, f, Dumper=dumper)
+    cfg = root / "simon-config.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "apiVersion": "simon/v1alpha1", "kind": "Config", "metadata": {"name": "timeline"},
+        "spec": {"cluster": {"customConfig": str(root / "cluster")},
+                 "newNode": str(root / "newnode")}}))
+    return str(cfg)
+
+
+def timeline_argv(cfg, arrivals=TL_ARRIVALS, max_nodes=TL_MAX_NODES):
+    return ["timeline", "-f", cfg, "--synthetic", str(arrivals), *TL_FLAGS,
+            "--max-nodes", str(max_nodes), "--format", "json"]
+
+
+def timeline_digest(stdout) -> str:
+    """sha256 of a timeline JSON report with its `engine` set aside (the
+    JAX package names its engine `tpu`, the port `cuda` or `oracle`)."""
+    import hashlib
+
+    doc = json.loads(stdout)
+    doc.pop("engine")
+    return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()).hexdigest()
+
+
+def write_shadow_config(root, n_nodes=SHADOW_NODES, n_pods=SHADOW_DECISIONS) -> str:
+    """Phase 23's inputs as a simon config under `root`: the default
+    scenario's `n_nodes` nodes and its first `n_pods` pods as one app."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    nodes, pods = build_scenario(n_nodes, n_pods)
+    for pod in pods:
+        pod["kind"] = "Pod"
+    for sub, docs in (("cluster", nodes), ("app", pods)):
+        (root / sub).mkdir(parents=True)
+        with open(root / sub / "objects.yaml", "w") as f:
+            yaml.dump_all(docs, f, Dumper=dumper)
+    cfg = root / "simon-config.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "apiVersion": "simon/v1alpha1", "kind": "Config", "metadata": {"name": "shadow"},
+        "spec": {"cluster": {"customConfig": str(root / "cluster")},
+                 "appList": [{"name": "bench", "path": str(root / "app")}]}}))
+    return str(cfg)
+
+
+def shadow_digest(stdout) -> str:
+    """sha256 of a shadow JSON report with SHADOW_ASIDE set aside."""
+    import hashlib
+
+    doc = {k: v for k, v in json.loads(stdout).items() if k not in SHADOW_ASIDE}
+    return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()).hexdigest()
+
+
+def phase22(gpu, root) -> dict:
+    """The timeline through the CLI on the card at full width with the
+    counters at 0: a window and a probe decision each one pins-first
+    launch (launches == the report's dispatches), threshold and probe
+    scale up, static:0 ends with pods pending, no degradation note; the
+    first window's launch == run_fused_scan_batch on the CPU plain
+    version; at the cut, the digest == the JAX package's and the port's
+    serial oracle's."""
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    t0 = time.perf_counter()
+    cfg = write_timeline_config(Path(root) / "timeline-full")
+    write_s = time.perf_counter() - t0
+    calls, restore = record_rows(pins_first_only=True)
+    try:
+        fused_scan.reset_launch_counts()
+        before = COUNTERS.get("launches_timeline_sweep")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli([*timeline_argv(cfg), "--trace-phases"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(fused_scan.LAUNCHES)
+        site = COUNTERS.get("launches_timeline_sweep") - before
+    finally:
+        restore()
+    if rc != 0:
+        raise AssertionError(f"phase 22: timeline exited {rc}: {err[-2000:]}")
+    doc = json.loads(out)
+    trace = trace_json(err)
+    pols = {p["policy"]: p for p in doc["policies"]}
+    ups = {name: sum(1 for d in p["decisions"] if d["delta"] > 0) for name, p in pols.items()}
+    pf = launches[fused_scan.PINS_FIRST_KERNEL_NAME]
+    others = {k: v for k, v in launches.items() if v and k != fused_scan.PINS_FIRST_KERNEL_NAME}
+    if not (pf == site == doc["dispatches"] == len(calls) > 0) or others:
+        raise AssertionError(f"phase 22: pins-first launches {pf}, timeline_sweep {site}, "
+                             f"dispatches {doc['dispatches']}, calls {len(calls)}, other "
+                             f"launches {others}")
+    if not (ups["threshold"] and ups["probe"] and pols["static:0"]["finalPending"] > 0):
+        raise AssertionError(f"phase 22: scale-ups {ups}, static:0 ends with "
+                             f"{pols['static:0']['finalPending']} pending")
+    dev_ms = [c[5].elapsed_time(c[6]) for c in calls]
+    rows = [len(c[2]) for c in calls]
+    window = next(c for c in calls if len(c[2]) <= 3)
+    probe = [ms for ms, r in zip(dev_ms, rows) if r > 3]
+    plan, cls, scenarios, pins_first, outs, start, end = window
+    t0 = time.perf_counter()
+    want = fused_scan.run_fused_scan_batch(plan.to("cpu"), cls, scenarios, pins_first=True)
+    plain_s = time.perf_counter() - t0
+    got = [(g[0].cpu(), {k: v.cpu() for k, v in g[1].items()}) for g in outs]
+    err_w = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err_w:
+        raise AssertionError(f"phase 22: the first window's launch != the CPU plain version "
+                             f"({err_w})")
+    active = [int(np.asarray(a).sum()) for a, _v, _q in scenarios]
+    free = [int((np.asarray(a) & (np.asarray(q) < 0)).sum()) for a, _v, q in scenarios]
+    phases = {ph["name"]: ph["seconds"] for ph in trace["phases"]}
+    print(f"phase 22 (timeline, {TL_NODES} nodes + {TL_MAX_NODES} candidates, "
+          f"{doc['arrivals']} arrivals, {doc['events']} events, policies "
+          f"{list(pols)}): exit 0, {secs:.3f} s through the CLI (config written in "
+          f"{write_s:.1f} s); {doc['windows']} windows, {doc['dispatches']} dispatches == "
+          f"{pf} pins-first launches == launches_timeline_sweep; scale-ups {ups}; final "
+          f"pending { {k: p['finalPending'] for k, p in pols.items()} }, peak nodes "
+          f"{ {k: p['peakNodes'] for k, p in pols.items()} }; report {len(out)} bytes "
+          f"[{gpu}]", flush=True)
+    print(f"phase 22: card time of the launches by CUDA events: {sum(dev_ms):.1f} ms in all; "
+          f"windows (<= 3 rows) {len(dev_ms) - len(probe)} launches, "
+          f"{sum(dev_ms) - sum(probe):.1f} ms; probe decisions {len(probe)} launches of "
+          f"{max(rows)} rows, {sum(probe):.1f} ms (clusters of "
+          f"{fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME]} at the last); host "
+          f"clock: " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in phases.items())
+          + f" [{gpu}]", flush=True)
+    print(f"phase 22: the first window's launch ({len(scenarios)} rows, {active} active pods, "
+          f"{free} free, {start.elapsed_time(end):.3f} ms on the card) == "
+          f"run_fused_scan_batch on the CPU plain version ({plain_s:.1f} s), placements and "
+          f"every row [{gpu}]", flush=True)
+    del calls, window, outs, got, want
+
+    cut = {}
+    for name, n, arrivals, cand, engines, want in (
+            ("jax", TL_JAX_NODES, TL_JAX_ARRIVALS, TL_JAX_MAX_NODES, ("cuda",),
+             JAX_TIMELINE_ANSWER),
+            ("oracle", TL_ORACLE_NODES, TL_ORACLE_ARRIVALS, TL_ORACLE_MAX_NODES,
+             ("cuda", "oracle"), JAX_TIMELINE_ORACLE_ANSWER)):
+        cfg_cut = write_timeline_config(Path(root) / f"timeline-{name}", n)
+        for engine in engines:
+            fused_scan.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, out_c, _err = run_cli([*timeline_argv(cfg_cut, arrivals, cand),
+                                       "--engine", engine])
+            got = (rc, timeline_digest(out_c) if rc == 0 else None,
+                   fused_scan.LAUNCHES[fused_scan.PINS_FIRST_KERNEL_NAME])
+            cut[(name, engine)] = got + (time.perf_counter() - t0,)
+            if got[:2] != (0, want) or bool(got[2]) != (engine == "cuda"):
+                raise AssertionError(f"phase 22: the {n}-node cut on {engine}: exit {got[0]}, "
+                                     f"digest {got[1]}, {got[2]} launches; the JAX "
+                                     f"package's {want}")
+        print(f"phase 22: {n} nodes x {arrivals} arrivals, {cand} candidates: "
+              + " and ".join(f"{'the card' if e == 'cuda' else 'the serial oracle'} "
+                             f"({cut[(name, e)][2]} launches, {cut[(name, e)][3]:.1f} s)"
+                             for e in engines)
+              + f" print the JAX package's report (sha256 {want[:16]}, engine aside) [{gpu}]",
+              flush=True)
+        if name == "jax":
+            # an OOM injected at the first launch halves that chunk on the
+            # card: one more launch, the same report
+            fused_scan.reset_launch_counts()
+            rc, out_c, err_c = run_cli([*timeline_argv(cfg_cut, arrivals, cand),
+                                        "--inject", "jit.timeline_sweep=oom@1",
+                                        "--trace-phases"],
+                                       allow=("timeline-chunk-halving", "timeline-degraded"))
+            notes = trace_json(err_c).get("notes", {})
+            halved = fused_scan.LAUNCHES[fused_scan.PINS_FIRST_KERNEL_NAME]
+            if (rc, timeline_digest(out_c) if rc == 0 else None) != (0, want) or \
+                    "timeline-chunk-halving" not in notes or halved != cut[(name, "cuda")][2] + 1:
+                raise AssertionError(f"phase 22: jit.timeline_sweep=oom@1: exit {rc}, "
+                                     f"{halved} launches, notes {notes}")
+            print(f"phase 22: --inject jit.timeline_sweep=oom@1 at the {n}-node cut: "
+                  f"{notes['timeline-chunk-halving']!r}, {halved} launches, the same report "
+                  f"[{gpu}]", flush=True)
+    return {"launches": pf, "secs": secs, "windows": doc["windows"],
+            "dispatches": doc["dispatches"], "device_ms": sum(dev_ms)}
+
+
+def phase23(gpu, root) -> dict:
+    """The shadow auditor through the CLI at full width: `--record` on
+    the serial oracle, then `--decision-log` on the card with the
+    counters at 0 (agreement 1.0, one B1 launch a decision, zero nvcc
+    builds), then `timeline --from-decision-log` over the log; at the
+    cut, the log's bytes and the replay's report == the JAX package's."""
+    import hashlib
+
+    import torch
+
+    from open_simulator_tpu_torch.obs import profile
+    from open_simulator_tpu_torch.obs.histo import HISTOS, percentile_from_counts
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.utils.trace import COUNTERS, GLOBAL
+
+    cfg = write_shadow_config(Path(root) / "shadow-full")
+    log = str(Path(root) / "shadow-full.jsonl")
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(["shadow", "-f", cfg, "--record", log])
+    rec_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 23: --record exited {rc}: {err[-2000:]}")
+    print(f"phase 23 (shadow, {SHADOW_NODES} nodes): {out.strip()} in {rec_s:.1f} s on the "
+          f"serial oracle = {rec_s * 1e3 / SHADOW_DECISIONS:.1f} ms a decision (host) [{gpu}]",
+          flush=True)
+
+    fused_scan.reset_launch_counts()
+    GLOBAL.reset()
+    before = {k: COUNTERS.get(k) for k in ("launches_scan", "nvcc_builds_total")}
+    hist = HISTOS.get("launch/scan")
+    counts0, sum0 = list(hist.counts), hist.sum
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(["shadow", "-f", cfg, "--decision-log", log, "--format", "json"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fused_scan.LAUNCHES)
+    moved = {k: COUNTERS.get(k) - v for k, v in before.items()}
+    doc = json.loads(out) if out.startswith("{") else {}
+    n_dec = doc.get("decisions", 0)
+    others = {k: v for k, v in launches.items() if v and k != fused_scan.KERNEL_NAME}
+    if rc != 0 or doc.get("agreementRate") != 1.0 or n_dec < SHADOW_DECISIONS:
+        raise AssertionError(f"phase 23: exit {rc}, {doc.get('taxonomy')}: {err[-2000:]}")
+    if not (launches[fused_scan.KERNEL_NAME] == moved["launches_scan"] == n_dec
+            == doc["obs"]["deviceLaunches"]) or others:
+        raise AssertionError(f"phase 23: {n_dec} decisions, launches {launches}, "
+                             f"launches_scan {moved['launches_scan']}, obs {doc['obs']}")
+    if doc["warmBuilds"] or moved["nvcc_builds_total"] or doc["buildSteps"]:
+        raise AssertionError(f"phase 23: nvcc builds during the replay: {moved}, "
+                             f"{doc['buildSteps']}")
+    profile.resolve_pending(wait=True)
+    counts = [c - c0 for c, c0 in zip(hist.counts, counts0)]
+    p50, p95 = (percentile_from_counts(counts, q) for q in (50, 95))
+    phases = {ph["name"]: ph["seconds"] for ph in GLOBAL.as_dict()["phases"]}
+    print(f"phase 23: --decision-log on the card: exit 0, agreement {doc['agreementRate']} over "
+          f"{n_dec} decisions, {launches[fused_scan.KERNEL_NAME]} {fused_scan.KERNEL_NAME} "
+          f"launches (one a decision, cluster {fused_scan.CLUSTERS[fused_scan.KERNEL_NAME]}), "
+          f"0 nvcc builds; {secs:.3f} s = {secs * 1e3 / n_dec:.2f} ms a decision; launch/scan "
+          f"device time {(hist.sum - sum0) * 1e3:.1f} ms in all, p50 {p50 * 1e3:.3f} ms, p95 "
+          f"{p95 * 1e3:.3f} ms over {sum(counts)} launches; host clock: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in phases.items()) + f" [{gpu}]",
+          flush=True)
+
+    fused_scan.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out_t, err_t = run_cli(["timeline", "-f", cfg, "--from-decision-log", log,
+                                "--compare", "static:0,threshold", "--format", "json"])
+    tl_s = time.perf_counter() - t0
+    tl = json.loads(out_t) if rc == 0 else {}
+    tl_launches = fused_scan.LAUNCHES[fused_scan.PINS_FIRST_KERNEL_NAME]
+    if rc != 0 or tl["arrivals"] != n_dec or tl_launches != tl["dispatches"]:
+        raise AssertionError(f"phase 23: timeline --from-decision-log exited {rc}, "
+                             f"{tl.get('arrivals')} arrivals, {tl_launches} launches: "
+                             f"{err_t[-2000:]}")
+    print(f"phase 23: timeline --from-decision-log over the log: {tl['arrivals']} arrivals, "
+          f"{tl['windows']} windows, {tl_launches} pins-first launches, final pending "
+          f"{[p['finalPending'] for p in tl['policies']]}, {tl_s:.1f} s [{gpu}]", flush=True)
+
+    cfg_cut = write_shadow_config(Path(root) / "shadow-cut", SHADOW_JAX_NODES,
+                                  SHADOW_JAX_DECISIONS)
+    log_cut = str(Path(root) / "shadow-cut.jsonl")
+    t0 = time.perf_counter()
+    rc, _o, err = run_cli(["shadow", "-f", cfg_cut, "--record", log_cut])
+    log_digest = hashlib.sha256(Path(log_cut).read_bytes()).hexdigest()
+    rc2, out_c, err2 = run_cli(["shadow", "-f", cfg_cut, "--decision-log", log_cut,
+                                "--format", "json"])
+    cut_s = time.perf_counter() - t0
+    digest = shadow_digest(out_c) if rc2 == 0 else None
+    if rc or rc2 or log_digest != JAX_SHADOW_LOG_ANSWER or digest != JAX_SHADOW_ANSWER:
+        raise AssertionError(f"phase 23: the cut: exit {rc}/{rc2}, log {log_digest}, report "
+                             f"{digest}; the JAX package's {JAX_SHADOW_LOG_ANSWER}, "
+                             f"{JAX_SHADOW_ANSWER}: {(err + err2)[-2000:]}")
+    print(f"phase 23: {SHADOW_JAX_NODES} nodes x {SHADOW_JAX_DECISIONS} decisions: the log "
+          f"(sha256 {log_digest[:16]}) and the card's replay report (sha256 {digest[:16]}, "
+          f"the engine and compiler fields aside) == the JAX package's, {cut_s:.1f} s [{gpu}]",
+          flush=True)
+    return {"launches": n_dec, "secs": secs, "record_s": rec_s, "tl_launches": tl_launches}
+
+
 def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
     """One launch of `scenarios` with the allocator's peak reset: the cost
     count's workspace (obs/costs.py) must be at or above what the peak
@@ -2568,10 +2945,15 @@ def instrumentation_cost(gpu, plan, batch, runs=3) -> dict:
     return {"card": med, "host": hmed}
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only is None:
+        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2590,6 +2972,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s [{gpu}]", flush=True)
     print_build(lib)
     print_stream_build(stream_lib)
+    if only is not None:
+        # a focused run of phases that stand alone: no kernels or ok line
+        import tempfile
+
+        standalone = {"14": phase14, "17": phase17, "18": phase18, "19": phase19,
+                      "21": phase21, "22": phase22, "23": phase23}
+        with tempfile.TemporaryDirectory() as root:
+            for name in only:
+                t0 = time.perf_counter()
+                fn = standalone[name]
+                fn(gpu) if name == "14" else fn(gpu, root)
+                print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}]",
+                      flush=True)
+        print(f"chip_smoke --only {','.join(only)}: {time.perf_counter() - t_start:.1f} s "
+              f"[{gpu}]", flush=True)
+        return 0
 
     # ---- phase 2: B1 kernel vs plain on the card
     t0 = time.perf_counter()
@@ -2724,7 +3122,9 @@ def main() -> int:
                           ("17", lambda: phase17(gpu, root)), ("18", lambda: phase18(gpu, root)),
                           ("19", lambda: phase19(gpu, root)),
                           ("20", lambda: phase20(gpu, root, cap)),
-                          ("21", lambda: phase21(gpu, root))):
+                          ("21", lambda: phase21(gpu, root)),
+                          ("22", lambda: phase22(gpu, root)),
+                          ("23", lambda: phase23(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
             if name == "15":
@@ -2738,6 +3138,12 @@ def main() -> int:
     print(f"phases 19-21: the kubeConfig plan's launches {walls['19']['launches']}; the "
           f"resume, shell and halved plans' {[walls['20'][k] for k in ('resume', 'shell', 'oom')]} "
           f"[{gpu}]", flush=True)
+    timeline, shadow = walls["22"], walls["23"]
+    print(f"phases 22-23: {timeline['launches']} pins-first launches for the timeline's "
+          f"{timeline['windows']} windows and probe decisions ({timeline['device_ms']:.1f} ms "
+          f"on the card), {shadow['launches']} {fused_scan.KERNEL_NAME} launches for the "
+          f"shadow replay's decisions, {shadow['tl_launches']} pins-first for its log's "
+          f"timeline [{gpu}]", flush=True)
     print("workspace estimate against the measured peak rise, a launch of each "
           "instantiation: " + json.dumps(WORKSPACE), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
@@ -2756,7 +3162,9 @@ def main() -> int:
     print(gpu)  # nvidia-smi's own line: name, power limit
     print(json.dumps({"kernels": [
         dict(entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
-                   base_launches, base), cluster=base["cluster"], prev_ms=base["prev_ms"]),
+                   base_launches + shadow["launches"], base), cluster=base["cluster"],
+             prev_ms=base["prev_ms"],
+             launches_by_phase={"3": base_launches, "23": shadow["launches"]}),
         entry(fused_scan.EXT_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1961",
               ext_launches, ext),
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
@@ -2776,9 +3184,11 @@ def main() -> int:
                    plan_launches[fused_scan.STORE_TERMS_KERNEL_NAME], mixed),
              cluster=mixed["cluster"], prev_ms=mixed["prev_ms"]),
         dict(entry(fused_scan.PINS_FIRST_KERNEL_NAME,
-                   "open_simulator_tpu/ops/pallas_scan.py:2974", outage["launches"],
-                   outage["cut"]), cluster=outage["cut"]["cluster"],
-             pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"]),
+                   "open_simulator_tpu/ops/pallas_scan.py:2974",
+                   outage["launches"] + timeline["launches"], outage["cut"]),
+             cluster=outage["cut"]["cluster"],
+             pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"],
+             launches_by_phase={"17": outage["launches"], "22": timeline["launches"]}),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
                    stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
              library_ms=stream["library_ms"]),

@@ -1,5 +1,5 @@
 """simon-compatible CLI of the GPU port: `apply`, `chaos`, `defrag`,
-`doctor`, `version` and `gen-doc`.
+`shadow`, `timeline`, `doctor`, `version` and `gen-doc`.
 
   python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml> [-i]
         [--format table|json] [--extended-resources gpu,open-local]
@@ -20,21 +20,39 @@
         [--max-drain N] [--keep-new-nodes] [--format table|json]
         [--device DEVICE] [--trace-out PATH] [--explain [POD]]
         [--profile-dir DIR]
+  python -m open_simulator_tpu_torch.cli shadow -f <simon-config.yaml>
+        (--record PATH | --decision-log PATH | --tail [--tail-record PATH])
+        [--engine cuda|oracle] [--device DEVICE] [--deadline SECONDS]
+        [--inject SPEC] [--trace-out PATH] [--explain [POD]]
+        [--profile-dir DIR] [--format table|json]
+  python -m open_simulator_tpu_torch.cli timeline -f <simon-config.yaml>
+        (--synthetic N | --trace PATH | --from-decision-log PATH)
+        [--policy SPEC]... [--compare SPEC,...] [--cadence S] [--warmup S]
+        [--max-nodes K] [--window-arrivals N] [--save-trace PATH]
+        [--engine cuda|oracle] [--device DEVICE]
+        [--journal PATH | --resume PATH] [--deadline SECONDS]
+        [--inject SPEC] [--trace-out PATH] [--explain [POD]]
+        [--profile-dir DIR] [--format table|json] [--trace-phases]
   python -m open_simulator_tpu_torch.cli doctor BASELINE CANDIDATE
   python -m open_simulator_tpu_torch.cli version
   python -m open_simulator_tpu_torch.cli gen-doc [--output DIR]
 
 Mirrors the JAX package's CLI (cli.py cmd_apply, cmd_chaos, cmd_defrag,
-cmd_doctor, cmd_version, cmd_gen_doc), whose reports these reproduce
-byte for byte, its exit codes included: 3 for a --deadline partial
-report, 4 for an interrupted one, 2 for bad input or a failed external
-dependency. The scans run on the card unless `--device cpu` is given
-(the kernels' plain versions); without a card the default exits 2 with
-the "needs a GPU" error. `--inject` sites keep the JAX package's names
-(obs/profile.py). Log level comes from the LogLevel env var
-(cmd/simon/simon.go:60-80).
+cmd_shadow, cmd_timeline, cmd_doctor, cmd_version, cmd_gen_doc), whose
+reports these reproduce byte for byte, its exit codes included: 3 for a
+--deadline partial report, 4 for an interrupted one, 2 for bad input or
+a failed external dependency. The scans run on the card unless
+`--device cpu` is given (the kernels' plain versions); without a card
+the default exits 2 with the "needs a GPU" error (`shadow --record` and
+`shadow --engine oracle` run no device work and need no card). The
+engines are `cuda|oracle` where the JAX package says `tpu|oracle`, and
+reports name them so; the shadow report counts the port's launches and
+nvcc builds where the JAX one counts XLA dispatches and recompiles.
+`--inject` sites keep the JAX package's names (obs/profile.py). Log
+level comes from the LogLevel env var (cmd/simon/simon.go:60-80).
 
-Not ported yet: `--mesh` (ROADMAP.md A11) and the other subcommands.
+Not ported yet: `--mesh` (ROADMAP.md A11) and the other subcommands
+(`serve`, `fleet`, `twin`, `top`).
 """
 
 from __future__ import annotations
@@ -492,6 +510,463 @@ def cmd_defrag(args) -> int:
     return 0
 
 
+@_with_obs("shadow")
+def cmd_shadow(args) -> int:
+    """Shadow-scheduler divergence auditor (shadow/): record simon's own
+    decisions as a log, replay a recorded log of real scheduler
+    decisions against the config's cluster, or tail a live cluster —
+    and explain every disagreement. Exit 0 on full agreement, 1 when
+    divergences were found, 2 on input errors (and without a card for
+    the cuda engine), 3/4 on deadline/interrupt partials."""
+    import json
+
+    from .apply.applier import Applier, SimonConfig
+    from .models.validation import InputError
+    from .ops.fused_scan import NoCardError
+    from .runtime import (
+        Budget,
+        ExecutionHalted,
+        ExternalIOError,
+        Interrupted,
+        sigint_to_budget,
+    )
+    from .shadow.log import DecisionLogWriter, cluster_fingerprint, read_decision_log
+    from .shadow.record import record_simulation
+    from .shadow.replay import ShadowReplayer
+    from .utils.trace import ProfileCaptureError
+
+    try:
+        modes = sum(bool(m) for m in (args.record, args.decision_log, args.tail))
+        if modes != 1:
+            raise InputError(
+                "pick exactly one mode: --record PATH (write simon's own "
+                "decisions), --decision-log PATH (replay a recorded log), "
+                "or --tail (poll the config's live cluster)"
+            )
+        config = SimonConfig.from_file(args.simon_config)
+        applier = Applier(config)
+        budget = Budget(args.deadline)
+        if args.tail and not config.kube_config:
+            raise InputError(
+                "--tail needs a kubeConfig cluster in the simon config "
+                "(customConfig clusters have no scheduler to shadow)"
+            )
+        if args.max_catchup < 1:
+            raise InputError(
+                "--max-catchup must be >= 1 (0 would never replay the "
+                "backlog and the mirror would stop advancing)"
+            )
+    except (OSError, ValueError, InputError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    try:
+        with sigint_to_budget(budget):
+            if args.record:
+                cluster = applier.load_cluster()
+                apps = applier.load_apps()
+                steps = []
+                try:
+                    record_simulation(
+                        cluster, apps, budget=budget, steps_out=steps
+                    )
+                except ExecutionHalted as e:
+                    # a deadline/SIGINT still writes the completed
+                    # prefix — a valid, replayable log — and reports it
+                    if steps:
+                        with DecisionLogWriter(
+                            args.record, cluster_fingerprint(cluster)
+                        ) as w:
+                            for s in steps:
+                                w.append(s)
+                    e.partial = {
+                        "recordedSteps": len(steps),
+                        "decisionLog": args.record if steps else None,
+                    }
+                    raise
+                decisions = sum(1 for s in steps if s.kind == "decision")
+                scheduled = sum(
+                    1 for s in steps if s.kind == "decision" and s.node
+                )
+                with DecisionLogWriter(
+                    args.record, cluster_fingerprint(cluster)
+                ) as w:
+                    for s in steps:
+                        w.append(s)
+                print(
+                    f"recorded {decisions} decision(s) ({scheduled} "
+                    f"scheduled, {decisions - scheduled} failed) across "
+                    f"{len(steps)} step(s) to {args.record}"
+                )
+                return 0
+            if args.decision_log:
+                cluster = applier.load_cluster()
+                fp = cluster_fingerprint(cluster)
+                steps, meta = read_decision_log(
+                    args.decision_log,
+                    fingerprint=None
+                    if args.allow_fingerprint_mismatch
+                    else fp,
+                )
+                replayer = ShadowReplayer(cluster, engine=args.engine,
+                                          device=args.device)
+                replayer.report.dropped_records = meta.get("dropped", 0)
+                try:
+                    report = replayer.run(steps, budget=budget)
+                except ExecutionHalted as e:
+                    # the audit so far IS the partial result
+                    e.partial = {"shadow": replayer.finish().as_dict()}
+                    raise
+            else:  # --tail
+                report = _shadow_tail(args, config, budget)
+    except ExecutionHalted as e:
+        return _emit_partial(e, args, "")
+    except KeyboardInterrupt:
+        return _emit_partial(
+            Interrupted("interrupted before any safe boundary"), args, ""
+        )
+    except (OSError, InputError, ExternalIOError, NoCardError, ProfileCaptureError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.format == "json":
+        payload = report.as_dict()
+        explain = _explanations_payload(args)
+        if explain is not None:
+            payload["explain"] = explain
+        print(json.dumps(payload, sort_keys=True))
+    else:
+        print(report.render_text())
+        _print_explanations(args)
+    return 0 if report.divergence_count == 0 else 1
+
+
+def _shadow_tail(args, config, budget):
+    """Live shadow loop: bootstrap the mirror from the first LIST, then
+    poll-diff-replay until --max-polls / --max-steps / deadline.
+
+    Resident-service hardening: the apiserver's circuit breaker gets a
+    recovery cooldown (--breaker-cooldown), a failed poll counts a flap
+    and the loop BACKS OFF and continues instead of aborting the audit,
+    and a recovered flap's backlog replays at most --max-catchup steps
+    per round (bounded catch-up: the mirror converges without one giant
+    stop-the-world replay)."""
+    import collections
+    import time
+
+    from .models.decode import ResourceTypes
+    from .models.kubeclient import KubeClient
+    from .runtime import ExecutionHalted, ExternalIOError
+    from .runtime import inject as _inject
+    from .runtime.retry import backoff_delay, enable_breaker_recovery
+    from .shadow.ingest import ClusterTailer
+    from .shadow.log import DecisionLogWriter, cluster_fingerprint
+    from .shadow.replay import ShadowReplayer
+    from .utils.trace import COUNTERS, GLOBAL
+
+    if args.breaker_cooldown and args.breaker_cooldown > 0:
+        enable_breaker_recovery(args.breaker_cooldown)
+    with KubeClient(config.kube_config) as client:
+        tailer = ClusterTailer(client)
+        nodes, boot_steps = tailer.bootstrap()
+        cluster = ResourceTypes()
+        cluster.nodes = nodes
+        replayer = ShadowReplayer(cluster, engine=args.engine, device=args.device)
+        writer = None
+        if args.tail_record:
+            writer = DecisionLogWriter(
+                args.tail_record, cluster_fingerprint(cluster)
+            )
+        pending = collections.deque()  # observed, not yet replayed
+
+        def apply_step(st):
+            if writer is not None:
+                writer.append(st)
+            replayer.step(st)
+
+        try:
+            for st in boot_steps:
+                apply_step(st)
+            polls = flaps = 0
+            while True:
+                if budget is not None:
+                    budget.check(f"shadow tail (poll {polls})")
+                if args.max_polls is not None and polls >= args.max_polls:
+                    break
+                if (
+                    args.max_steps is not None
+                    and replayer.report.decisions >= args.max_steps
+                ):
+                    break
+                if polls:
+                    time.sleep(args.poll_interval)
+                try:
+                    # chaos seam: `shadow.poll` faults (reset/timeout/
+                    # http:NNN/exio) land like a real apiserver flap
+                    _inject.fire("shadow.poll", poll=polls)
+                    pending.extend(tailer.poll())
+                except (ExternalIOError, OSError) as e:
+                    # apiserver flap: count it, note it, back off
+                    # (bounded, deterministic), keep the audit alive —
+                    # the breaker behind tailer.poll() fails further
+                    # calls fast until its cooldown elapses
+                    flaps += 1
+                    COUNTERS.inc("shadow_tail_flaps_total")
+                    GLOBAL.append_note(
+                        "shadow-tail-flap",
+                        f"poll {polls}: {str(e)[:100]}",
+                    )
+                    logging.warning(
+                        "shadow tail poll failed (%s); continuing", e
+                    )
+                    time.sleep(
+                        min(backoff_delay("shadow-tail", min(flaps, 6)),
+                            args.poll_interval)
+                    )
+                else:
+                    flaps = 0
+                # bounded catch-up: a big post-flap diff replays across
+                # rounds; the backlog depth is observable
+                applied = 0
+                while pending and applied < args.max_catchup:
+                    if budget is not None:
+                        budget.check(f"shadow tail (poll {polls}, catch-up)")
+                    apply_step(pending.popleft())
+                    applied += 1
+                if pending:
+                    COUNTERS.inc("shadow_tail_deferred_steps_total", len(pending))
+                    GLOBAL.append_note(
+                        "shadow-tail-catchup",
+                        f"poll {polls}: {applied} applied, "
+                        f"{len(pending)} deferred to the next round",
+                    )
+                COUNTERS.gauge("shadow_tail_backlog", float(len(pending)))
+                polls += 1
+            # drain any deferred backlog before reporting: everything
+            # observed is audited (budget still owns the halt) — but
+            # --max-steps stays a hard cap: past it the remainder is
+            # RECORDED (--tail-record holds every observed step), not
+            # replayed, so a recovered flap's giant diff cannot blow
+            # through the user's explicit bound
+            while pending:
+                if (
+                    args.max_steps is not None
+                    and replayer.report.decisions >= args.max_steps
+                ):
+                    if writer is not None:
+                        for st in pending:
+                            writer.append(st)
+                    COUNTERS.inc(
+                        "shadow_tail_deferred_steps_total", len(pending)
+                    )
+                    GLOBAL.append_note(
+                        "shadow-tail-catchup",
+                        f"final drain stopped at --max-steps "
+                        f"{args.max_steps}; {len(pending)} observed "
+                        "step(s) recorded but not audited",
+                    )
+                    pending.clear()
+                    break
+                if budget is not None:
+                    budget.check("shadow tail (final catch-up)")
+                apply_step(pending.popleft())
+        except ExecutionHalted as e:
+            # everything audited before the halt is the partial result
+            # (the --tail-record log already holds the observed steps)
+            e.partial = {"shadow": replayer.finish().as_dict()}
+            raise
+        finally:
+            if writer is not None:
+                writer.close()
+    return replayer.finish()
+
+
+@_with_obs("timeline")
+def cmd_timeline(args) -> int:
+    """Discrete-event cluster timeline (timeline/): play a trace of pod
+    arrivals/departures, node churn, and spot reclamations through N
+    autoscaler policies as batched scenario rows over one encoding, and
+    emit per-step cost/utilization/pending curves per policy. Exit 0 on
+    a completed run, 2 on input errors (and without a card unless
+    `--device cpu`), 3/4 on deadline/interrupt partials."""
+    import json
+
+    from .apply.applier import Applier, SimonConfig
+    from .models.validation import InputError
+    from .ops.fused_scan import NoCardError, resolve_device
+    from .parallel.sweep import PrioritySignalError
+    from .runtime import (
+        Budget,
+        ExecutionHalted,
+        ExternalIOError,
+        Interrupted,
+        Journal,
+        sigint_to_budget,
+    )
+    from .runtime.journal import config_fingerprint
+    from .timeline.autoscaler import parse_policies
+    from .timeline.compare import run_policies
+    from .timeline.events import (
+        SyntheticSpec,
+        events_from_decision_log,
+        generate_synthetic,
+        read_trace,
+        trace_fingerprint,
+        write_trace,
+    )
+    from .utils.trace import GLOBAL, ProfileCaptureError
+
+    try:
+        sources = sum(
+            1 for m in (args.synthetic, args.trace, args.from_decision_log)
+            if m
+        )
+        if sources != 1:
+            raise InputError(
+                "pick exactly one trace source: --synthetic N (seeded "
+                "generator), --trace PATH (timeline-trace JSONL), or "
+                "--from-decision-log PATH (shadow decision log)"
+            )
+        if args.synthetic < 0:
+            raise InputError(
+                f"--synthetic N must be >= 1, got {args.synthetic}"
+            )
+        config = SimonConfig.from_file(args.simon_config)
+        applier = Applier(config)
+        cluster = applier.load_cluster()
+        new_node = applier.load_new_node()
+        specs = list(args.policy or [])
+        for group in args.compare or []:
+            specs.extend(s for s in group.split(",") if s)
+        policies = parse_policies(specs or ["threshold"])
+        budget = Budget(args.deadline)
+
+        if args.synthetic:
+            node_names = [
+                (n.get("metadata") or {}).get("name") or ""
+                for n in cluster.nodes
+            ]
+            events = generate_synthetic(
+                SyntheticSpec(
+                    arrivals=args.synthetic,
+                    arrival_rate=args.arrival_rate,
+                    mean_lifetime_s=args.mean_lifetime,
+                    long_running_frac=args.long_running_frac,
+                    spot_frac=args.spot_frac,
+                    spot_hazard=args.spot_hazard,
+                    seed=args.seed,
+                ),
+                node_names,
+            )
+        elif args.trace:
+            events, meta = read_trace(args.trace)
+            if meta.get("dropped"):
+                print(
+                    f"note: dropped {meta['dropped']} torn trailing trace "
+                    "record",
+                    file=sys.stderr,
+                )
+        else:
+            from .shadow.log import cluster_fingerprint, read_decision_log
+
+            steps, _meta = read_decision_log(
+                args.from_decision_log,
+                fingerprint=None
+                if args.allow_fingerprint_mismatch
+                else cluster_fingerprint(cluster),
+            )
+            events = events_from_decision_log(steps)
+        if args.save_trace:
+            fp = write_trace(args.save_trace, events)
+            print(
+                f"timeline trace ({len(events)} events, fingerprint {fp}) "
+                f"written to {args.save_trace}",
+                file=sys.stderr,
+            )
+        # the windows' device, resolved before any work: the card unless
+        # --device names another (no card exits 2, never the CPU)
+        device = resolve_device(args.device)
+    except (OSError, ValueError, ExternalIOError, NoCardError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    journal = None
+    journal_path = args.resume or args.journal
+    GLOBAL.reset()
+    try:
+        if journal_path:
+            from .shadow.log import cluster_fingerprint
+
+            # cluster + newNode identity MUST be in the fingerprint:
+            # journaled placements are node indices of one encoding,
+            # and replaying them against a different cluster would be
+            # silently wrong (the plan_fingerprint rule in apply/chaos)
+            fp = config_fingerprint(
+                cluster_fingerprint(cluster),
+                new_node,
+                trace_fingerprint(events),
+                [p.name for p in policies],
+                {
+                    "cadence": args.cadence,
+                    "warmup": args.warmup,
+                    "maxNodes": args.max_nodes,
+                    "windowArrivals": args.window_arrivals,
+                    "engine": args.engine,
+                },
+            )
+            journal = (
+                Journal.resume(args.resume, fp)
+                if args.resume
+                else Journal.open(args.journal, fp)
+            )
+        with sigint_to_budget(budget):
+            comparison = run_policies(
+                cluster,
+                events,
+                policies,
+                new_node_spec=new_node,
+                max_nodes=args.max_nodes,
+                cadence_s=args.cadence,
+                warmup_s=args.warmup,
+                window_arrivals=args.window_arrivals,
+                engine=args.engine,
+                budget=budget,
+                journal=journal,
+                device=device,
+            )
+    except ExecutionHalted as e:
+        return _emit_partial(e, args, journal_path)
+    except KeyboardInterrupt:
+        return _emit_partial(
+            Interrupted("interrupted before any safe boundary"),
+            args,
+            journal_path,
+        )
+    except PrioritySignalError as e:
+        print(
+            f"error: the timeline needs the batched scan path: {e}",
+            file=sys.stderr,
+        )
+        return 2
+    except (OSError, InputError, ProfileCaptureError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        if journal is not None:
+            journal.close()
+    if args.trace_phases:
+        print(GLOBAL.as_json(), file=sys.stderr)
+    if args.format == "json":
+        payload = comparison.as_dict()
+        explain = _explanations_payload(args)
+        if explain is not None:
+            payload["explain"] = explain
+        print(json.dumps(payload))
+    else:
+        print(comparison.render_text())
+        _print_explanations(args)
+    return 0
+
+
 def cmd_doctor(args) -> int:
     """Perf-regression doctor (obs/doctor.py): diff a candidate bench
     record against a baseline (the JAX package's bench-record format)
@@ -786,6 +1261,264 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_trace_flag(p_chaos)
     p_chaos.set_defaults(func=cmd_chaos)
+
+    p_shadow = sub.add_parser(
+        "shadow",
+        help="shadow-scheduler divergence auditor (replay/tail real decisions)",
+        description="Audit simon against a real scheduler's decisions: "
+        "replay each recorded (or live-tailed) scheduling decision "
+        "through the warm oracle/scan against the same evolving cluster "
+        "state, classify every step as agree / node-divergence / "
+        "feasibility-divergence / ordering-divergence, and attach "
+        "per-node filter verdicts and weighted score vectors to every "
+        "disagreement. --record writes a log of simon's OWN serial "
+        "decisions (the self-conformance fixture and trace generator); "
+        "--decision-log replays a recorded log against the config's "
+        "cluster; --tail polls the config's live kubeConfig cluster. "
+        "Replay commits the REAL decision after each probe, so the "
+        "mirror tracks reality; every probe launches the already-built "
+        "kernel (zero nvcc builds after the first step of each shape — "
+        "measured in the report). Exit 0 on full agreement, 1 when "
+        "divergences were found.",
+    )
+    p_shadow.add_argument(
+        "-f", "--simon-config", required=True, help="simon config file path"
+    )
+    p_shadow.add_argument(
+        "--record",
+        default="",
+        metavar="PATH",
+        help="record simon's own serial decisions for the config's "
+        "cluster+apps as a fingerprinted decision log (fsync'd JSONL)",
+    )
+    p_shadow.add_argument(
+        "--decision-log",
+        default="",
+        metavar="PATH",
+        help="replay this decision log against the config's cluster and "
+        "report the divergence taxonomy (fingerprint mismatch refuses "
+        "loudly)",
+    )
+    p_shadow.add_argument(
+        "--tail",
+        action="store_true",
+        help="poll the config's live kubeConfig cluster and audit its "
+        "scheduler's decisions as they appear",
+    )
+    p_shadow.add_argument(
+        "--tail-record",
+        default="",
+        metavar="PATH",
+        help="with --tail: also write every observed step to this "
+        "decision log (doubles as an arrival trace; its fingerprint is "
+        "the live nodes at bootstrap, and live clusters drift, so "
+        "replaying it later usually needs --allow-fingerprint-mismatch)",
+    )
+    p_shadow.add_argument(
+        "--allow-fingerprint-mismatch",
+        action="store_true",
+        help="replay a decision log whose cluster fingerprint does not "
+        "match the config's cluster (needed for --tail-record logs of "
+        "drifting live clusters; divergences may then reflect cluster "
+        "drift, not scheduler disagreement)",
+    )
+    p_shadow.add_argument(
+        "--engine",
+        choices=["cuda", "oracle"],
+        default="cuda",
+        help="probe engine: cuda = one single-pod masked scan a step, "
+        "one kernel launch; oracle = the serial filter+score walk",
+    )
+    _add_device_flag(p_shadow)
+    p_shadow.add_argument(
+        "--poll-interval",
+        type=float,
+        default=10.0,
+        metavar="SECONDS",
+        help="--tail polling interval",
+    )
+    p_shadow.add_argument(
+        "--max-polls",
+        type=int,
+        default=None,
+        metavar="N",
+        help="--tail: stop after N poll rounds (default: until deadline "
+        "or SIGINT)",
+    )
+    p_shadow.add_argument(
+        "--max-steps",
+        type=int,
+        default=None,
+        metavar="N",
+        help="--tail: stop once N decisions have been audited",
+    )
+    p_shadow.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="wall-clock budget: on expiry (or SIGINT) the audit stops "
+        "at the next step boundary and reports what it has (exit 3/4)",
+    )
+    p_shadow.add_argument(
+        "--max-catchup",
+        type=int,
+        default=500,
+        metavar="N",
+        help="--tail: apply at most N observed steps per poll round; "
+        "the backlog a recovered apiserver flap dumps on the tailer "
+        "replays across rounds instead of stalling the loop",
+    )
+    p_shadow.add_argument(
+        "--breaker-cooldown",
+        type=float,
+        default=30.0,
+        metavar="SECONDS",
+        help="--tail: circuit-breaker recovery cooldown — after an "
+        "apiserver outage opens the breaker, a half-open probe retries "
+        "this often; the tail survives the flap instead of failing "
+        "forever (0 disables recovery: one-shot CLI posture)",
+    )
+    _add_inject_flag(p_shadow)
+    _add_obs_flags(p_shadow)
+    p_shadow.add_argument(
+        "--format", choices=["table", "json"], default="table",
+        help="report output format",
+    )
+    p_shadow.set_defaults(func=cmd_shadow)
+
+    p_timeline = sub.add_parser(
+        "timeline",
+        help="discrete-event cluster timeline with autoscaler policy comparison",
+        description="Play a trace of pod arrivals/departures, node "
+        "churn, and spot reclamations through pluggable autoscaler "
+        "policies (static:K / threshold / probe, optionally @nospread) "
+        "over the config's cluster, with the config's newNode spec as "
+        "the candidate pool. Consecutive arrivals batch into "
+        "encode-once masked scan windows and every policy rides the "
+        "same launch of the batch kernel's pins-first mode as one "
+        "scenario row, so a 1000-step trace costs a handful of "
+        "launches. Emits per-step cost/utilization/pending curves per "
+        "policy. Exit 0 on a completed run, 2 on input errors, 3/4 on "
+        "deadline/interrupt partials.",
+    )
+    p_timeline.add_argument(
+        "-f", "--simon-config", required=True, help="simon config file path"
+    )
+    p_timeline.add_argument(
+        "--synthetic",
+        type=int,
+        default=0,
+        metavar="N",
+        help="generate a seeded synthetic trace of N Poisson pod "
+        "arrivals with exponential lifetimes (and spot reclaims when "
+        "--spot-frac > 0)",
+    )
+    p_timeline.add_argument(
+        "--trace",
+        default="",
+        metavar="PATH",
+        help="replay this timeline-trace JSONL (written by --save-trace)",
+    )
+    p_timeline.add_argument(
+        "--from-decision-log",
+        default="",
+        metavar="PATH",
+        help="convert a shadow decision log (simon shadow --record / "
+        "--tail-record) into a timeline trace and replay REAL cluster "
+        "history through the policies (decisions become arrivals, "
+        "evictions departures, node churn joins/drains)",
+    )
+    p_timeline.add_argument(
+        "--allow-fingerprint-mismatch",
+        action="store_true",
+        help="accept a --from-decision-log whose cluster fingerprint "
+        "does not match the config's cluster",
+    )
+    p_timeline.add_argument(
+        "--save-trace",
+        default="",
+        metavar="PATH",
+        help="also write the (generated or converted) trace as "
+        "fingerprinted timeline-trace JSONL",
+    )
+    p_timeline.add_argument(
+        "--seed", type=int, default=1, help="synthetic-trace seed (deterministic)"
+    )
+    p_timeline.add_argument(
+        "--arrival-rate", type=float, default=1.0, metavar="PODS/S",
+        help="synthetic Poisson arrival rate",
+    )
+    p_timeline.add_argument(
+        "--mean-lifetime", type=float, default=120.0, metavar="SECONDS",
+        help="synthetic mean pod lifetime (exponential)",
+    )
+    p_timeline.add_argument(
+        "--long-running-frac", type=float, default=0.5, metavar="FRAC",
+        help="fraction of synthetic pods that never depart",
+    )
+    p_timeline.add_argument(
+        "--spot-frac", type=float, default=0.0, metavar="FRAC",
+        help="fraction of base nodes that are spot instances (0 = none)",
+    )
+    p_timeline.add_argument(
+        "--spot-hazard", type=float, default=1.0 / 300.0, metavar="RATE",
+        help="spot reclaim hazard rate per node per second",
+    )
+    p_timeline.add_argument(
+        "--policy",
+        action="append",
+        metavar="SPEC",
+        help="policy to run (repeatable): static:K, threshold"
+        "[:lo=30,patience=2,step=0], probe; append @nospread for the "
+        "PodTopologySpread-off score profile. Default: threshold",
+    )
+    p_timeline.add_argument(
+        "--compare",
+        action="append",
+        metavar="SPEC,SPEC,...",
+        help="comma-separated policy list (same specs as --policy)",
+    )
+    p_timeline.add_argument(
+        "--cadence", type=float, default=60.0, metavar="SECONDS",
+        help="autoscaler decision cadence (decisions run at t=0 too)",
+    )
+    p_timeline.add_argument(
+        "--warmup", type=float, default=0.0, metavar="SECONDS",
+        help="node warm-up delay: a scale-up's candidates become "
+        "schedulable this long after the decision",
+    )
+    p_timeline.add_argument(
+        "--max-nodes", type=int, default=8, metavar="K",
+        help="autoscaler candidate pool size (copies of the config's "
+        "newNode spec; 0 disables scaling)",
+    )
+    p_timeline.add_argument(
+        "--window-arrivals", type=int, default=256, metavar="N",
+        help="max arrivals batched into one scan window",
+    )
+    p_timeline.add_argument(
+        "--engine",
+        choices=["cuda", "oracle"],
+        default="cuda",
+        help="window engine: cuda = batched masked scan rows, one launch "
+        "a window, oracle = the serial host walk (the conformance "
+        "reference; the encoding still lives on --device)",
+    )
+    _add_device_flag(p_timeline)
+    _add_guard_flags(p_timeline)
+    _add_obs_flags(p_timeline)
+    p_timeline.add_argument(
+        "--format", choices=["table", "json"], default="table",
+        help="result output format",
+    )
+    p_timeline.add_argument(
+        "--trace-phases",
+        action="store_true",
+        help="print per-phase wall-clock JSON to stderr (--trace is the "
+        "trace-file input here, unlike the other commands)",
+    )
+    p_timeline.set_defaults(func=cmd_timeline)
 
     p_doctor = sub.add_parser(
         "doctor",

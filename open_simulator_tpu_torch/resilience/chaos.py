@@ -302,8 +302,8 @@ def perturbed_cluster(cluster, cordon=(), taints=(), degrade=None):
 def displaced_free_mask(placed, valid, had, active) -> np.ndarray:
     """Scheduler-placed pods whose node is outside `valid`: freed to
     reschedule through the full filter+score cycle — the chaos
-    displacement rule (the reference's timeline stepper shares it for
-    node drains and spot reclaims; not ported, ROADMAP.md A6). Node-bound pods
+    displacement rule (the timeline stepper shares it for node drains,
+    spot reclaims and scale-downs, timeline/stepper.py). Node-bound pods
     (`had` — original spec.nodeName) and pods inactive in the scenario
     (daemonset pods of the failed node) are NOT displaced: they are
     lost with the node."""

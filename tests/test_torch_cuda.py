@@ -1191,3 +1191,92 @@ def test_cuda_predicted_split_on_the_card(monkeypatch):
     assert sizes == [1, 1]
     for g, r in zip(rows, whole):
         _same(g, r)
+
+
+# ---- the shadow replay's single-pod probe and the timeline's windows
+
+@pytest.mark.cuda
+def test_cuda_shadow_probe_at_ten_thousand_nodes_equals_plain():
+    """Each decision of a shadow replay at the default scenario's 10,000
+    nodes is one single-pod launch of the base kernel on the card, and
+    every probe answers what the plain version answers on the CPU (the
+    real decisions commit alike, so the mirrors stay equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from chip_smoke import build_scenario
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.shadow.log import Step
+    from open_simulator_tpu_torch.shadow.replay import ShadowReplayer
+    from open_simulator_tpu_torch.twin.deltas import state_dict
+
+    nodes, pods = build_scenario(10_000, 40)
+    steps = [Step(seq=0, kind="delta", deltas=[
+        {"op": "place_pod", "pod": dict(copy.deepcopy(pods[i]), spec=dict(
+            pods[i]["spec"], nodeName=f"node-{i * 97:05d}"))} for i in range(10)])]
+    steps += [Step(seq=i, kind="decision", pod=copy.deepcopy(pods[i]),
+                   node=f"node-{(i * 389) % 10_000:05d}") for i in range(10, 40)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        cluster = ResourceTypes()
+        cluster.nodes = copy.deepcopy(nodes)
+        rp = ShadowReplayer(cluster, engine="cuda", device=device, explain_divergences=False)
+        before = fused_scan.LAUNCHES[fused_scan.KERNEL_NAME]
+        outcomes = [rp.step(copy.deepcopy(st)) for st in steps]
+        launched = fused_scan.LAUNCHES[fused_scan.KERNEL_NAME] - before
+        out[device] = ([(o.cls, o.simon_node) for o in outcomes if o is not None],
+                       state_dict(rp._app), launched)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][2] == 30 and out["cpu"][2] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_timeline_windows_equal_plain():
+    """A timeline at 1,000 nodes (day-0 pods on every untainted node) on
+    the card: every window's and probe decision's pins-first launch
+    equals run_fused_scan_batch on the CPU plain version, and the report
+    equals the same run on a CPU device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from chip_smoke import build_scenario, cap_node
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.timeline.autoscaler import parse_policies
+    from open_simulator_tpu_torch.timeline.compare import run_policies
+    from open_simulator_tpu_torch.timeline.events import SyntheticSpec, generate_synthetic
+
+    nodes, _ = build_scenario(1_000, 0)
+    day0 = [make_fake_pod(f"day0-{i}", "day0", str(int(n["status"]["allocatable"]["cpu"]) - 1),
+                          "2Gi", with_node_name(n["metadata"]["name"]))
+            for i, n in enumerate(nodes) if not n.get("spec", {}).get("taints")]
+    spec = SyntheticSpec(arrivals=1_500, arrival_rate=20.0, mean_lifetime_s=300.0,
+                         long_running_frac=0.7, spot_frac=0.01, spot_hazard=1 / 2000.0, seed=11)
+    events = generate_synthetic(spec, [n["metadata"]["name"] for n in nodes])
+    calls = []
+    real = fused_scan.run_fused_scan_batch
+
+    def recorded(plan, cls, scenarios, pins_first=False, **kw):
+        outs = real(plan, cls, scenarios, pins_first=pins_first, **kw)
+        if plan.device.type == "cuda":
+            calls.append((plan, cls, list(scenarios), pins_first, outs))
+        return outs
+
+    reports = {}
+    fused_scan.run_fused_scan_batch = recorded
+    try:
+        for device in ("cuda", "cpu"):
+            cluster = ResourceTypes()
+            cluster.nodes = copy.deepcopy(nodes)
+            cluster.pods = copy.deepcopy(day0)
+            cmp_ = run_policies(cluster, copy.deepcopy(events),
+                                parse_policies(["static:0", "threshold", "probe"]),
+                                new_node_spec=cap_node("template", 96, 384), max_nodes=6,
+                                cadence_s=30.0, warmup_s=10.0, device=device)
+            reports[device] = cmp_.as_dict()
+    finally:
+        fused_scan.run_fused_scan_batch = real
+    assert reports["cuda"] == reports["cpu"]
+    assert calls and len(calls) == reports["cuda"]["dispatches"]
+    assert all(pf for *_x, pf, _o in calls)
+    for plan, cls, scenarios, pf, outs in calls[:6] + calls[-2:]:
+        want = fused_scan.run_fused_scan_batch(plan.to("cpu"), cls, scenarios, pins_first=True)
+        for g, w in zip(outs, want):
+            _same((g[0].cpu(), {k: v.cpu() for k, v in g[1].items()}), w)

@@ -25,7 +25,11 @@ for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.c
              "ops.scan", "tools.stream_bench", "utils.nvcc",
              "runtime.journal", "runtime.guard", "scheduler.snapshot", "parallel.defrag",
              "resilience", "resilience.chaos", "models.kubeclient", "apply.interactive",
-             "obs.costs", "obs.ledger", "obs.histo", "obs.profile", "obs.doctor"):
+             "obs.costs", "obs.ledger", "obs.histo", "obs.profile", "obs.doctor",
+             "twin", "twin.deltas", "shadow", "shadow.log", "shadow.record",
+             "shadow.report", "shadow.replay", "shadow.ingest", "timeline",
+             "timeline.events", "timeline.autoscaler", "timeline.report",
+             "timeline.stepper", "timeline.compare"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -137,9 +141,53 @@ def test_observability_paths_import_no_jax(tmp_path):
     assert "PARTIAL RESULT" in out.stdout and "simon-torch version" in out.stdout
 
 
+# the slice-9 paths in a fresh interpreter, on the CPU: shadow's record
+# and replay on both engines, the timeline from a synthetic trace and
+# from the recorded log, and the twin's delta substrate
+_TIMELINE = r"""
+import runpy, sys
+tmp = sys.argv[1]
+log = tmp + "/sd.jsonl"
+for argv, want in (
+    (["shadow", "-f", "example/simon-config.yaml", "--record", log], (0,)),
+    (["shadow", "-f", "example/simon-config.yaml", "--decision-log", log,
+      "--format", "json", "--device", "cpu"], (0,)),
+    (["shadow", "-f", "example/simon-config.yaml", "--decision-log", log,
+      "--engine", "oracle"], (0,)),
+    (["timeline", "-f", "example/simon-config.yaml", "--synthetic", "60",
+      "--compare", "static:1,threshold,probe", "--max-nodes", "2",
+      "--save-trace", tmp + "/tl.jsonl", "--device", "cpu"], (0,)),
+    (["timeline", "-f", "example/simon-config.yaml", "--from-decision-log", log,
+      "--policy", "probe", "--format", "json", "--device", "cpu"], (0,)),
+):
+    sys.argv = ["cli", *argv]
+    try:
+        runpy.run_module("open_simulator_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code in want, (argv, e.code)
+from open_simulator_tpu_torch.shadow.log import read_decision_log
+from open_simulator_tpu_torch.twin import deltas_to_events, steps_to_deltas
+steps, _ = read_decision_log(log)
+assert deltas_to_events(steps_to_deltas(steps))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_timeline_and_shadow_paths_import_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _TIMELINE, str(tmp_path)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"agreementRate": 1.0' in out.stdout and "Shadow Audit Report" in out.stdout
+    assert '"traceFingerprint"' in out.stdout and "per-step curves" in out.stdout
+
+
 @pytest.mark.parametrize("argv", [
     ["chaos", "-f", "example/simon-gpushare-config.yaml"],
     ["defrag", "--snapshot", "SNAP"],
+    ["timeline", "-f", "example/simon-config.yaml", "--synthetic", "5"],
+    ["shadow", "-f", "example/simon-config.yaml", "--decision-log", "LOG"],
 ])
 def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
     """Without `--device cpu` the new commands ask for the card: with
@@ -159,10 +207,15 @@ def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
         "pods": [{"metadata": {"name": "p", "namespace": "d"},
                   "spec": {"nodeName": "n0", "containers": [{"name": "c", "resources": {
                       "requests": {"cpu": "1", "memory": "1Gi"}}}]}}]}))
+    log = tmp_path / "log.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["shadow", "-f", "example/simon-config.yaml", "--record",
+                         str(log)]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     err = io.StringIO()
+    subs = {"SNAP": str(snap), "LOG": str(log)}
     with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
-        rc = cli.main([str(snap) if a == "SNAP" else a for a in argv])
+        rc = cli.main([subs.get(a, a) for a in argv])
     assert rc == 2 and "needs a GPU" in err.getvalue()
 
 
