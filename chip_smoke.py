@@ -154,7 +154,27 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     agreement 1.0, one `fused_scan_base` launch a decision, zero nvcc
     builds; `timeline --from-decision-log` over the log; at a cut the
     log's bytes and the replay report == the JAX package's
-    (tools/jax_shadow_answer.py, the engine and compiler fields aside).
+    (tools/jax_shadow_answer.py, the engine and compiler fields aside);
+24. the what-if daemon (`simon serve`'s Session and ServeDaemon, in this
+    process) on SERVE_NODES nodes of 64 cores and 256 GiB in 8 zones:
+    (a) SERVE_PODS bare pods committed on the card (one B1 launch), then
+    8 evictions near the tail and 8 arrivals through
+    `Session.apply_delta`, each a suffix re-simulation (one B1 launch):
+    every delta applied, suffix pods x 20 < deltas x roster, the
+    re-simulated state == a fresh committed scan, the committed scan ==
+    B1's plain version over its first SERVE_PLAIN_PODS pods; (b) an
+    in-process daemon (--max-batch 8) under a warm and a measured storm
+    of 8 client threads x 6 POST /v1/simulate of a 50-replica
+    Deployment, then POST /v1/cluster-delta, GET /v1/state-digest and a
+    what-if: every reply 200, fewer ticks than requests, one
+    `scenario_scan` launch of the batch kernel a tick (== the dispatch
+    counter), the first tick's launch == run_fused_scan_batch on the CPU
+    plain version, 4 sampled bodies and the what-if == a standalone
+    simulate(engine="cuda"); qps, latency, launches a request, the
+    launches' card time by CUDA events and the host phases; (c) a cut
+    of 500 nodes x 2,000 pods through the same daemon, two ticks around
+    four deltas over HTTP: the bodies and state digests == the JAX
+    package's (tools/jax_serve_answer.py).
 
 Phase 2 also times B1 through the instrumented wrapper against the bare
 launcher in turns; phases 2-10 and 17b hold one launch of each
@@ -163,14 +183,14 @@ allocator's measured peak rise; phase 17b also runs under `--inject
 ledger.predict_fit=lie:high` at its committed count: the rows split
 before launch, the same report, no OOM caught.
 
-Phases 14-23 fail the run when a trace note reports a downgrade or the
+Phases 14-24 fail the run when a trace note reports a downgrade or the
 serial floor, unless the phase injected that fault, as do the CLI runs
 of phases 6 and 11.
 
-    python3 chip_smoke.py --only 22,23
+    python3 chip_smoke.py --only 22,23,24
 
 runs phase 1 and the named phases that stand alone (14, 17, 18, 19, 21,
-22, 23), and prints no kernels or ok line.
+22, 23, 24), and prints no kernels or ok line.
 
 Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
@@ -198,7 +218,8 @@ their `plain_ms` the plain version over the first `plain_pods` and their
 launches of phase 11's full-width plan; the `fused_scan_batch
 (pins-first)` entry is phase 17b's launch, with phase 17's and phase
 22's launches and its us a pinned and a free pod step; the
-`fused_scan_base` entry's launches are phase 3's and phase 23's, each
+`fused_scan_base` entry's launches are phase 3's, phase 23's and phase
+24's, the `fused_scan_batch` entry's phase 6's and phase 24's, each
 entry's `launches_by_phase` splits them), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
@@ -373,6 +394,39 @@ JAX_SHADOW_ANSWER = "250ba829407fe5b662460d960f16153396e6c093da8bd30acc219ca4af8
 # when a shadow report is held against the JAX package's
 SHADOW_ASIDE = ("engine", "obs", "recompileSteps", "newShapeRecompiles", "warmRecompiles",
                 "buildSteps", "newShapeBuilds", "warmBuilds")
+# phase 24: the what-if daemon (bench.py run_delta_resim's committed scan
+# and deltas, run_serve_qps's storms at this cluster): SERVE_NODES nodes
+# of 64 cores and 256 GiB in SERVE_ZONES zones, SERVE_PODS bare pods of
+# 500m / 1 GiB committed; SERVE_EVICTIONS evictions near the tail and
+# SERVE_ARRIVALS arrivals; SERVE_CLIENTS threads x SERVE_PER_CLIENT
+# POSTs of a SERVE_REPLICAS-replica Deployment at --max-batch
+# SERVE_MAX_BATCH; the committed scan held against B1's plain version
+# over its first SERVE_PLAIN_PODS pods; SERVE_SAMPLES bodies against a
+# standalone simulate(). The JAX package's answer
+# (tools/jax_serve_answer.py) for the cut of SERVE_JAX_NODES nodes x
+# SERVE_JAX_PODS pods: a tick of the SERVE_CUT_REQUESTS, two evictions
+# and two arrivals over HTTP, the same requests again
+SERVE_NODES = N_NODES
+SERVE_PODS = N_PODS
+SERVE_ZONES = 8
+SERVE_EVICTIONS = 8
+SERVE_ARRIVALS = 8
+SERVE_EVICT_FROM = 19_200
+SERVE_PLAIN_PODS = 5_000
+SERVE_CLIENTS = 8
+SERVE_PER_CLIENT = 6
+SERVE_REPLICAS = 50
+SERVE_MAX_BATCH = 8
+SERVE_SAMPLES = 4
+SERVE_JAX_NODES = 500
+SERVE_JAX_PODS = 2_000
+# (replicas, cpu, memory, zone selector): one asks more cores than any
+# node has, so its body carries the failure reasons
+SERVE_CUT_REQUESTS = ((50, "500m", "1Gi", None), (20, "2", "4Gi", None),
+                      (5, "100", "1Gi", None), (80, "250m", "512Mi", None),
+                      (1, "8", "32Gi", None), (30, "1", "2Gi", "z3"),
+                      (10, "4", "8Gi", None), (64, "500m", "1Gi", "z5"))
+JAX_SERVE_ANSWER = "d06907cdcc28769b05b9e583d094f7c42071909fbc76a68fbac8405673ce9c3d"
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1578,12 +1632,12 @@ def check_notes(label, notes, allow=()) -> None:
         raise AssertionError(f"{label}: degraded: {bad}")
 
 
-def record_rows(pins_first_only=False):
+def record_rows(pins_first_only=False, site=None):
     """Patch fused_scan.run_fused_scan_batch (the chunk launch of defrag
     and of the outage rows) to record every call, or with
-    `pins_first_only` every pins-first call: (plan, class of pod,
-    scenarios, pins_first, outputs, start and end CUDA events). Returns
-    (calls, restore)."""
+    `pins_first_only` every pins-first call, or with `site` every call
+    at that launch site: (plan, class of pod, scenarios, pins_first,
+    outputs, start and end CUDA events). Returns (calls, restore)."""
     import torch
 
     from open_simulator_tpu_torch.ops import fused_scan
@@ -1592,7 +1646,7 @@ def record_rows(pins_first_only=False):
     calls = []
 
     def rows(plan, cls, scenarios, pins_first=False, **kw):
-        if pins_first_only and not pins_first:
+        if (pins_first_only and not pins_first) or (site and kw.get("site") != site):
             return real(plan, cls, scenarios, pins_first=pins_first, **kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2872,6 +2926,435 @@ def phase23(gpu, root) -> dict:
     return {"launches": n_dec, "secs": secs, "record_s": rec_s, "tl_launches": tl_launches}
 
 
+def build_serve_cluster(n_nodes=SERVE_NODES, n_pods=SERVE_PODS):
+    """Phase 24's cluster: nodes of 64 cores and 256 GiB in SERVE_ZONES
+    zones, and bare pods of 500m / 1 GiB (bench.py run_delta_resim)."""
+    nodes = [{"kind": "Node",
+              "metadata": {"name": f"serve-n-{i:05d}",
+                           "labels": {"kubernetes.io/hostname": f"serve-n-{i:05d}",
+                                      "zone": f"z{i % SERVE_ZONES}"}},
+              "status": {"allocatable": {"cpu": "64", "memory": "256Gi", "pods": "110"}}}
+             for i in range(n_nodes)]
+    pods = [serve_pod(f"serve-p-{i:05d}") for i in range(n_pods)]
+    return nodes, pods
+
+
+def serve_pod(name, cpu="500m", mem="1Gi"):
+    return {"kind": "Pod", "metadata": {"name": name, "namespace": "serve"},
+            "spec": {"containers": [{"name": "c", "image": "app", "resources": {
+                "requests": {"cpu": cpu, "memory": mem}}}]}}
+
+
+def serve_envelope(name, replicas=SERVE_REPLICAS, cpu="500m", mem="1Gi", zone=None) -> dict:
+    """The POST /v1/simulate body of one Deployment."""
+    spec = {"containers": [{"name": "c", "image": f"img-{name}", "resources": {
+        "requests": {"cpu": cpu, "memory": mem}}}]}
+    if zone:
+        spec["nodeSelector"] = {"zone": zone}
+    dep = {"kind": "Deployment", "metadata": {"name": name, "namespace": "whatif"},
+           "spec": {"replicas": replicas, "template": {"spec": spec}}}
+    return {"apps": [{"name": name, "yaml": json.dumps(dep)}]}
+
+
+def serve_deltas(pods, evict_at, n_arrive, tag="late"):
+    """Delta records: evict the pods at positions `evict_at`, then
+    `n_arrive` new pods."""
+    recs = [{"kind": "pod_evict", "namespace": "serve", "name": pods[i]["metadata"]["name"]}
+            for i in evict_at]
+    recs += [{"kind": "pod_arrive", "pod": serve_pod(f"serve-{tag}-{k}")}
+             for k in range(n_arrive)]
+    return recs
+
+
+def http_json(base, path, doc=None, timeout=600):
+    """(status, headers, body bytes) of a GET (doc None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def serve_storm(base, envelopes, threads):
+    """POST every envelope, `threads` clients at once, each its share in
+    order: [(status, headers, body, seconds)] in envelope order, and the
+    wall time."""
+    import threading
+
+    out = [None] * len(envelopes)
+
+    def client(k):
+        for i in range(k, len(envelopes), threads):
+            t0 = time.perf_counter()
+            status, headers, body = http_json(base, "/v1/simulate", envelopes[i])
+            out[i] = (status, headers, body, time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    return out, time.perf_counter() - t0
+
+
+def serve_tick(daemon, base, envelopes):
+    """POST the envelopes while the dispatcher is held, release it once
+    all are queued: one coalesced tick (up to --max-batch). Returns the
+    replies in envelope order."""
+    import threading
+
+    daemon.coalescer.hold.clear()
+    time.sleep(0.3)  # the dispatcher parks at the hold between ticks
+    out = [None] * len(envelopes)
+
+    def client(i):
+        out[i] = http_json(base, "/v1/simulate", envelopes[i])
+
+    workers = [threading.Thread(target=client, args=(i,)) for i in range(len(envelopes))]
+    for w in workers:
+        w.start()
+    t0 = time.perf_counter()
+    while daemon.coalescer.depth < len(envelopes) and time.perf_counter() - t0 < 120:
+        time.sleep(0.01)
+    daemon.coalescer.hold.set()
+    for w in workers:
+        w.join()
+    return out
+
+
+def serve_cut_digest(Session, ServeDaemon, ResourceTypes, reset_name_counter, **session_kw):
+    """Phase 24c's cut through the Session and ServeDaemon classes given
+    (with that package's ResourceTypes and name counter) in this
+    process: SERVE_JAX_NODES x SERVE_JAX_PODS committed, one tick of the
+    SERVE_CUT_REQUESTS, two evictions near the tail and two arrivals over
+    POST /v1/cluster-delta, GET /v1/state-digest, the requests again in
+    one tick. Returns the sha256 of the bodies, the digest document and
+    the committed scan's state digest, in that order, and the seconds it
+    took (tools/jax_serve_answer.py runs it on the JAX package; the
+    port's must print the same)."""
+    import hashlib
+    import threading
+
+    t0 = time.perf_counter()
+    nodes, pods = build_serve_cluster(SERVE_JAX_NODES, SERVE_JAX_PODS)
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, list(pods)
+    reset_name_counter()
+    session = Session(cluster, **session_kw)
+    daemon = ServeDaemon(session, port=0, max_batch=len(SERVE_CUT_REQUESTS), queue_depth=64)
+    daemon.coalescer.hold = threading.Event()
+    daemon.start()
+    h = hashlib.sha256()
+    try:
+        base = f"http://{daemon.host}:{daemon.port}"
+        envelopes = [serve_envelope(f"cut-{i}", r, cpu, mem, zone)
+                     for i, (r, cpu, mem, zone) in enumerate(SERVE_CUT_REQUESTS)]
+        first = serve_tick(daemon, base, envelopes)
+        status, _h, delta = http_json(base, "/v1/cluster-delta", {"deltas": serve_deltas(
+            pods, (len(pods) - 50, len(pods) - 20), 2)})
+        d_status, _h, digest = http_json(base, "/v1/state-digest")
+        committed = json.dumps(session._committed_scan().state_digest(),
+                               sort_keys=True).encode()
+        second = serve_tick(daemon, base, envelopes)
+    finally:
+        daemon.coalescer.hold.set()
+        daemon.shutdown()
+    replies = first + second
+    if status != 200 or d_status != 200 or any(r[0] != 200 for r in replies):
+        raise AssertionError(f"the serve cut ({Session.__module__}): statuses {[r[0] for r in replies]}, "
+                             f"delta {status} {delta[:200]!r}, digest {d_status}")
+    for r in first:
+        h.update(r[2])
+    h.update(digest)
+    h.update(committed)
+    for r in second:
+        h.update(r[2])
+    return h.hexdigest(), time.perf_counter() - t0
+
+
+def standalone_body(cluster, envelope) -> bytes:
+    """A standalone simulate(engine="cuda") of one request on a fresh
+    copy of the cluster, name counter reset: the body a one-shot run
+    would answer."""
+    import copy
+
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.scheduler.core import simulate
+    from open_simulator_tpu_torch.serve.server import parse_request_body
+    from open_simulator_tpu_torch.serve.session import result_payload
+
+    req, _d, _t = parse_request_body(json.dumps(envelope).encode(), "application/json")
+    reset_name_counter()
+    return result_payload(simulate(copy.deepcopy(cluster), req.apps, engine="cuda"))
+
+
+def phase24(gpu, root=None) -> dict:
+    """The what-if daemon at full width on the card, with the counters
+    at 0 for each of its two driven parts: (a) the committed scan of
+    SERVE_PODS pods on SERVE_NODES nodes and SERVE_EVICTIONS +
+    SERVE_ARRIVALS deltas, the re-simulated state == a fresh committed
+    scan, the committed scan == B1's plain version over its first
+    SERVE_PLAIN_PODS pods, the widest suffix re-simulation's launch ==
+    B1's plain version on its inputs; (b) an in-process daemon under two
+    storms of SERVE_CLIENTS x SERVE_PER_CLIENT requests: every reply 200
+    from the coalesced scan (no request routed serial, no batch error),
+    fewer launches than requests, one `scenario_scan` launch a tick, the
+    first tick's launch == the CPU plain version, sampled bodies ==
+    standalone simulate(), then a delta and the state digest over HTTP
+    and a what-if after them; (c) the cut == the JAX package's digest."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.incremental.resim import CommittedScan
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.obs.histo import HISTOS, percentile_from_counts
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.serve.server import ServeDaemon
+    from open_simulator_tpu_torch.serve.session import Session
+    from open_simulator_tpu_torch.twin.deltas import ClusterDelta
+    from open_simulator_tpu_torch.utils.trace import COUNTERS, GLOBAL
+
+    def moved(before):
+        return {k: COUNTERS.get(k) - v for k, v in before.items()}
+
+    keys = ("launches_scan", "launches_scenario_scan", "serve_device_dispatches_total",
+            "serve_batches_total", "serve_admission_serial_total", "serve_batch_errors_total",
+            "incremental_suffix_pods_total", "incremental_resims_total",
+            "incremental_full_rebuilds_total", "nvcc_builds_total")
+
+    # ---- (a) the committed scan and the deltas
+    nodes, pods = build_serve_cluster()
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, copy.deepcopy(pods)
+    GLOBAL.reset()
+    fused_scan.reset_launch_counts()
+    before = {k: COUNTERS.get(k) for k in keys}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_name_counter()
+    session = Session(cluster)
+    build_s = time.perf_counter() - t0
+    committed = session._committed_scan()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0 - build_s
+    journal0 = list(committed.node_names[:SERVE_PLAIN_PODS])
+    recs = serve_deltas(pods, [SERVE_EVICT_FROM + 100 * k for k in range(SERVE_EVICTIONS)],
+                        SERVE_ARRIVALS)
+    d_times, outcomes, suffix_calls = [], [], []
+    real_scan = fused_scan.run_fused_scan
+
+    def record_suffix(plan, cls, active, valid, pinned=None, site="scan"):
+        outs = real_scan(plan, cls, active, valid, pinned, site=site)
+        suffix_calls.append((plan, cls, active, valid, pinned, outs))
+        return outs
+
+    fused_scan.run_fused_scan = record_suffix
+    try:
+        for rec in recs:
+            t1 = time.perf_counter()
+            outcomes.append(session.apply_delta(ClusterDelta.from_record(copy.deepcopy(rec))))
+            d_times.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        fused_scan.run_fused_scan = real_scan
+    torch.cuda.synchronize()
+    launches_a = dict(fused_scan.LAUNCHES)
+    moved_a = moved(before)
+    phases_a = {ph["name"]: ph["seconds"] for ph in GLOBAL.as_dict()["phases"]}
+    check_notes("phase 24a", GLOBAL.notes)
+    roster = len(session.cluster_pods)
+    suffix = moved_a["incremental_suffix_pods_total"] - SERVE_PODS
+    if outcomes != ["applied"] * len(recs) or not (suffix * 20 < len(recs) * roster):
+        raise AssertionError(f"phase 24a: delta outcomes {outcomes}, {suffix} suffix pods "
+                             f"re-simulated for {len(recs)} deltas over {roster}")
+    if moved_a["nvcc_builds_total"] or launches_a[fused_scan.BATCH_KERNEL_NAME]:
+        raise AssertionError(f"phase 24a: launches {launches_a}, {moved_a}")
+    t1 = time.perf_counter()
+    fresh = CommittedScan(session.cluster.nodes, session.cluster_pods)
+    fresh_s = time.perf_counter() - t1
+    if session._committed_scan().state_digest() != fresh.state_digest():
+        raise AssertionError("phase 24a: the re-simulated committed state != a fresh "
+                             "committed scan of the mutated roster")
+    del fresh
+    # the widest suffix re-simulation's launch against B1's plain version
+    # on the same inputs (the fresh scan above runs the kernel as well)
+    s_plan, s_cls, s_active, s_valid, s_pinned, s_outs = max(
+        suffix_calls, key=lambda c: int(np.asarray(c[2]).sum()))
+    t1 = time.perf_counter()
+    s_want = fused_scan.fused_scan_reference(s_plan, s_cls, s_active, s_valid, s_pinned)
+    torch.cuda.synchronize()
+    suffix_plain_s = time.perf_counter() - t1
+    suffix_err = max_abs_err(s_outs, s_want)
+    suffix_width = int(np.asarray(s_active).sum())
+    if suffix_err:
+        raise AssertionError(f"phase 24a: the widest suffix re-simulation ({suffix_width} "
+                             f"pods) != B1's plain version ({suffix_err})")
+    del suffix_calls, s_plan, s_outs, s_want
+    plan, batch, names = encode(nodes, pods[:SERVE_PLAIN_PODS], "cuda")
+    p = len(names)
+    t1 = time.perf_counter()
+    place, _final = fused_scan.fused_scan_reference(plan, batch.class_of_pod, np.ones(p, bool),
+                                                   np.ones(plan.n, bool), batch.pinned_node)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    plain_at = dict(zip(names, (nodes[int(i)]["metadata"]["name"] if i >= 0 else None
+                                for i in place.cpu().numpy())))
+    journal_at = dict(zip((q["metadata"]["name"] for q in pods[:SERVE_PLAIN_PODS]), journal0))
+    if plain_at != journal_at:
+        bad = sum(1 for k in plain_at if plain_at[k] != journal_at.get(k))
+        raise AssertionError(f"phase 24a: the committed scan != B1's plain version over the "
+                             f"first {SERVE_PLAIN_PODS} pods ({bad} pods differ)")
+    del plan, batch, place
+    print(f"phase 24a (serve, {SERVE_NODES} nodes x {SERVE_PODS} committed pods): session "
+          f"built in {build_s * 1e3:.1f} ms, the committed scan {commit_s * 1e3:.1f} ms "
+          f"({launches_a[fused_scan.KERNEL_NAME]} {fused_scan.KERNEL_NAME} launches in all, "
+          f"cluster {fused_scan.CLUSTERS[fused_scan.KERNEL_NAME]}); {len(recs)} deltas "
+          f"({SERVE_EVICTIONS} evictions from position {SERVE_EVICT_FROM}, {SERVE_ARRIVALS} "
+          f"arrivals) all applied, {moved_a['incremental_resims_total']} re-simulations, "
+          f"{moved_a['incremental_full_rebuilds_total']} full rebuilds, {suffix} suffix pods "
+          f"(x20 < {len(recs)} x {roster}); ms a delta p50 {statistics.median(d_times):.1f}, "
+          f"max {max(d_times):.1f}; re-simulated state == a fresh committed scan "
+          f"({fresh_s * 1e3:.1f} ms); the widest suffix launch ({suffix_width} pods of "
+          f"{len(s_cls)}) == B1's plain version, max_abs_err {suffix_err} "
+          f"({suffix_plain_s:.1f} s); the committed scan == B1's plain version over its first "
+          f"{SERVE_PLAIN_PODS} pods ({plain_s:.1f} s); host clock: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in phases_a.items()) + f" [{gpu}]",
+          flush=True)
+
+    # ---- (b) the daemon under load
+    daemon = ServeDaemon(session, port=0, max_batch=SERVE_MAX_BATCH, queue_depth=256)
+    daemon.start()
+    base = f"http://{daemon.host}:{daemon.port}"
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    try:
+        warm, warm_s = serve_storm(base, [serve_envelope(f"warm-{i}") for i in range(n_req)],
+                                   SERVE_CLIENTS)
+        hist = HISTOS.get("launch/scenario_scan")
+        counts0, sum0 = list(hist.counts), hist.sum
+        GLOBAL.reset()
+        fused_scan.reset_launch_counts()
+        before = {k: COUNTERS.get(k) for k in keys}
+        calls, restore = record_rows(site="scenario_scan")
+        try:
+            envelopes = [serve_envelope(f"storm-{i}") for i in range(n_req)]
+            storm, storm_s = serve_storm(base, envelopes, SERVE_CLIENTS)
+            extra_delta = serve_deltas(pods, (), 1, tag="http")
+            d_status, _h, d_body = http_json(base, "/v1/cluster-delta",
+                                             {"deltas": extra_delta})
+            s_status, _h, s_body = http_json(base, "/v1/state-digest")
+            after_env = serve_envelope("after-delta")
+            a_status, a_headers, a_body = http_json(base, "/v1/simulate", after_env)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        launches_b = dict(fused_scan.LAUNCHES)
+        moved_b = moved(before)
+        counts = [c - c0 for c, c0 in zip(hist.counts, counts0)]
+        card_ms = (hist.sum - sum0) * 1e3
+        phases_b = {ph["name"]: ph["seconds"] for ph in GLOBAL.as_dict()["phases"]}
+        check_notes("phase 24b", GLOBAL.notes)
+    finally:
+        code = daemon.shutdown()
+    statuses = [r[0] for r in warm + storm] + [d_status, s_status, a_status]
+    ticks = moved_b["serve_device_dispatches_total"]
+    if any(st != 200 for st in statuses) or code != 0:
+        raise AssertionError(f"phase 24b: statuses {statuses}, drain exit {code}: "
+                             f"{[r[2][:300] for r in warm + storm if r[0] != 200][:2]}")
+    engines = {r[1].get("X-Simon-Engine") for r in storm} | {a_headers.get("X-Simon-Engine")}
+    if (moved_b["serve_admission_serial_total"] or moved_b["serve_batch_errors_total"]
+            or engines != {"coalesced-scan"}):
+        raise AssertionError(f"phase 24b: not every request went through the coalesced scan: "
+                             f"engines {engines}, {moved_b}")
+    if not (ticks < n_req + 1 and moved_b["launches_scenario_scan"] == ticks == len(calls)
+            == launches_b[fused_scan.BATCH_KERNEL_NAME]):
+        raise AssertionError(f"phase 24b: {ticks} dispatches for {n_req + 1} requests, "
+                             f"launches_scenario_scan {moved_b['launches_scenario_scan']}, "
+                             f"recorded {len(calls)}, kernel launches {launches_b}")
+    if moved_b["nvcc_builds_total"]:
+        raise AssertionError(f"phase 24b: nvcc builds during the storm: {moved_b}")
+    # the first tick's launch, and the widest one, against the plain version
+    widest = max(range(len(calls)), key=lambda i: len(calls[i][2]))
+    t1 = time.perf_counter()
+    for i in sorted({0, widest}):
+        plan, cls, scenarios, _pf, outs, _start, _end = calls[i]
+        want = fused_scan.run_fused_scan_batch(plan.to("cpu"), cls, scenarios)
+        got = [(g[0].cpu(), {k: v.cpu() for k, v in g[1].items()}) for g in outs]
+        err_t = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if err_t:
+            raise AssertionError(f"phase 24b: tick {i}'s launch != the CPU plain version "
+                                 f"({err_t})")
+    tick_plain_s = time.perf_counter() - t1
+    first_rows, wide_rows = len(calls[0][2]), len(calls[widest][2])
+    wide_pods = len(calls[widest][1])
+    picks = np.linspace(0, n_req - 1, SERVE_SAMPLES).astype(int)
+    pre_delta = copy.deepcopy(session.cluster)
+    pre_delta.pods = [q for q in pre_delta.pods
+                      if q["metadata"]["name"] != extra_delta[0]["pod"]["metadata"]["name"]]
+    t1 = time.perf_counter()
+    for i in picks:
+        if storm[i][2] != standalone_body(pre_delta, envelopes[i]):
+            raise AssertionError(f"phase 24b: request {i}'s body != a standalone simulate()")
+    if a_body != standalone_body(session.cluster, after_env):
+        raise AssertionError("phase 24b: the what-if after the delta != a standalone "
+                             "simulate() of the mutated cluster")
+    sample_s = time.perf_counter() - t1
+    lat = sorted(r[3] for r in storm)
+    p50, p95 = (percentile_from_counts(counts, q) for q in (50, 95))
+    digest = json.loads(s_body)
+    print(f"phase 24b (the daemon, --max-batch {SERVE_MAX_BATCH}, {SERVE_CLIENTS} clients x "
+          f"{SERVE_PER_CLIENT} POSTs of a {SERVE_REPLICAS}-replica Deployment): every reply "
+          f"200; the measured storm {n_req / storm_s:.2f} qps ({storm_s:.3f} s; the warm one "
+          f"{warm_s:.3f} s), latency p50 {statistics.median(lat) * 1e3:.1f} ms, p95 "
+          f"{lat[int(0.95 * (len(lat) - 1))] * 1e3:.1f} ms; {ticks} ticks for {n_req + 1} "
+          f"requests (mean fill {(n_req + 1) / max(moved_b['serve_batches_total'], 1):.2f}), "
+          f"{ticks / (n_req + 1):.3f} launches a request, every reply from the coalesced "
+          f"scan, each tick one "
+          f"{fused_scan.BATCH_KERNEL_NAME} launch (cluster "
+          f"{fused_scan.CLUSTERS[fused_scan.BATCH_KERNEL_NAME]}); scenario_scan card time by "
+          f"CUDA events {card_ms:.2f} ms in all, p50 {p50 * 1e3:.3f} ms, p95 {p95 * 1e3:.3f} "
+          f"ms over {sum(counts)} launches; host clock: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in phases_b.items()) + f" [{gpu}]",
+          flush=True)
+    print(f"phase 24b: the first tick's launch ({first_rows} rows) and the widest "
+          f"({wide_rows} rows, {wide_pods} pods) == run_fused_scan_batch on the CPU plain "
+          f"version ({tick_plain_s:.1f} s), placements and every row; {SERVE_SAMPLES} sampled bodies and the what-if after POST "
+          f"/v1/cluster-delta (deltaSeq {digest['deltaSeq']}, stateDigest "
+          f"{digest['stateDigest'][:12]}) == standalone simulate(engine=\"cuda\") "
+          f"({sample_s:.1f} s); the what-if's header {a_headers.get('X-Simon-Incremental')} "
+          f"[{gpu}]", flush=True)
+
+    # ---- (c) the cut against the JAX package
+    fused_scan.reset_launch_counts()
+    GLOBAL.reset()
+    cut, cut_s = serve_cut_digest(Session, ServeDaemon, ResourceTypes, reset_name_counter)
+    check_notes("phase 24c", GLOBAL.notes)
+    if cut != JAX_SERVE_ANSWER:
+        raise AssertionError(f"phase 24c: digest {cut}; the JAX package's {JAX_SERVE_ANSWER}")
+    print(f"phase 24c: {SERVE_JAX_NODES} nodes x {SERVE_JAX_PODS} pods, two ticks of "
+          f"{len(SERVE_CUT_REQUESTS)} requests around four deltas over HTTP: the bodies and "
+          f"state digests == the JAX package's (sha256 {cut[:16]}), "
+          f"{fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]} batch launches, {cut_s:.1f} s "
+          f"[{gpu}]", flush=True)
+    return {"batch_launches": launches_a[fused_scan.BATCH_KERNEL_NAME]
+            + launches_b[fused_scan.BATCH_KERNEL_NAME],
+            "base_launches": launches_a[fused_scan.KERNEL_NAME]
+            + launches_b[fused_scan.KERNEL_NAME],
+            "other_launches": {k: launches_a[k] + launches_b[k] for k in launches_a
+                               if k not in (fused_scan.BATCH_KERNEL_NAME,
+                                            fused_scan.KERNEL_NAME)
+                               and launches_a[k] + launches_b[k]},
+            "qps": n_req / storm_s, "card_ms": card_ms}
+
+
 def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
     """One launch of `scenarios` with the allocator's peak reset: the cost
     count's workspace (obs/costs.py) must be at or above what the peak
@@ -2952,7 +3435,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only is None:
-        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2977,7 +3461,7 @@ def main(argv=None) -> int:
         import tempfile
 
         standalone = {"14": phase14, "17": phase17, "18": phase18, "19": phase19,
-                      "21": phase21, "22": phase22, "23": phase23}
+                      "21": phase21, "22": phase22, "23": phase23, "24": phase24}
         with tempfile.TemporaryDirectory() as root:
             for name in only:
                 t0 = time.perf_counter()
@@ -3124,7 +3608,8 @@ def main(argv=None) -> int:
                           ("20", lambda: phase20(gpu, root, cap)),
                           ("21", lambda: phase21(gpu, root)),
                           ("22", lambda: phase22(gpu, root)),
-                          ("23", lambda: phase23(gpu, root))):
+                          ("23", lambda: phase23(gpu, root)),
+                          ("24", lambda: phase24(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
             if name == "15":
@@ -3144,6 +3629,11 @@ def main(argv=None) -> int:
           f"on the card), {shadow['launches']} {fused_scan.KERNEL_NAME} launches for the "
           f"shadow replay's decisions, {shadow['tl_launches']} pins-first for its log's "
           f"timeline [{gpu}]", flush=True)
+    serve = walls["24"]
+    print(f"phase 24: {serve['batch_launches']} {fused_scan.BATCH_KERNEL_NAME} launches (one a "
+          f"tick, {serve['card_ms']:.2f} ms on the card in the measured storm) and "
+          f"{serve['base_launches']} {fused_scan.KERNEL_NAME} launches (the committed scan and "
+          f"its re-simulations), other {serve['other_launches']} [{gpu}]", flush=True)
     print("workspace estimate against the measured peak rise, a launch of each "
           "instantiation: " + json.dumps(WORKSPACE), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
@@ -3162,14 +3652,18 @@ def main(argv=None) -> int:
     print(gpu)  # nvidia-smi's own line: name, power limit
     print(json.dumps({"kernels": [
         dict(entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
-                   base_launches + shadow["launches"], base), cluster=base["cluster"],
-             prev_ms=base["prev_ms"],
-             launches_by_phase={"3": base_launches, "23": shadow["launches"]}),
+                   base_launches + shadow["launches"] + serve["base_launches"], base),
+             cluster=base["cluster"], prev_ms=base["prev_ms"],
+             launches_by_phase={"3": base_launches, "23": shadow["launches"],
+                                "24": serve["base_launches"]}),
         entry(fused_scan.EXT_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1961",
               ext_launches, ext),
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
-                   cap["launches"][fused_scan.BATCH_KERNEL_NAME], cap["batch"]),
-             cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"]),
+                   cap["launches"][fused_scan.BATCH_KERNEL_NAME] + serve["batch_launches"],
+                   cap["batch"]),
+             cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"],
+             launches_by_phase={"6": cap["launches"][fused_scan.BATCH_KERNEL_NAME],
+                                "24": serve["batch_launches"]}),
         dict(entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
                    store["launches"], store), cluster=store["cluster"],
              prev_ms=store["prev_ms"]),

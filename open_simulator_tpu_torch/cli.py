@@ -1,5 +1,5 @@
 """simon-compatible CLI of the GPU port: `apply`, `chaos`, `defrag`,
-`shadow`, `timeline`, `doctor`, `version` and `gen-doc`.
+`shadow`, `timeline`, `serve`, `doctor`, `version` and `gen-doc`.
 
   python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml> [-i]
         [--format table|json] [--extended-resources gpu,open-local]
@@ -33,12 +33,21 @@
         [--journal PATH | --resume PATH] [--deadline SECONDS]
         [--inject SPEC] [--trace-out PATH] [--explain [POD]]
         [--profile-dir DIR] [--format table|json] [--trace-phases]
+  python -m open_simulator_tpu_torch.cli serve -f <simon-config.yaml>
+        [--host H] [--port P] [--max-batch B] [--queue-depth N]
+        [--default-deadline S] [--drain-timeout S] [--no-warm]
+        [--tick-budget S] [--max-request-pods N] [--max-sessions N]
+        [--snapshot PATH [--checkpoint-interval N] [--keep-checkpoints N]]
+        [--no-incremental] [--device DEVICE] [--inject SPEC]
+        [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
+        [--slo-config PATH] [--obs-cadence S]
   python -m open_simulator_tpu_torch.cli doctor BASELINE CANDIDATE
   python -m open_simulator_tpu_torch.cli version
   python -m open_simulator_tpu_torch.cli gen-doc [--output DIR]
 
 Mirrors the JAX package's CLI (cli.py cmd_apply, cmd_chaos, cmd_defrag,
-cmd_shadow, cmd_timeline, cmd_doctor, cmd_version, cmd_gen_doc), whose
+cmd_shadow, cmd_timeline, cmd_serve, cmd_doctor, cmd_version,
+cmd_gen_doc), whose
 reports these reproduce byte for byte, its exit codes included: 3 for a
 --deadline partial report, 4 for an interrupted one, 2 for bad input or
 a failed external dependency. The scans run on the card unless
@@ -51,8 +60,13 @@ nvcc builds where the JAX one counts XLA dispatches and recompiles.
 `--inject` sites keep the JAX package's names (obs/profile.py). Log
 level comes from the LogLevel env var (cmd/simon/simon.go:60-80).
 
-Not ported yet: `--mesh` (ROADMAP.md A11) and the other subcommands
-(`serve`, `fleet`, `twin`, `top`).
+`serve` answers the JAX daemon's bodies; its `/metrics` counts the
+port's launches, nvcc builds and cost records where the JAX one counts
+dispatches, recompiles and compiled costs.
+
+Not ported yet: `--mesh` (ROADMAP.md A11), `serve --aot-store` (A8) and
+`--replay-snapshot` (A10), and the other subcommands (`fleet`, `twin`,
+`top`).
 """
 
 from __future__ import annotations
@@ -967,6 +981,132 @@ def cmd_timeline(args) -> int:
     return 0
 
 
+@_with_obs("serve")
+def cmd_serve(args) -> int:
+    """Long-lived what-if daemon (serve/; docs/SERVING.md): load the
+    cluster once, build and load the kernel library, coalesce concurrent
+    POST /v1/simulate requests onto batch-kernel launches on the card.
+    Exit 0 after a clean SIGTERM/SIGINT drain, 3 when --drain-timeout
+    expired with requests still queued (shed), 2 on input errors and
+    without a card unless `--device cpu` (all before listening)."""
+    import json
+
+    from .apply.applier import Applier, SimonConfig
+    from .models.validation import InputError
+    from .obs.spans import observatory_block
+    from .obs.telemetry import arm_flight_recorder
+    from .ops.fused_scan import NoCardError, resolve_device
+    from .runtime import ExternalIOError
+    from .runtime.retry import BREAKER_COOLDOWN_ENV, enable_breaker_recovery
+    from .serve.server import ServeDaemon
+    from .serve.session import Session
+
+    try:
+        # the card, or exit 2 before any work (never a move to the CPU)
+        device = resolve_device(args.device)
+        # flag validation up front: a bad value must exit 2 BEFORE
+        # listening, never crash per request (docs/ROBUSTNESS.md)
+        if args.default_deadline is not None and args.default_deadline <= 0:
+            raise InputError("--default-deadline must be > 0 seconds")
+        if args.drain_timeout < 0:
+            raise InputError("--drain-timeout must be >= 0 seconds")
+        if args.tick_budget is not None and args.tick_budget <= 0:
+            raise InputError("--tick-budget must be > 0 seconds")
+        if args.max_request_pods is not None and args.max_request_pods < 1:
+            raise InputError("--max-request-pods must be >= 1")
+        if args.max_sessions < 1:
+            raise InputError("--max-sessions must be >= 1")
+        if args.checkpoint_interval is not None and args.checkpoint_interval < 1:
+            raise InputError("--checkpoint-interval must be >= 1 delta")
+        if args.keep_checkpoints < 1:
+            raise InputError("--keep-checkpoints must be >= 1")
+        if args.checkpoint_interval and not args.snapshot:
+            raise InputError("--checkpoint-interval requires --snapshot PATH")
+        # declarative SLOs + telemetry cadence: a bad --slo-config or
+        # --obs-cadence raises InputError here (the daemon constructor
+        # validates the cadence) -> exit 2 before listening
+        slo_engine = _build_slo_engine(args)
+        # resident service: circuit breakers get a recovery cooldown so
+        # an apiserver/extender flap degrades, not dooms, the daemon.
+        # SIMON_BREAKER_COOLDOWN wins when set (0 restores the one-shot
+        # stay-open posture); the 30s default applies only without it
+        if not os.environ.get(BREAKER_COOLDOWN_ENV):
+            enable_breaker_recovery(30.0)
+        config = SimonConfig.from_file(args.simon_config)
+        cluster = Applier(config, device=device).load_cluster()
+        session = Session(cluster, incremental=not args.no_incremental,
+                          device=device)
+        daemon = ServeDaemon(
+            session,
+            host=args.host,
+            port=args.port,
+            max_batch=args.max_batch,
+            queue_depth=args.queue_depth,
+            default_deadline_s=args.default_deadline,
+            drain_timeout_s=args.drain_timeout,
+            tick_budget_s=args.tick_budget,
+            max_request_pods=args.max_request_pods,
+            max_sessions=args.max_sessions,
+            snapshot_path=args.snapshot or None,
+            checkpoint_interval=args.checkpoint_interval,
+            keep_checkpoints=args.keep_checkpoints,
+            slo_engine=slo_engine,
+            obs_cadence_s=args.obs_cadence,
+        )
+    except (OSError, ValueError, ExternalIOError, InputError, NoCardError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # continuous flight recorder: the resident daemon records into a
+    # bounded ring (overwrite-oldest, dropped counted) so /debug/dump
+    # always has a recent span window — --trace-out still owns export
+    arm_flight_recorder()
+    if not args.no_warm:
+        # one tiny request through the whole path before we listen: the
+        # kernel library is built (nvcc, on a cold checkout) and loaded,
+        # the cluster encoded and the committed scan resident
+        session.warm()
+    daemon.start()
+    if session.force_serial_reason:
+        logging.warning(
+            "cluster cannot ride the batched scan (%s); every request "
+            "will be answered serially",
+            session.force_serial_reason,
+        )
+    # machine-parsable readiness line (tests read the bound port from
+    # it — --port 0 binds an ephemeral one)
+    print(
+        f"simon serve listening on http://{daemon.host}:{daemon.port} "
+        f"(cluster {session.fingerprint})",
+        flush=True,
+    )
+    code = daemon.run_until_signaled()
+    # observatory drain dump: one JSON line on stderr with the per-site
+    # latency histograms, the memory ledger and the cost records — the
+    # daemon's lifetime observability survives the process even when
+    # nobody scraped /metrics (per-request output stays untouched)
+    observatory = observatory_block()
+    if observatory:
+        print("simon serve observatory: " + json.dumps(observatory),
+              file=sys.stderr)
+    if args.explain is not None:
+        # explanations accumulated across requests land on stderr at
+        # drain (per-request output stays byte-identical to standalone
+        # runs — the serve conformance contract)
+        _print_explanations(args, out=sys.stderr)
+    return code
+
+
+def _build_slo_engine(args):
+    """--slo-config as an SLOEngine (None when unset). Raises InputError
+    on a bad config; the caller's guarded setup block turns that into
+    exit 2 before listening."""
+    if not getattr(args, "slo_config", ""):
+        return None
+    from .obs.slo import SLOEngine, load_slo_config
+
+    return SLOEngine(load_slo_config(args.slo_config))
+
+
 def cmd_doctor(args) -> int:
     """Perf-regression doctor (obs/doctor.py): diff a candidate bench
     record against a baseline (the JAX package's bench-record format)
@@ -1520,6 +1660,105 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_timeline.set_defaults(func=cmd_timeline)
 
+    p_serve = sub.add_parser(
+        "serve",
+        help="long-lived what-if scheduling daemon (JSON-over-HTTP)",
+        description="Load the cluster once, build and load the kernel "
+        "library, and serve concurrent what-if questions: "
+        "POST /v1/simulate with app YAML answers exactly like a "
+        "standalone simulation of those apps on the loaded cluster "
+        "under the DEFAULT scheduler profile (apply's "
+        "--default-scheduler-config / --use-greed customizations are "
+        "not served — docs/SERVING.md). Concurrent requests coalesce "
+        "onto batch-kernel launches on the card (up to --max-batch per "
+        "launch); overload sheds with 503 + Retry-After at "
+        "--queue-depth; SIGTERM drains in-flight requests then exits 0.",
+    )
+    p_serve.add_argument(
+        "-f", "--simon-config", required=True,
+        help="simon config file path (its cluster section is served; "
+        "appList is ignored — apps arrive per request)",
+    )
+    p_serve.add_argument("--host", default="127.0.0.1", help="bind address")
+    p_serve.add_argument(
+        "--port", type=int, default=8080,
+        help="bind port (0 = ephemeral; the readiness line prints it)",
+    )
+    p_serve.add_argument(
+        "--max-batch", type=int, default=16, metavar="B",
+        help="max requests coalesced into one batch-kernel launch",
+    )
+    p_serve.add_argument(
+        "--queue-depth", type=int, default=64, metavar="N",
+        help="bounded request queue; submits beyond it shed with 503",
+    )
+    p_serve.add_argument(
+        "--default-deadline", type=float, default=None, metavar="SECONDS",
+        help="per-request deadline when the request body sets none; a "
+        "request whose deadline expires while queued is shed with a "
+        "machine-readable PARTIAL 503 body",
+    )
+    p_serve.add_argument(
+        "--drain-timeout", type=float, default=30.0, metavar="SECONDS",
+        help="SIGTERM drain bound: queued requests still unanswered "
+        "after this are shed and the daemon exits 3 instead of 0",
+    )
+    p_serve.add_argument(
+        "--no-warm", action="store_true",
+        help="skip the pre-listen warmup request (faster start, slower "
+        "first request: it pays the kernel build and the committed scan)",
+    )
+    p_serve.add_argument(
+        "--tick-budget", type=float, default=None, metavar="SECONDS",
+        help="admission latency budget: a request whose predicted wait "
+        "(p95 coalescer tick x ticks queued ahead) exceeds this is shed "
+        "with 429 + Retry-After before it takes a queue slot "
+        "(docs/SERVING.md admission control; default: off)",
+    )
+    p_serve.add_argument(
+        "--max-request-pods", type=int, default=None, metavar="N",
+        help="requests whose estimated pod count exceeds N are answered "
+        "by a standalone simulate() instead of the coalesced launch "
+        "(default: off)",
+    )
+    p_serve.add_argument(
+        "--max-sessions", type=int, default=8, metavar="N",
+        help="warm-session LRU capacity; the configured cluster is "
+        "pinned, secondaries evict LRU-first and under device-memory "
+        "ledger pressure",
+    )
+    p_serve.add_argument(
+        "--snapshot", default="", metavar="PATH",
+        help="append session admit/evict/drain records to this "
+        "crash-safe JSONL snapshot journal (resumed across restarts; "
+        "torn tail recovered, interior damage refused)",
+    )
+    p_serve.add_argument(
+        "--checkpoint-interval", type=int, default=None, metavar="DELTAS",
+        help="write a verified, content-addressed checkpoint of the "
+        "committed session every N applied deltas (requires "
+        "--snapshot); the journal's absorbed prefix is compacted away "
+        "only AFTER the snapshot's state digest verifies against a "
+        "fresh materialization (docs/ROBUSTNESS.md; default: off)",
+    )
+    p_serve.add_argument(
+        "--keep-checkpoints", type=int, default=2, metavar="N",
+        help="checkpoint generations retained; a corrupt newest "
+        "generation falls back loudly to the previous one, never a "
+        "silent wrong state (default 2)",
+    )
+    p_serve.add_argument(
+        "--no-incremental", action="store_true",
+        help="disable delta re-simulation: every tick re-scans the "
+        "whole roster instead of launching only the request suffix "
+        "against the resident committed scan (docs/PERFORMANCE.md)",
+    )
+    _add_device_flag(p_serve)
+    _add_inject_flag(p_serve)
+    _add_obs_flags(p_serve)
+    _add_telemetry_flags(p_serve)
+    p_serve.set_defaults(func=cmd_serve)
+
     p_doctor = sub.add_parser(
         "doctor",
         help="diff two bench records and gate on perf regressions",
@@ -1661,6 +1900,31 @@ def _add_obs_flags(p: argparse.ArgumentParser):
     )
 
 
+def _add_telemetry_flags(p: argparse.ArgumentParser):
+    """Resident-telemetry flags of the serve daemon
+    (docs/OBSERVABILITY.md production-telemetry section)."""
+    p.add_argument(
+        "--slo-config",
+        default="",
+        metavar="PATH",
+        help="declarative SLO objectives (JSON or YAML; kinds: "
+        "availability, latency, gauge_min, counter_budget, plus the "
+        "router-side fleet_availability, fleet_imbalance, and "
+        "fleet_failover) evaluated over the resident series store "
+        "with multi-window burn-rate alerts — alert states export as "
+        "simon_slo_* metrics and /healthz reasons",
+    )
+    p.add_argument(
+        "--obs-cadence",
+        type=float,
+        default=1.0,
+        metavar="SECONDS",
+        help="telemetry sampling cadence: every counter/gauge, "
+        "histogram percentile, and ledger level lands in the ring "
+        "store (queryable at /v1/obs/series) once per cadence",
+    )
+
+
 def _add_inject_flag(p: argparse.ArgumentParser):
     """Chaos fault-injection flag shared by the guarded commands
     (runtime/inject.py)."""
@@ -1674,8 +1938,9 @@ def _add_inject_flag(p: argparse.ArgumentParser):
         "'jit.scenario_scan=oom@2' (device OOM at the 2nd dispatch) or "
         "'io.kube*=reset@1x3' (3 connection resets). Sites (the JAX "
         "package's names): jit.<site> (scan, sweep_probe, sweep_many, "
-        "<site>_sweep, defrag_sweep, stream_bench: a launch), io.<label>, "
-        "journal.fsync.<subsystem>, budget.check, ledger.predict_fit. "
+        "<site>_sweep, defrag_sweep, scenario_scan, stream_bench: a "
+        "launch), io.<label>, journal.fsync.<subsystem>, budget.check, "
+        "ledger.predict_fit, serve.tick, incremental.suffix, ckpt.*. "
         "Production paths are unmodified when unset",
     )
 

@@ -26,7 +26,10 @@ Each runs inside ``launch(site, device)``, which
   asynchronous launch would measure the enqueue, not the kernel; the
   events are read once the caller has synchronised (it reads its
   placements), so they add no synchronisation of their own. On the CPU
-  the histogram takes the plain version's host time;
+  the histogram takes the plain version's host time. The events are
+  read on the thread that recorded them (a daemon launches from its
+  dispatcher thread and from request-handler threads; each resolves its
+  own, after its own sync);
 - makes the ``CostRecord`` of a shape on its first launch (obs/costs.py)
   and counts every launch of it;
 - polls the memory ledger (obs/ledger.py) after a launch on the card;
@@ -68,8 +71,9 @@ from .ledger import LEDGER, _span_boundary
 _spans.set_boundary_hook(_span_boundary)
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("simon_launch", default=None)
-# (site, start event, end event) of card launches not yet read
-_PENDING: list = []
+# thread id -> [(site, start event, end event)] of card launches not
+# yet read: each thread reads only the events it recorded
+_PENDING: dict = {}
 _PENDING_LOCK = threading.Lock()
 
 
@@ -105,7 +109,8 @@ class Launch:
         end = torch.cuda.Event(enable_timing=True)
         end.record()
         with _PENDING_LOCK:
-            _PENDING.append((self.site, self._start, end))
+            _PENDING.setdefault(threading.get_ident(), []).append(
+                (self.site, self._start, end))
         self._start = None
         self.timed = True
 
@@ -123,12 +128,12 @@ def current() -> Optional[Launch]:
 
 
 def resolve_pending(wait: bool = False) -> int:
-    """Move the device times of finished card launches into their
-    histograms; with `wait`, wait for every pending launch first.
-    Returns how many were read."""
+    """Move the device times of the calling thread's finished card
+    launches into their histograms; with `wait`, wait for each of them
+    first. Returns how many were read."""
+    me = threading.get_ident()
     with _PENDING_LOCK:
-        pending = list(_PENDING)
-        _PENDING.clear()
+        pending = _PENDING.pop(me, [])
     done, keep = [], []
     for site, start, end in pending:
         if wait:
@@ -136,7 +141,7 @@ def resolve_pending(wait: bool = False) -> int:
         (done if end.query() else keep).append((site, start, end))
     if keep:
         with _PENDING_LOCK:
-            _PENDING[:0] = keep
+            _PENDING[me] = keep + _PENDING.get(me, [])
     for site, start, end in done:
         HISTOS.observe(f"launch/{site}", start.elapsed_time(end) / 1e3)
     return len(done)

@@ -63,6 +63,7 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -100,6 +101,9 @@ CLUSTERS = {name: None for name in LAUNCHES}
 
 SOURCE = nvcc.CSRC / "fused_scan.cu"
 _LIB = None
+# first use may come from several threads at once (the serve daemon's
+# dispatcher and a /v1/cluster-delta handler): one builds and loads
+_LIB_LOCK = threading.Lock()
 
 
 class OutOfSliceError(NotImplementedError):
@@ -1189,7 +1193,11 @@ _N_ARGS = 108
 
 def _library():
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         # compiled for sm_90a into build/torch_kernels/ at first use
         lib = ctypes.CDLL(str(nvcc.build_library(SOURCE)))
         lib.fused_scan_arg_count.argtypes = []

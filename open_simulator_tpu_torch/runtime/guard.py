@@ -41,12 +41,16 @@ from .errors import DeviceOOM, ExecutionHalted
 log = logging.getLogger(__name__)
 
 
+#: device-memory exhaustion: the CUDA caching allocator's
+#: OutOfMemoryError, a host MemoryError, or an already-typed DeviceOOM
+OOM_ERRORS = (torch.cuda.OutOfMemoryError, MemoryError, DeviceOOM)
+
+
 def is_oom(e: BaseException) -> bool:
-    """Device-memory exhaustion: the CUDA caching allocator's
-    OutOfMemoryError, a host MemoryError, or an already-typed
-    DeviceOOM. Decided by type, never by message: a build or launch
-    error whose text mentions memory is not an OOM."""
-    return isinstance(e, (torch.cuda.OutOfMemoryError, MemoryError, DeviceOOM))
+    """Device-memory exhaustion (``OOM_ERRORS``). Decided by type, never
+    by message: a build or launch error whose text mentions memory is
+    not an OOM."""
+    return isinstance(e, OOM_ERRORS)
 
 
 def classify_device_error(e: BaseException):

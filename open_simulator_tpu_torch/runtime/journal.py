@@ -1,5 +1,5 @@
 """Crash-safe resumable planning journal (the port's copy of the JAX
-package's runtime/journal.py, without the checkpoint compaction).
+package's runtime/journal.py).
 
 Long runs (an N+K escalation over a 100k-pod cluster, a large chaos
 sweep) append every completed unit of work — capacity-probe results and
@@ -32,7 +32,7 @@ import hashlib
 import json
 import os
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 from ..models.validation import InputError
 from . import inject as _inject
@@ -68,7 +68,9 @@ class Journal:
         self.replayed = 0  # complete records recovered on resume
         self.dropped = 0  # torn trailing records discarded on resume
         self._f = None
-        #: serializes appends from threads that share one journal
+        #: serializes appends from threads that share one journal, and
+        #: appends against ``rewrite`` (checkpoint compaction swaps the
+        #: file under the writer)
         self._append_lock = threading.Lock()
 
     # -- lifecycle ----------------------------------------------------------
@@ -209,6 +211,57 @@ class Journal:
                 # _append_lock is this journal's single-purpose I/O lock;
                 # the fsync'd append IS the critical section
                 self._write(rec)
+
+    # -- compaction ---------------------------------------------------------
+
+    def rewrite(self, keep_record: Callable[[dict], bool]) -> Dict[str, int]:
+        """Atomically rewrite the journal keeping only the header and
+        the body records ``keep_record`` retains — checkpoint
+        compaction's truncate-the-absorbed-prefix step
+        (runtime/checkpoint.py). The rewrite is crash-safe (tmp + fsync
+        + ``os.replace``): a death at any point leaves either the old
+        complete file or the new complete file, never a blend.
+        Unparsable body lines are dropped (they could only exist on a
+        file damaged after the fact; ``resume`` would refuse them
+        anyway). Returns ``{"kept": n, "dropped": n}``."""
+        with self._append_lock:
+            if self._f is not None:
+                self._f.flush()
+            with open(self.path, "rb") as f:
+                raw = f.read()
+            lines = raw.split(b"\n")
+            kept, dropped = 0, 0
+            out_lines = [lines[0]]  # header stays verbatim
+            for line in lines[1:]:
+                if not line.strip():
+                    continue
+                try:
+                    rec = json.loads(line)
+                    if not isinstance(rec, dict):
+                        raise ValueError("record is not an object")
+                except ValueError:
+                    dropped += 1
+                    continue
+                if keep_record(rec):
+                    out_lines.append(line)
+                    kept += 1
+                else:
+                    dropped += 1
+            tmp = self.path + ".compact.tmp"
+            with open(tmp, "wb") as f:
+                f.write(b"\n".join(out_lines) + b"\n")
+                f.flush()
+                # atomic with respect to concurrent appends: holding the
+                # append lock across the fsync is the whole point
+                os.fsync(f.fileno())
+            reopen = self._f is not None
+            if reopen:
+                self._f.close()
+                self._f = None
+            os.replace(tmp, self.path)
+            if reopen:
+                self._f = open(self.path, "a", encoding="utf-8")
+            return {"kept": kept, "dropped": dropped}
 
     def record_probe(self, rec: dict):
         self.append({**rec, "kind": "probe"})

@@ -22,6 +22,11 @@ device, as the JAX engine routes it to its XLA scan; the trace notes
 `torch-scan (<reason>)`. That is routing by input, not a fallback: a
 kernel that fails raises. Storage classes replay through the oracle's
 general bind, pod by pod (simple_commit_mask).
+
+`scan_scenarios(actives)` is the serve daemon's coalesced tick: every
+row of `actives` an independent masked scan over the begin_batch
+encoding, all rows in ONE launch of the batch kernel (B6) at the site
+`scenario_scan`.
 """
 
 from __future__ import annotations
@@ -163,7 +168,86 @@ class TorchEngine:
             )
             return to_host(out)  # waits for the device
 
-    def _torch_scan(self, cluster, dyn, active, node_valid, reason) -> np.ndarray:
+    def schedule(self, pods: List[dict]) -> np.ndarray:
+        """Returns placements[P]: node index or -1 (unschedulable)."""
+        self.begin_batch(pods)
+        return self.scan_active(np.ones(len(pods), bool))
+
+    def scenario_plan(self):
+        """The kernel plan of the begin_batch encoding against the
+        oracle's CURRENT state, for scan_scenarios (and the chunked
+        executor's workspace estimate); None for a batch the kernel does
+        not carry, which runs on the torch scan."""
+        from ..ops import fused_scan
+        from ..utils.trace import phase
+
+        if fused_scan.torch_scan_reason(self._features) is not None:
+            return None
+        with phase("engine/encode"):
+            cluster = self.cluster_static()
+            dyn = encode_dynamic(self.oracle, cluster)
+            return fused_scan.build_plan(
+                cluster, self._batch, dyn, self._features, device=self.device
+            )
+
+    def scan_scenarios(self, actives: np.ndarray, plan=None) -> np.ndarray:
+        """Batch-of-requests entry point (serve/session.py): every row
+        of `actives` [Sc, P] is an independent masked scan over the
+        begin_batch encoding against the oracle's CURRENT state, all
+        nodes valid, the batch's one pin vector committed in pod order.
+        Each row's placements equal scan_active(row) run alone
+        (scenarios never see each other's commits; nothing is replayed
+        here). On a kernel plan the rows are ONE launch of the batch
+        kernel (B6) at the site `scenario_scan`; a batch the kernel does
+        not carry (custom score plugins) runs row by row on the torch
+        scan, trace-noted, as the sweep's probe_scenarios does. `plan`
+        is scenario_plan()'s, when the caller built it already against
+        the same state (the serve tick, whose halved chunks share it).
+
+        Returns placements [Sc, P]: node index, -1 (active but
+        unschedulable), or -2 (masked off in that scenario)."""
+        from ..obs import profile
+        from ..ops import fused_scan
+        from ..utils.trace import GLOBAL, phase, profiled
+
+        if bool(getattr(self._features, "sample", False)):
+            # the Go-RNG stream is a single serial sequence; scenario
+            # rows would race for it (core.py routes sample serially)
+            raise ValueError(
+                "sample-mode batches cannot ride the scenario scan"
+            )
+        batch = self._batch
+        actives_arr = np.asarray(actives, bool)
+        if not len(actives_arr):
+            return np.zeros((0, len(batch.class_of_pod)), np.int32)
+        reason = fused_scan.torch_scan_reason(self._features)
+        if reason is not None:
+            with phase("engine/encode"):
+                cluster = self.cluster_static()
+                dyn = encode_dynamic(self.oracle, cluster)
+            valid = np.ones(cluster.n, bool)
+            GLOBAL.note("scenario-kernel", f"torch-scan ({reason})")
+            rows = [self._torch_scan(cluster, dyn, row, valid, reason,
+                                     site="scenario_scan")
+                    for row in actives_arr]
+            return np.stack(rows)
+        if plan is None:
+            plan = self.scenario_plan()
+        valid = np.ones(plan.n, bool)
+        GLOBAL.note("batch-kernel", f"{fused_scan.BATCH_KERNEL_NAME} ({self.device.type})")
+        profile.record_h2d(actives_arr.nbytes)
+        with profiled("engine/scan"):
+            out = fused_scan.run_fused_scan_batch(
+                plan,
+                batch.class_of_pod,
+                [(row, valid, batch.pinned_node) for row in actives_arr],
+                pins_first=False,
+                site="scenario_scan",
+            )
+            return to_host(torch.stack([placements for placements, _final in out]))
+
+    def _torch_scan(self, cluster, dyn, active, node_valid, reason,
+                    site: str = "scan") -> np.ndarray:
         """scan_active for a batch the kernel does not carry: the eager
         torch scan (ops/scan.py) on the engine's device. Under sample
         the oracle's Go RNG history goes in and the advanced history is
@@ -190,6 +274,7 @@ class TorchEngine:
             placements, final = scan_ops.run_scan_masked(
                 self._scan_static, init, batch.class_of_pod, batch.pinned_node,
                 node_valid, np.asarray(active, bool), features=self._features,
+                site=site,
             )
             if sample:
                 placements, consumed = placements

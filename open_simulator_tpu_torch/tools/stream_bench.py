@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import sys
+import threading
 import time
 
 import numpy as np
@@ -45,6 +46,7 @@ SIZES_MB = (8, 16, 32, 64)
 # nowhere else
 LAUNCHES = {KERNEL_NAME: 0}
 _LIB = None
+_LIB_LOCK = threading.Lock()  # one thread builds and loads at first use
 
 
 def tool_steps(state_mb: float) -> int:
@@ -85,7 +87,11 @@ def stream_reference(state: torch.Tensor, steps: int) -> torch.Tensor:
 
 def _library():
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         # compiled for sm_90a into build/torch_kernels/ at first use
         lib = ctypes.CDLL(str(nvcc.build_library(SOURCE)))
         lib.stream_bench_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]

@@ -9,6 +9,12 @@ sources together and waits for all of them; it counts each build and
 each library found built (`nvcc_builds_total`, `nvcc_cache_hits_total`:
 the port's counterpart of the JAX package's recompile counters). The compiler's register and
 spill report (`-Xptxas -v`) is kept beside each library as `.log`.
+
+Builds are safe from several threads: one lock a process spans the
+check, the compilers and the rename, so a source two threads ask for at
+once is compiled once (the second finds it built). The compiler writes
+to a temporary named by the process, renamed into place once it
+succeeds.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Sequence
 
@@ -29,6 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "--split-compile=0", "-Xptxas", "-v", "-shared",
          "-Xcompiler", "-fPIC")
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -49,6 +57,11 @@ def build_libraries(sources: Sequence[Path]) -> List[Path]:
     """Compile every source whose library does not exist yet, all
     compilers started together; returns the libraries' paths in the
     order of `sources`. Raises if a compiler fails, with its report."""
+    with _BUILD_LOCK:
+        return _build_locked(sources)
+
+
+def _build_locked(sources: Sequence[Path]) -> List[Path]:
     from .trace import COUNTERS
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

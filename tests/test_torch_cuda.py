@@ -1280,3 +1280,83 @@ def test_cuda_timeline_windows_equal_plain():
         want = fused_scan.run_fused_scan_batch(plan.to("cpu"), cls, scenarios, pins_first=True)
         for g, w in zip(outs, want):
             _same((g[0].cpu(), {k: v.cpu() for k, v in g[1].items()}), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["masked-pins", "multi-node-threads"])
+def test_cuda_scan_scenarios_equals_plain(name):
+    """The serve tick's scenario scan on the card: rows masked at
+    random, the batch's pins committed in every row, all rows ONE launch
+    of the batch kernel at the site `scenario_scan`; equal to the same
+    engine call on the CPU (the plain version), INACTIVE where masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from open_simulator_tpu_torch.scheduler.engine import TorchEngine
+
+    n_nodes, n_pods, seed, pins, _nf, pf, huge = CASES[name]
+    nodes, pods = _scenario(n_nodes, n_pods, seed, pins, huge)
+    rng = np.random.RandomState(seed + 7)
+    actives = rng.rand(5, n_pods) < pf
+    actives[0] = True
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = TorchEngine(Oracle(copy.deepcopy(nodes)), device=device)
+        eng.begin_batch(copy.deepcopy(pods))
+        before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
+        out[device] = eng.scan_scenarios(actives)
+        launched = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] - before
+        assert launched == (1 if device == "cuda" else 0)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    assert (out["cuda"][~actives] == fused_scan.INACTIVE).all()
+    assert (out["cuda"][actives] >= -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_session_answers_the_cpu_session_bodies():
+    """A serve Session on the card answers the bodies a `device="cpu"`
+    session answers, before and after cluster deltas (one failing
+    request, a priority one routed serial), with the same committed
+    state; each coalesced tick is one batch launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from chip_smoke import build_scenario
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.serve.session import Session, WhatIfRequest
+    from open_simulator_tpu_torch.twin.deltas import ClusterDelta
+
+    nodes, pods = build_scenario(300, 900)
+
+    def request(name, replicas, cpu="500m", priority=None):
+        spec = {"containers": [{"name": "c", "image": "i", "resources": {
+            "requests": {"cpu": cpu, "memory": "1Gi"}}}]}
+        if priority is not None:
+            spec["priority"] = priority
+        res = ResourceTypes()
+        res.deployments = [{"kind": "Deployment", "metadata": {"name": name, "namespace": "q"},
+                            "spec": {"replicas": replicas, "template": {"spec": spec}}}]
+        return WhatIfRequest(apps=[AppResource(name, res)])
+
+    reqs = [request("a", 20), request("b", 5, cpu="200"), request("c", 50),
+            request("d", 3, priority=1000)]
+    deltas = [ClusterDelta(kind="pod_evict", namespace=pods[i]["metadata"]["namespace"],
+                           name=pods[i]["metadata"]["name"]) for i in (850, 870)]
+    deltas.append(ClusterDelta(kind="pod_arrive", pod=copy.deepcopy(pods[0]) | {
+        "metadata": {"name": "late", "namespace": "q"}}))
+    out = {}
+    for device in ("cuda", "cpu"):
+        reset_name_counter()
+        cluster = ResourceTypes()
+        cluster.nodes = copy.deepcopy(nodes)
+        cluster.pods = copy.deepcopy(pods)
+        s = Session(cluster, device=device)
+        before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
+        bodies = [r.body for r in s.evaluate_batch(reqs)]
+        outcomes = [s.apply_delta(copy.deepcopy(d)) for d in deltas]
+        bodies += [r.body for r in s.evaluate_batch(reqs)]
+        launched = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] - before
+        out[device] = (bodies, outcomes, s._committed_scan().state_digest(),
+                       s.state_digest(), launched)
+    assert out["cuda"][:4] == out["cpu"][:4]
+    assert out["cuda"][4] == 2 and out["cpu"][4] == 0

@@ -29,7 +29,10 @@ for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.c
              "twin", "twin.deltas", "shadow", "shadow.log", "shadow.record",
              "shadow.report", "shadow.replay", "shadow.ingest", "timeline",
              "timeline.events", "timeline.autoscaler", "timeline.report",
-             "timeline.stepper", "timeline.compare"):
+             "timeline.stepper", "timeline.compare", "serve", "serve.session",
+             "serve.admission", "serve.coalescer", "serve.sessions", "serve.server",
+             "incremental", "incremental.resim", "obs.telemetry", "obs.slo",
+             "runtime.checkpoint"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -183,11 +186,53 @@ def test_timeline_and_shadow_paths_import_no_jax(tmp_path):
     assert '"traceFingerprint"' in out.stdout and "per-step curves" in out.stdout
 
 
+# the slice-10 path in a fresh interpreter, on the CPU: the daemon over
+# HTTP (a what-if, a cluster delta, the state digest, /metrics) and its
+# drain
+_SERVE = r"""
+import json, sys, urllib.request
+from open_simulator_tpu_torch.apply.applier import Applier, SimonConfig
+from open_simulator_tpu_torch.serve.server import ServeDaemon
+from open_simulator_tpu_torch.serve.session import Session
+cluster = Applier(SimonConfig.from_file("example/simon-config.yaml"),
+                  device="cpu").load_cluster()
+d = ServeDaemon(Session(cluster, device="cpu"), port=0, max_batch=4)
+d.start()
+base = f"http://{d.host}:{d.port}"
+dep = {"kind": "Deployment", "metadata": {"name": "w", "namespace": "x"},
+       "spec": {"replicas": 2, "template": {"spec": {"containers": [{"name": "c",
+       "image": "i", "resources": {"requests": {"cpu": "100m", "memory": "64Mi"}}}]}}}}
+def post(path, doc):
+    req = urllib.request.Request(base + path, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=120).read())
+print(post("/v1/simulate", {"apps": [{"name": "w", "yaml": json.dumps(dep)}]})["success"])
+print(post("/v1/cluster-delta", {"kind": "pod_arrive", "pod": {"kind": "Pod", "metadata": {
+      "name": "q", "namespace": "x"}, "spec": {"containers": [{"name": "c", "image": "i",
+      "resources": {"requests": {"cpu": "100m", "memory": "64Mi"}}}]}}})["applied"])
+print(sorted(json.loads(urllib.request.urlopen(base + "/v1/state-digest").read())))
+assert b"simon_launches_total" in urllib.request.urlopen(base + "/metrics").read()
+assert d.shutdown() == 0
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_serve_path_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[:2] == ["True", "1"]
+    assert "stateDigest" in out.stdout
+
+
 @pytest.mark.parametrize("argv", [
     ["chaos", "-f", "example/simon-gpushare-config.yaml"],
     ["defrag", "--snapshot", "SNAP"],
     ["timeline", "-f", "example/simon-config.yaml", "--synthetic", "5"],
     ["shadow", "-f", "example/simon-config.yaml", "--decision-log", "LOG"],
+    ["serve", "-f", "example/simon-config.yaml", "--port", "0"],
 ])
 def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
     """Without `--device cpu` the new commands ask for the card: with
