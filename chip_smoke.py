@@ -174,7 +174,34 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     launches' card time by CUDA events and the host phases; (c) a cut
     of 500 nodes x 2,000 pods through the same daemon, two ticks around
     four deltas over HTTP: the bodies and state digests == the JAX
-    package's (tools/jax_serve_answer.py).
+    package's (tools/jax_serve_answer.py);
+25. the kernel-library store (incremental/store.py) and the library key
+    (utils/nvcc.py: source, nvcc version, FLAGS, arch) in three
+    subprocesses sharing one store, each with an empty build directory
+    and one B1 launch at 10,000 nodes x 1,000 pods == the plain version:
+    the first builds with nvcc and fills the store, the second loads it
+    (0 nvcc builds), the third, after a byte of the stored payload is
+    flipped, refuses it (1 reject), builds once and saves it again; the
+    time to each first launch;
+26. serve failover: a daemon in a subprocess (phase 24's cluster, the
+    store armed, a checkpoint every 5 deltas) takes 8 deltas and a
+    what-if, then SIGKILL; `simon serve -f cfg --snapshot S
+    --replay-snapshot --aot-store D` (the cluster written as a
+    customConfig, an empty build directory) restores the checkpoint and
+    replays the journal's suffix: its state digest and first answer ==
+    the dead daemon's, 0 nvcc builds, one restore, replayed deltas == the
+    suffix, `simon top --once` and `--format json` against it exit 0;
+27. the digital twin (`simon twin`'s ClusterMirror and TwinDaemon, in
+    this process) on the default scenario's 10,000 nodes with 20,000
+    bound pods: the feed (the bound pods and 16 decisions, recorded on
+    the serial oracle) tailed at --feed-batch 64 at agreement 1.0, one B1
+    launch a decision; over HTTP a what-if of 50 replicas (one B1 launch
+    == its plain version), a drain of a zone by selector (one launch),
+    N+K at k=1 over 4 trials (one launch a trial), a forecast (one
+    pins-first launch a window that places pods); 0 nvcc builds; at a cut
+    of 500 nodes x 1,000 bound pods the what-if and drain answers == the
+    oracle engine's and everything == the JAX package's
+    (tools/jax_twin_answer.py).
 
 Phase 2 also times B1 through the instrumented wrapper against the bare
 launcher in turns; phases 2-10 and 17b hold one launch of each
@@ -183,14 +210,14 @@ allocator's measured peak rise; phase 17b also runs under `--inject
 ledger.predict_fit=lie:high` at its committed count: the rows split
 before launch, the same report, no OOM caught.
 
-Phases 14-24 fail the run when a trace note reports a downgrade or the
+Phases 14-27 fail the run when a trace note reports a downgrade or the
 serial floor, unless the phase injected that fault, as do the CLI runs
 of phases 6 and 11.
 
-    python3 chip_smoke.py --only 22,23,24
+    python3 chip_smoke.py --only 25,26,27
 
 runs phase 1 and the named phases that stand alone (14, 17, 18, 19, 21,
-22, 23, 24), and prints no kernels or ok line.
+22, 23, 24, 25, 26, 27), and prints no kernels or ok line.
 
 Cuts that keep the script near 5 minutes (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
@@ -205,7 +232,15 @@ node count 10,000 -> 2,000 (single-node outages scale as nodes x pods)
 and the JAX package's answers at 500 x 5,000 (there its vmapped XLA
 scan takes 56 s and 101 s on a CPU; nodes x pods x scenarios grow 64-
 fold to 2,000 x 20,000, so not run there); phase 17a's plain check the
-first 5,000 pods; phase 18's 100 nodes x 1,000 pods (the torch scan).
+first 5,000 pods; phase 18's 100 nodes x 1,000 pods (the torch scan);
+phase 27's decisions 200 -> TWIN_DECISIONS.
+
+Host-only inputs run beside the card's phases, so that phases 25-27 fit
+the time limit with no earlier depth cut: phase 23's two decision logs
+and phase 27's feed are recorded on the serial oracle in subprocesses
+started after phase 1, and phase 25's three processes (each at a small
+scenario: the store does not depend on the shape) run beside phases
+14-24.
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line (every fused-scan entry but the B2 one carries
@@ -218,9 +253,11 @@ their `plain_ms` the plain version over the first `plain_pods` and their
 launches of phase 11's full-width plan; the `fused_scan_batch
 (pins-first)` entry is phase 17b's launch, with phase 17's and phase
 22's launches and its us a pinned and a free pod step; the
-`fused_scan_base` entry's launches are phase 3's, phase 23's and phase
-24's, the `fused_scan_batch` entry's phase 6's and phase 24's, each
-entry's `launches_by_phase` splits them), and
+`fused_scan_base` entry's launches are phase 3's, 23's, 24's, 25's (the
+subprocesses' own counts), 26's (the daemons' `scan` site) and 27's, the
+`fused_scan_batch` entry's phase 6's, 24's and 26's, the pins-first
+entry's 17's, 22's and 27's, each entry's `launches_by_phase` splits
+them), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -427,6 +464,184 @@ SERVE_CUT_REQUESTS = ((50, "500m", "1Gi", None), (20, "2", "4Gi", None),
                       (1, "8", "32Gi", None), (30, "1", "2Gi", "z3"),
                       (10, "4", "8Gi", None), (64, "500m", "1Gi", "z5"))
 JAX_SERVE_ANSWER = "d06907cdcc28769b05b9e583d094f7c42071909fbc76a68fbac8405673ce9c3d"
+# phase 25: the kernel-library store; each subprocess launches B1 once at
+# STORE_NODES nodes x STORE_PODS pods of the default scenario and holds it
+# against the plain version (the library does not depend on the shape)
+STORE_NODES = 300
+STORE_PODS = 200
+# phase 26: serve failover on phase 24's cluster: FAILOVER_DELTAS deltas
+# (evictions near the tail, then arrivals), a checkpoint every
+# FAILOVER_INTERVAL, then SIGKILL and `serve --replay-snapshot`
+FAILOVER_DELTAS = 8
+FAILOVER_INTERVAL = 5
+# phase 27: the digital twin on the default scenario's TWIN_NODES nodes
+# with TWIN_BOUND pods of 250m / 512 MiB bound to them; a feed of the
+# default pods' first TWIN_DECISIONS decisions (cut from 200 for the
+# script's time: with the bound pods the recorder and the mirror's probe
+# each cost ~0.4-0.5 s a decision at 10,000 nodes) tailed at
+# TWIN_FEED_BATCH steps a poll; the queries: a what-if of a
+# TWIN_WHATIF_REPLICAS-replica Deployment, a drain of zone TWIN_DRAIN_ZONE,
+# N+K at k=1 over TWIN_NPLUSK_TRIALS trials, a forecast of
+# TWIN_FORECAST_S seconds at one arrival a second stepped every 60 s.
+# The JAX package's answer (tools/jax_twin_answer.py) for the cut of
+# TWIN_JAX_NODES nodes x TWIN_JAX_BOUND bound pods and TWIN_JAX_DECISIONS
+# decisions
+TWIN_NODES = N_NODES
+TWIN_BOUND = 20_000
+TWIN_DECISIONS = 16
+TWIN_FEED_BATCH = 64
+TWIN_WHATIF_REPLICAS = 50
+TWIN_DRAIN_ZONE = "z5"
+TWIN_NPLUSK_TRIALS = 8
+TWIN_FORECAST_S = 240
+TWIN_JAX_NODES = 500
+TWIN_JAX_BOUND = 1_000
+TWIN_JAX_DECISIONS = 100
+JAX_TWIN_ANSWER = "aa795ec5e84caaaaa19d5619272d44874e9df5e6d035f3ea06194db2b42a9a3e"
+
+
+# processes started beside the card's phases; any still running at exit
+# is killed (atexit)
+_CHILDREN: list = []
+
+
+def start_child(root, label, fn, *args, env=None):
+    """`python -c "chip_smoke.<fn>(*args)"` started now, its output in
+    files under `root`; `wait_child` reads its last stdout line (JSON)."""
+    import os
+
+    out, err = (open(Path(root) / f"{label}.{k}", "w+") for k in ("out", "err"))
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.{fn}(*sys.argv[1:]))"
+    proc = subprocess.Popen([sys.executable, "-c", code, *map(str, args)], cwd=str(ROOT),
+                            stdout=out, stderr=err, env=dict(os.environ, **(env or {})),
+                            text=True)
+    proc.files = (out, err)
+    proc.label = label
+    _CHILDREN.append(proc)
+    return proc
+
+
+def wait_child(proc, timeout=1200):
+    """(the child's last stdout line as JSON, its stderr); raises when it
+    failed."""
+    rc = proc.wait(timeout=timeout)
+    out, err = proc.files
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if rc != 0:
+        raise AssertionError(f"{proc.label}: exit {rc}: {stderr[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1]), stderr
+
+
+@__import__("atexit").register
+def stop_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+class Background:
+    """`fn(*args)` in a daemon thread beside the card's phases; `result()`
+    joins it and raises what it raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self._out: dict = {}
+        self._thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self._out["value"] = fn(*args)
+        except BaseException as e:  # re-raised by result()
+            self._out["error"] = e
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+# host-only inputs, recorded on the serial oracle in subprocesses that
+# see no card: name -> (function, its arguments after `root`)
+PREP_TASKS = {
+    "shadow-full": ("prep_shadow", ("shadow-full", SHADOW_NODES, SHADOW_DECISIONS)),
+    "shadow-cut": ("prep_shadow", ("shadow-cut", SHADOW_JAX_NODES, SHADOW_JAX_DECISIONS)),
+    "twin-feed": ("prep_twin_feed", ()),
+    "failover-config": ("prep_failover_config", ()),
+}
+_PREP: dict = {}
+
+
+def start_prep(root, names=tuple(PREP_TASKS)) -> None:
+    """Start the named host-only input tasks now, beside what follows."""
+    for name in names:
+        fn, args = PREP_TASKS[name]
+        _PREP[name] = start_child(root, f"prep-{name}", fn, root, *args,
+                                  env={"CUDA_VISIBLE_DEVICES": ""})
+
+
+def prepared(root, name) -> dict:
+    """The JSON line of input task `name`: waited for if it was started
+    beside the earlier phases, else run now."""
+    if name not in _PREP:
+        start_prep(root, (name,))
+    return wait_child(_PREP.pop(name))[0]
+
+
+def prep_shadow(root, tag, n_nodes, n_pods) -> int:
+    """Phase 23's input: the shadow config of `n_nodes` x `n_pods` and
+    `simon shadow --record` of it on the serial oracle (no card)."""
+    cfg = write_shadow_config(Path(root) / tag, int(n_nodes), int(n_pods))
+    log = str(Path(root) / f"{tag}.jsonl")
+    t0 = time.perf_counter()
+    rc, out, err = run_cli(["shadow", "-f", cfg, "--record", log])
+    print(json.dumps({"cfg": cfg, "log": log, "rc": rc, "out": out, "err": err[-3000:],
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def prep_twin_feed(root) -> int:
+    """Phase 27's feed: TWIN_BOUND bound pods' placements and
+    TWIN_DECISIONS decisions recorded on the serial oracle (no card),
+    written as a decision log."""
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.shadow.log import DecisionLogWriter, cluster_fingerprint
+    from open_simulator_tpu_torch.shadow.record import record_simulation
+
+    nodes, bound, feed = twin_cluster(TWIN_NODES, TWIN_BOUND, TWIN_DECISIONS)
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, bound
+    app = ResourceTypes()
+    app.pods = feed
+    t0 = time.perf_counter()
+    reset_name_counter()
+    steps = record_simulation(cluster, [AppResource("feed", app)])
+    secs = time.perf_counter() - t0
+    log = str(Path(root) / "twin-feed.jsonl")
+    with DecisionLogWriter(log, cluster_fingerprint(cluster)) as w:
+        for st in steps:
+            w.append(st)
+    print(json.dumps({"log": log, "seconds": secs}), flush=True)
+    return 0
+
+
+def prep_failover_config(root) -> int:
+    """Phase 26's input: phase 24's cluster written as a customConfig."""
+    t0 = time.perf_counter()
+    cfg = write_serve_config(Path(root) / "failover")
+    print(json.dumps({"cfg": cfg, "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2842,16 +3057,13 @@ def phase23(gpu, root) -> dict:
     from open_simulator_tpu_torch.ops import fused_scan
     from open_simulator_tpu_torch.utils.trace import COUNTERS, GLOBAL
 
-    cfg = write_shadow_config(Path(root) / "shadow-full")
-    log = str(Path(root) / "shadow-full.jsonl")
-    t0 = time.perf_counter()
-    rc, out, err = run_cli(["shadow", "-f", cfg, "--record", log])
-    rec_s = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"phase 23: --record exited {rc}: {err[-2000:]}")
-    print(f"phase 23 (shadow, {SHADOW_NODES} nodes): {out.strip()} in {rec_s:.1f} s on the "
-          f"serial oracle = {rec_s * 1e3 / SHADOW_DECISIONS:.1f} ms a decision (host) [{gpu}]",
-          flush=True)
+    rec = prepared(root, "shadow-full")
+    cfg, log, rec_s = rec["cfg"], rec["log"], rec["seconds"]
+    if rec["rc"] != 0:
+        raise AssertionError(f"phase 23: --record exited {rec['rc']}: {rec['err'][-2000:]}")
+    print(f"phase 23 (shadow, {SHADOW_NODES} nodes): {rec['out'].strip()} in {rec_s:.1f} s on "
+          f"the serial oracle = {rec_s * 1e3 / SHADOW_DECISIONS:.1f} ms a decision (host, a "
+          f"process beside the earlier phases) [{gpu}]", flush=True)
 
     fused_scan.reset_launch_counts()
     GLOBAL.reset()
@@ -2905,15 +3117,13 @@ def phase23(gpu, root) -> dict:
           f"{tl['windows']} windows, {tl_launches} pins-first launches, final pending "
           f"{[p['finalPending'] for p in tl['policies']]}, {tl_s:.1f} s [{gpu}]", flush=True)
 
-    cfg_cut = write_shadow_config(Path(root) / "shadow-cut", SHADOW_JAX_NODES,
-                                  SHADOW_JAX_DECISIONS)
-    log_cut = str(Path(root) / "shadow-cut.jsonl")
+    cut_rec = prepared(root, "shadow-cut")
+    cfg_cut, log_cut, rc, err = (cut_rec[k] for k in ("cfg", "log", "rc", "err"))
     t0 = time.perf_counter()
-    rc, _o, err = run_cli(["shadow", "-f", cfg_cut, "--record", log_cut])
     log_digest = hashlib.sha256(Path(log_cut).read_bytes()).hexdigest()
     rc2, out_c, err2 = run_cli(["shadow", "-f", cfg_cut, "--decision-log", log_cut,
                                 "--format", "json"])
-    cut_s = time.perf_counter() - t0
+    cut_s = time.perf_counter() - t0 + cut_rec["seconds"]
     digest = shadow_digest(out_c) if rc2 == 0 else None
     if rc or rc2 or log_digest != JAX_SHADOW_LOG_ANSWER or digest != JAX_SHADOW_ANSWER:
         raise AssertionError(f"phase 23: the cut: exit {rc}/{rc2}, log {log_digest}, report "
@@ -3355,6 +3565,602 @@ def phase24(gpu, root=None) -> dict:
             "qps": n_req / storm_s, "card_ms": card_ms}
 
 
+def store_child(build_dir, n_nodes=STORE_NODES, n_pods=STORE_PODS) -> int:
+    """Phase 25's subprocess (the store armed by SIMON_AOT_STORE): with its
+    own, empty, kernel build directory, encode the default scenario at
+    `n_nodes` x `n_pods`, launch B1 once (its library built by nvcc or
+    loaded from the store) and hold it against the plain version. Prints
+    one JSON line: the counters, the launches, the seconds from this
+    function's start to the end of the launch, max_abs_err."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.incremental.store import current_store
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.utils import nvcc
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    nvcc.BUILD_DIR = Path(build_dir)
+    nodes, pods = build_scenario(int(n_nodes), int(n_pods))
+    plan, batch, names = encode(nodes, pods, "cuda")
+    args = (plan, batch.class_of_pod, np.ones(len(names), bool), np.ones(plan.n, bool))
+    fused_scan.reset_launch_counts()
+    got = fused_scan.run_fused_scan(*args, pinned=batch.pinned_node)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fused_scan.LAUNCHES[fused_scan.KERNEL_NAME]
+    want = fused_scan.fused_scan_reference(*args, pinned=batch.pinned_node)
+    print(json.dumps({
+        "first_launch_s": first_s, "launches": launches, "max_abs_err": max_abs_err(got, want),
+        "store": str(current_store().root) if current_store() else None,
+        "library": nvcc.library_path(fused_scan.SOURCE).name,
+        **{k: COUNTERS.get(k) for k in ("nvcc_builds_total", "nvcc_cache_hits_total",
+                                        "aot_store_hit_total", "aot_store_miss_total",
+                                        "aot_store_reject_total", "aot_store_save_total")}}),
+        flush=True)
+    return 0
+
+
+def store_chain(root) -> dict:
+    """Phase 25's three subprocesses, one after the other, sharing the
+    store `root`/aot-store, each with its own empty build directory:
+    cold (nvcc builds, the store fills), warm (the store serves), corrupt
+    (a byte of the stored library flipped first). Returns each one's
+    JSON line with its stderr and its wall seconds."""
+    store = Path(root) / "aot-store"
+    runs = {}
+    for tag in ("cold", "warm", "corrupt"):
+        if tag == "corrupt":
+            payload = store / runs["cold"]["library"]
+            data = bytearray(payload.read_bytes())
+            data[len(data) // 2] ^= 0xFF
+            payload.write_bytes(bytes(data))
+        t0 = time.perf_counter()
+        proc = start_child(root, f"store-{tag}", "store_child", Path(root) / f"build-{tag}",
+                           env={"SIMON_AOT_STORE": str(store)})
+        doc, err = wait_child(proc, timeout=900)
+        runs[tag] = dict(doc, wall=time.perf_counter() - t0, stderr=err)
+    return runs
+
+
+def phase25(gpu, root, chain=None) -> dict:
+    """The kernel-library store and C3 on the card, in three subprocesses
+    that share one store and have each an empty build directory (the
+    store is the library directory): the first builds fused_scan.cu and
+    fills the store; the second loads it (no nvcc build) and its B1
+    launch == the plain version; after a byte of the stored library is
+    flipped, the third refuses the entry (one reject), builds once,
+    commits it again, and its launch == plain too. The manifest's key is
+    the one this process keys the library by (the source, the nvcc
+    version, FLAGS, the arch). `chain` is store_chain already running
+    beside the earlier phases (main), else it runs now."""
+    import hashlib
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.utils import nvcc
+
+    runs = (chain or Background(store_chain, root)).result()
+    store = Path(root) / "aot-store"
+    want = {  # counters each run must show
+        "cold": {"nvcc_builds_total": 1, "aot_store_miss_total": 1, "aot_store_save_total": 1,
+                 "aot_store_hit_total": 0, "aot_store_reject_total": 0},
+        "warm": {"nvcc_builds_total": 0, "aot_store_hit_total": 1, "aot_store_save_total": 0,
+                 "aot_store_reject_total": 0},
+        "corrupt": {"nvcc_builds_total": 1, "aot_store_reject_total": 1,
+                    "aot_store_save_total": 1, "aot_store_hit_total": 0},
+    }
+    for tag, doc in runs.items():
+        bad = {k: doc[k] for k, v in want[tag].items() if doc[k] != v}
+        if bad or doc["launches"] != 1 or doc["max_abs_err"] or doc["store"] != str(store):
+            shown = {k: v for k, v in doc.items() if k != "stderr"}
+            raise AssertionError(f"phase 25 ({tag}): {shown}; wanted {want[tag]}, one launch "
+                                 f"== plain: {doc['stderr'][-2000:]}")
+    if "payload sha256 mismatch" not in runs["corrupt"]["stderr"]:
+        raise AssertionError(f"phase 25: the corrupt entry was not refused loudly: "
+                             f"{runs['corrupt']['stderr'][-2000:]}")
+    lib = nvcc.library_path(fused_scan.SOURCE).name
+    manifest = json.loads((store / lib).with_suffix(".json").read_text())
+    payload_sha = hashlib.sha256((store / lib).read_bytes()).hexdigest()
+    if (manifest["digest"] != nvcc.library_key(fused_scan.SOURCE)
+            or manifest["payload_sha256"] != payload_sha
+            or {r["library"] for r in runs.values()} != {lib}):
+        raise AssertionError(f"phase 25: the store's entry {manifest['digest'][:16]} "
+                             f"(payload verifies: {manifest['payload_sha256'] == payload_sha}) "
+                             f"or the children's libraries "
+                             f"{[r['library'] for r in runs.values()]} != this process's "
+                             f"{nvcc.library_key(fused_scan.SOURCE)[:16]}, {lib}")
+    print(f"phase 25 (the kernel-library store, B1 at {STORE_NODES} nodes x {STORE_PODS} pods "
+          f"in each of three processes, each with an empty build directory, run beside the "
+          f"earlier phases): time to the first launch cold (nvcc) "
+          f"{runs['cold']['first_launch_s']:.2f} s ({runs['cold']['wall']:.1f} s the process), "
+          f"from the store {runs['warm']['first_launch_s']:.2f} s "
+          f"({runs['warm']['wall']:.1f} s), after a corrupted payload "
+          f"{runs['corrupt']['first_launch_s']:.2f} s ({runs['corrupt']['wall']:.1f} s: 1 "
+          f"reject, 1 build, committed again); every launch == B1's plain version, "
+          f"max_abs_err 0; the library {lib} keyed by the source and the toolchain (nvcc "
+          f"{manifest['nvcc_version'].strip().splitlines()[-1]}, FLAGS, {nvcc.ARCH}); driver "
+          f"{manifest['driver']}, torch {manifest['torch']} recorded [{gpu}]", flush=True)
+    return {"launches": sum(r["launches"] for r in runs.values()), "runs": runs}
+
+
+def serve_child(snapshot, store, n_nodes=SERVE_NODES, n_pods=SERVE_PODS) -> int:
+    """Phase 26's first daemon, in a subprocess that phase 26 kills with
+    SIGKILL: phase 24's cluster built here (no YAML), the kernel-library
+    store at `store`, a Session and a ServeDaemon journaling to
+    `snapshot` with a checkpoint every FAILOVER_INTERVAL deltas, as
+    `simon serve` builds them; prints the readiness line and serves."""
+    from open_simulator_tpu_torch.incremental.store import configure_store
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.obs.telemetry import arm_flight_recorder
+    from open_simulator_tpu_torch.serve.server import ServeDaemon
+    from open_simulator_tpu_torch.serve.session import Session
+
+    nodes, pods = build_serve_cluster(int(n_nodes), int(n_pods))
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, pods
+    configure_store(store)
+    session = Session(cluster)
+    daemon = ServeDaemon(session, port=0, snapshot_path=snapshot,
+                         checkpoint_interval=FAILOVER_INTERVAL, keep_checkpoints=2)
+    arm_flight_recorder()
+    session.warm()
+    daemon.start()
+    print(f"simon serve listening on http://{daemon.host}:{daemon.port} "
+          f"(cluster {session.fingerprint})", flush=True)
+    return daemon.run_until_signaled()
+
+
+def write_serve_config(root, n_nodes=SERVE_NODES, n_pods=SERVE_PODS) -> str:
+    """Phase 24's cluster as a simon config (customConfig) under `root`."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    nodes, pods = build_serve_cluster(n_nodes, n_pods)
+    (root / "cluster").mkdir(parents=True)
+    with open(root / "cluster" / "objects.yaml", "w") as f:
+        yaml.dump_all(nodes + pods, f, Dumper=dumper)
+    cfg = root / "simon-config.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "apiVersion": "simon/v1alpha1", "kind": "Config", "metadata": {"name": "failover"},
+        "spec": {"cluster": {"customConfig": str(root / "cluster")}}}))
+    return str(cfg)
+
+
+def _ready_line(proc, label):
+    line = proc.stdout.readline()
+    if "listening on http://" not in line:
+        raise AssertionError(f"{label}: no readiness line ({line!r})")
+    return line.split("listening on ", 1)[1].split()[0].rstrip("/")
+
+
+def metric(text, name) -> float:
+    """One sample of a Prometheus exposition, by its full name."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"{name} not in the exposition")
+
+
+def phase26(gpu, root) -> dict:
+    """Serve failover and `simon top` on phase 24's cluster: a daemon (a
+    subprocess, the store armed) commits SERVE_PODS pods on SERVE_NODES
+    nodes, takes FAILOVER_DELTAS deltas with a checkpoint every
+    FAILOVER_INTERVAL, answers a what-if, and is killed with SIGKILL;
+    `simon serve -f cfg --snapshot S --replay-snapshot --aot-store D`
+    with an empty kernel build directory then restores the checkpoint and
+    replays the journal's suffix. Its state digest and its first answer
+    == the dead daemon's, it built nothing (the store), one checkpoint
+    restore, replayed deltas == the journal's suffix, and `simon top
+    --once` and `--format json` against it exit 0."""
+    import os
+    import signal
+
+    from open_simulator_tpu_torch.runtime.checkpoint import (
+        checkpoint_dir,
+        list_checkpoints,
+        load_checkpoint,
+    )
+
+    root = Path(root)
+    snapshot, store = str(root / "failover.jsonl"), str(root / "aot-store")
+    prep = prepared(root, "failover-config")
+    cfg, write_s = prep["cfg"], prep["seconds"]
+    nodes, pods = build_serve_cluster()
+    recs = serve_deltas(pods, [SERVE_EVICT_FROM + 50 * k for k in range(FAILOVER_DELTAS // 2)],
+                        FAILOVER_DELTAS - FAILOVER_DELTAS // 2, tag="failover")
+    envelope = serve_envelope("failover-whatif")
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.serve_child(*sys.argv[1:]))"
+    t0 = time.perf_counter()
+    dead = subprocess.Popen([sys.executable, "-c", code, snapshot, store], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=open(root / "dead.err", "w"),
+                            text=True)
+    try:
+        base = _ready_line(dead, "phase 26 (the first daemon)")
+        start_s = time.perf_counter() - t0
+        d_times = []
+        for i, rec in enumerate(recs):
+            t1 = time.perf_counter()
+            status, _h, body = http_json(base, "/v1/cluster-delta", {"deltas": [rec]})
+            d_times.append((time.perf_counter() - t1) * 1e3)
+            if status != 200:
+                raise AssertionError(f"phase 26: delta {i}: {status} {body[:300]!r}")
+            if i + 1 == FAILOVER_INTERVAL:
+                # the checkpoint of the first FAILOVER_INTERVAL deltas is
+                # written off the request path: wait for it
+                for _ in range(600):
+                    _s, _h, m = http_json(base, "/metrics")
+                    if metric(m.decode(), "simon_ckpt_writes_total") >= 1:
+                        break
+                    time.sleep(0.1)
+        _s, _h, digest = http_json(base, "/v1/state-digest")
+        a_status, _h, answer = http_json(base, "/v1/simulate", envelope)
+        _s, _h, m_dead = http_json(base, "/metrics")
+    finally:
+        dead.send_signal(signal.SIGKILL)
+        dead.wait(timeout=60)
+        dead.stdout.close()
+    m_dead = m_dead.decode()
+    if a_status != 200 or metric(m_dead, "simon_ckpt_writes_total") < 1:
+        raise AssertionError(f"phase 26: the dead daemon's what-if {a_status}, checkpoints "
+                             f"{metric(m_dead, 'simon_ckpt_writes_total')}")
+    gen_seq, gen_path = list_checkpoints(checkpoint_dir(snapshot))[0]
+    header, _payload = load_checkpoint(gen_path)
+    suffix = 0
+    for line in Path(snapshot).read_text().splitlines()[1:]:
+        rec = json.loads(line) if line.strip() else {}
+        if rec.get("event") == "delta" and rec.get("seq", 0) > header["deltaSeq"]:
+            suffix += 1
+    new_code = ("import sys; from pathlib import Path; "
+                "from open_simulator_tpu_torch.utils import nvcc; "
+                "nvcc.BUILD_DIR = Path(sys.argv[1]); "
+                "from open_simulator_tpu_torch.cli import main; sys.exit(main(sys.argv[2:]))")
+    t0 = time.perf_counter()
+    new = subprocess.Popen(
+        [sys.executable, "-c", new_code, str(root / "build-failover"), "serve", "-f", cfg,
+         "--port", "0", "--snapshot", snapshot, "--replay-snapshot", "--aot-store", store,
+         "--checkpoint-interval", str(FAILOVER_INTERVAL)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=open(root / "new.err", "w"), text=True,
+        env=dict(os.environ))
+    try:
+        base = _ready_line(new, "phase 26 (the replacement)")
+        ready_s = time.perf_counter() - t0
+        _s, _h, digest2 = http_json(base, "/v1/state-digest")
+        t1 = time.perf_counter()
+        a2_status, _h, answer2 = http_json(base, "/v1/simulate", envelope)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        _s, _h, m_new = http_json(base, "/metrics")
+        top = [run_cli(["top", "--url", base, *flags])
+               for flags in (["--once"], ["--format", "json"])]
+    finally:
+        new.send_signal(signal.SIGTERM)
+        drain_rc = new.wait(timeout=120)
+        new.stdout.close()
+    m_new = m_new.decode()
+    err_new = (root / "new.err").read_text()
+    got = {k: metric(m_new, f"simon_{k}") for k in (
+        "nvcc_builds_total", "aot_store_hit_total", "aot_store_reject_total",
+        "ckpt_restore_total", "fleet_replay_deltas_total", "ckpt_restore_seconds")}
+    launches = {site: metric(m_new, f'simon_launches_site_total{{site="{site}"}}')
+                for site in ("scan", "scenario_scan")}
+    dead_launches = {site: metric(m_dead, f'simon_launches_site_total{{site="{site}"}}')
+                     for site in ("scan", "scenario_scan")}
+    if json.loads(digest2) != json.loads(digest) or a2_status != 200 or answer2 != answer:
+        raise AssertionError(f"phase 26: the replacement's state {digest2[:200]!r} / answer "
+                             f"({a2_status}, equal {answer2 == answer}) != the dead "
+                             f"daemon's {digest[:200]!r}: {err_new[-2000:]}")
+    if (got["nvcc_builds_total"] or got["aot_store_hit_total"] < 1
+            or got["aot_store_reject_total"] or got["ckpt_restore_total"] != 1
+            or got["fleet_replay_deltas_total"] != suffix or drain_rc != 0
+            or any(rc != 0 for rc, _o, _e in top) or not json.loads(top[1][1])["snapshot"]):
+        raise AssertionError(f"phase 26: {got}, journal suffix {suffix}, drain exit {drain_rc}, "
+                             f"top exits {[t[0] for t in top]}: {err_new[-2000:]}")
+    if not (launches["scan"] >= 1 and launches["scenario_scan"] >= 1):
+        raise AssertionError(f"phase 26: the replacement's launches {launches}")
+    print(f"phase 26 (serve failover, {SERVE_NODES} nodes x {SERVE_PODS} committed pods): the "
+          f"config written in {write_s:.1f} s (beside the earlier phases); the first daemon ready in {start_s:.1f} s "
+          f"(process start, session, committed scan, warm-up), {len(recs)} deltas at p50 "
+          f"{statistics.median(d_times):.1f} ms, a checkpoint at deltaSeq "
+          f"{header['deltaSeq']}, then SIGKILL; the replacement (`serve --replay-snapshot "
+          f"--aot-store`, an empty build directory) ready in {ready_s:.1f} s: "
+          f"{int(got['aot_store_hit_total'])} store hit, 0 nvcc builds, 1 checkpoint restore in "
+          f"{got['ckpt_restore_seconds']:.3f} s, {int(got['fleet_replay_deltas_total'])} "
+          f"journal deltas replayed (the suffix past {header['deltaSeq']}); its state digest "
+          f"and its first answer ({first_ms:.1f} ms) == the dead daemon's; launches: the dead "
+          f"daemon's scan {int(dead_launches['scan'])}, scenario_scan "
+          f"{int(dead_launches['scenario_scan'])}; the replacement's scan "
+          f"{int(launches['scan'])}, scenario_scan {int(launches['scenario_scan'])}; `simon "
+          f"top --once` and `--format json` exit 0 [{gpu}]", flush=True)
+    print("phase 26: simon top --once:\n" + top[0][1].rstrip(), flush=True)
+    return {"base_launches": int(launches["scan"] + dead_launches["scan"]),
+            "batch_launches": int(launches["scenario_scan"] + dead_launches["scenario_scan"]),
+            "restore_s": got["ckpt_restore_seconds"], "first_ms": first_ms}
+
+
+def twin_cluster(n_nodes, n_bound, n_decisions):
+    """Phase 27's inputs: the default scenario's nodes, `n_bound` pods of
+    250m / 512 MiB bound round-robin to them, and the default pods'
+    first `n_decisions` as the feed's app."""
+    nodes, feed = build_scenario(n_nodes, n_decisions)
+    bound = [{"kind": "Pod", "metadata": {"name": f"twin-b-{i:06d}", "namespace": "twin"},
+              "spec": {"nodeName": nodes[i % n_nodes]["metadata"]["name"], "containers": [{
+                  "name": "c", "image": "img-bound", "resources": {"requests": {
+                      "cpu": "250m", "memory": "512Mi"}}}]}}
+             for i in range(n_bound)]
+    for pod in feed:
+        pod["kind"] = "Pod"
+    return nodes, bound, feed
+
+
+def twin_queries(forecast_engine):
+    """(path, body) of phase 27's queries, in order."""
+    return (("/v1/whatif", serve_envelope("twin-whatif", TWIN_WHATIF_REPLICAS)),
+            ("/v1/drain", {"selector": {"zone": TWIN_DRAIN_ZONE}}),
+            ("/v1/nplusk", {"k": 1, "trials": TWIN_NPLUSK_TRIALS, "seed": 1}),
+            ("/v1/forecast", {"horizonSeconds": TWIN_FORECAST_S, "arrivalRate": 1.0,
+                              "cadenceSeconds": 60, "policy": "static:0",
+                              "engine": forecast_engine}))
+
+
+def twin_norm(body: dict) -> dict:
+    """A twin answer with what names the engine or counts its compiler
+    set aside: the forecast's `engine`, the mirror stats' warm-build
+    count (`warmRecompiles` in the JAX package, `warmBuilds` here)."""
+    body = {k: v for k, v in body.items() if k != "engine"}
+    if "mirror" in body:
+        body["mirror"] = {k: v for k, v in body["mirror"].items()
+                          if k not in ("warmRecompiles", "warmBuilds")}
+    return body
+
+
+def twin_fed(base, timeout=900):
+    """Wait until the twin at `base` has applied its whole feed; returns
+    its /healthz document."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        _s, _h, body = http_json(base, "/healthz")
+        h = json.loads(body)
+        if h["mirror"]["feedExhausted"] and h["mirror"]["backlog"] == 0:
+            return h
+        time.sleep(0.02)
+    raise AssertionError(f"the twin at {base} did not drain its feed in {timeout} s")
+
+
+def twin_cut_digest(ClusterMirror, FeedSource, TwinDaemon, ResourceTypes, AppResource,
+                    record_simulation, reset_name_counter, engine, forecast_engine,
+                    **mirror_kw):
+    """Phase 27's cut through the classes given (one package's) in this
+    process: TWIN_JAX_NODES nodes with TWIN_JAX_BOUND bound pods, the
+    feed of TWIN_JAX_DECISIONS decisions recorded and tailed by a TwinDaemon
+    at TWIN_FEED_BATCH, then the four queries over HTTP and the state
+    digest. Returns the sha256 of the feed's steps, the answers
+    (twin_norm) and the digest, the seconds it took, and the answers
+    (tools/jax_twin_answer.py runs it on the JAX package; the port's
+    must print the same)."""
+    import hashlib
+
+    t0 = time.perf_counter()
+    nodes, bound, feed = twin_cluster(TWIN_JAX_NODES, TWIN_JAX_BOUND, TWIN_JAX_DECISIONS)
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, bound
+    app = ResourceTypes()
+    app.pods = feed
+    reset_name_counter()
+    steps = record_simulation(cluster, [AppResource("feed", app)])
+    mirror = ClusterMirror(cluster, FeedSource(steps, batch=TWIN_FEED_BATCH), engine=engine,
+                           **mirror_kw)
+    mirror.bootstrap()
+    daemon = TwinDaemon(mirror, port=0, poll_interval_s=0.001)
+    daemon.start()
+    try:
+        base = f"http://{daemon.host}:{daemon.port}"
+        twin_fed(base)
+        answers = []
+        for path, body in twin_queries(forecast_engine):
+            status, _h, raw = http_json(base, path, body)
+            answers.append((status, json.loads(raw)))
+        _s, _h, digest = http_json(base, "/v1/state-digest")
+    finally:
+        daemon.shutdown()
+    if any(st != 200 for st, _b in answers):
+        raise AssertionError(f"the twin cut ({ClusterMirror.__module__}): statuses "
+                             f"{[a[0] for a in answers]}: {[a[1] for a in answers]}")
+    h = hashlib.sha256()
+    for st in steps:
+        h.update(json.dumps(st.as_record(), sort_keys=True).encode())
+    for _status, body in answers:
+        h.update(json.dumps(twin_norm(body), sort_keys=True).encode())
+    h.update(json.dumps(json.loads(digest), sort_keys=True).encode())
+    return h.hexdigest(), time.perf_counter() - t0, answers
+
+
+def phase27(gpu, root=None) -> dict:
+    """The digital twin at full width on the card, in this process: the
+    default scenario's TWIN_NODES nodes with TWIN_BOUND bound pods, a
+    feed of the bound pods' placements and TWIN_DECISIONS decisions
+    recorded on the serial oracle, tailed at TWIN_FEED_BATCH by a
+    TwinDaemon with the counters at 0: agreement 1.0, one B1 launch a
+    decision; then over HTTP a what-if (one B1 launch, held against B1's
+    plain version on its inputs), a drain of a zone by selector (one B1
+    launch), N+K at k=1 over TWIN_NPLUSK_TRIALS trials (one B1 launch a
+    trial) and a forecast (one pins-first launch a window that places
+    pods, == the report's dispatches), no nvcc build; at the cut, the
+    what-if and drain answers == the same twin's on the oracle engine,
+    and the whole cut == the JAX package's (JAX_TWIN_ANSWER)."""
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.obs.histo import HISTOS
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.serve.server import parse_request_body
+    from open_simulator_tpu_torch.shadow.log import read_decision_log
+    from open_simulator_tpu_torch.shadow.record import record_simulation
+    from open_simulator_tpu_torch.twin import queries
+    from open_simulator_tpu_torch.twin.mirror import ClusterMirror, FeedSource
+    from open_simulator_tpu_torch.twin.server import TwinDaemon
+    from open_simulator_tpu_torch.utils.trace import COUNTERS, GLOBAL
+
+    nodes, bound, _feed = twin_cluster(TWIN_NODES, TWIN_BOUND, 0)
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, bound
+    rec = prepared(root, "twin-feed")
+    steps, _meta = read_decision_log(rec["log"])
+    n_dec = sum(1 for st in steps if st.kind == "decision")
+    print(f"phase 27 (the twin, {TWIN_NODES} nodes x {TWIN_BOUND} bound pods): the feed "
+          f"recorded on the serial oracle: {len(steps) - n_dec} bound-pod steps and {n_dec} "
+          f"decisions (cut from 200 for the script's time) in {rec['seconds']:.1f} s (host, a "
+          f"process beside the earlier phases) [{gpu}]", flush=True)
+
+    mirror = ClusterMirror(cluster, FeedSource(steps, batch=TWIN_FEED_BATCH))
+    mirror.bootstrap()
+    daemon = TwinDaemon(mirror, port=0, poll_interval_s=0.001)
+    builds0 = COUNTERS.get("nvcc_builds_total")
+    GLOBAL.reset()
+    fused_scan.reset_launch_counts()
+    t0 = time.perf_counter()
+    daemon.start()
+    base = f"http://{daemon.host}:{daemon.port}"
+    try:
+        health = twin_fed(base)
+        tail_s = time.perf_counter() - t0
+        tail_launches = dict(fused_scan.LAUNCHES)
+        phases = {ph["name"]: ph["seconds"] for ph in GLOBAL.as_dict()["phases"]}
+        check_notes("phase 27 (tail)", GLOBAL.notes)
+        stats = health["mirror"]
+        if (stats["agreementRate"] != 1.0 or stats["decisions"] != n_dec
+                or tail_launches[fused_scan.KERNEL_NAME] != n_dec
+                or sum(tail_launches.values()) != n_dec):
+            raise AssertionError(f"phase 27: the tail: {stats}, launches {tail_launches}")
+        per_dec = (phases.get("shadow/probe", 0) + phases.get("shadow/commit", 0)) / n_dec
+        print(f"phase 27: the feed tailed at --feed-batch {TWIN_FEED_BATCH} in {tail_s:.1f} s "
+              f"({len(steps)} steps, {stats['polls']} polls): agreement "
+              f"{stats['agreementRate']} over {n_dec} decisions, one "
+              f"{fused_scan.KERNEL_NAME} launch a decision (cluster "
+              f"{fused_scan.CLUSTERS[fused_scan.KERNEL_NAME]}), "
+              f"{per_dec * 1e3:.2f} ms a decision (shadow/probe + shadow/commit); host clock: "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in phases.items()) + f" [{gpu}]",
+              flush=True)
+
+        real_scan = fused_scan.run_fused_scan
+        calls = []
+
+        def record_scan(plan, cls, active, valid, pinned=None, site="scan"):
+            outs = real_scan(plan, cls, active, valid, pinned, site=site)
+            calls.append((plan, cls, active, valid, pinned, outs))
+            return outs
+
+        results = {}
+        for (path, body), kernel in zip(twin_queries("cuda"),
+                                        (fused_scan.KERNEL_NAME,) * 3
+                                        + (fused_scan.PINS_FIRST_KERNEL_NAME,)):
+            site = "timeline_sweep" if path == "/v1/forecast" else "scan"
+            hist = HISTOS.get(f"launch/{site}")
+            sum0 = hist.sum if hist is not None else 0.0
+            fused_scan.reset_launch_counts()
+            GLOBAL.reset()
+            if path == "/v1/whatif":
+                fused_scan.run_fused_scan = record_scan
+            t1 = time.perf_counter()
+            try:
+                status, _h, raw = http_json(base, path, body)
+            finally:
+                fused_scan.run_fused_scan = real_scan
+            secs = time.perf_counter() - t1
+            launched = dict(fused_scan.LAUNCHES)
+            hist = HISTOS.get(f"launch/{site}")
+            card = ((hist.sum if hist is not None else 0.0) - sum0) * 1e3
+            check_notes(f"phase 27 ({path})", GLOBAL.notes)
+            doc = json.loads(raw)
+            if status != 200:
+                raise AssertionError(f"phase 27: {path}: {status} {doc}")
+            want = {"/v1/whatif": 1, "/v1/drain": 1, "/v1/nplusk": TWIN_NPLUSK_TRIALS,
+                    "/v1/forecast": doc.get("dispatches")}[path]
+            if launched[kernel] != want or sum(launched.values()) != want or not want:
+                raise AssertionError(f"phase 27: {path}: launches {launched}, wanted {want} of "
+                                     f"{kernel}")
+            results[path] = {"doc": doc, "s": secs, "card_ms": card, "launches": want}
+        if len(calls) != 1:
+            raise AssertionError(f"phase 27: the what-if ran {len(calls)} scans")
+        plan, cls, active, valid, pinned, outs = calls[0]
+        t1 = time.perf_counter()
+        want = fused_scan.fused_scan_reference(plan, cls, active, valid, pinned)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        whatif_err = max_abs_err(outs, want)
+        if whatif_err:
+            raise AssertionError(f"phase 27: the what-if's launch != B1's plain version "
+                                 f"({whatif_err})")
+        whatif_pods = int(np.asarray(active).sum())
+        del calls, plan, outs, want
+        _s, _h, m = http_json(base, "/metrics")
+    finally:
+        assert daemon.shutdown() == 0
+    if COUNTERS.get("nvcc_builds_total") != builds0:
+        raise AssertionError("phase 27: nvcc builds during the twin's tail and queries")
+    w, d, nk, fc = (results[p]["doc"] for p in ("/v1/whatif", "/v1/drain", "/v1/nplusk",
+                                                "/v1/forecast"))
+    print(f"phase 27: over HTTP: a what-if of {TWIN_WHATIF_REPLICAS} replicas "
+          f"({w['placed']} placed) {results['/v1/whatif']['s'] * 1e3:.1f} ms, card "
+          f"{results['/v1/whatif']['card_ms']:.3f} ms (one launch over {whatif_pods} pods == "
+          f"B1's plain version, max_abs_err {whatif_err}, {plain_s:.1f} s); a drain of zone "
+          f"{TWIN_DRAIN_ZONE} ({len(d['drainedNodes'])} nodes, {d['displaced']} displaced, safe "
+          f"{d['safe']}) {results['/v1/drain']['s'] * 1e3:.1f} ms, card "
+          f"{results['/v1/drain']['card_ms']:.3f} ms; N+K k=1 over {nk['scenarios']} trials "
+          f"(survivable {nk['survivable']}) {results['/v1/nplusk']['s'] * 1e3:.1f} ms, "
+          f"{TWIN_NPLUSK_TRIALS} launches, card {results['/v1/nplusk']['card_ms']:.3f} ms; a "
+          f"forecast of {TWIN_FORECAST_S} s ({fc['arrivals']} arrivals, {fc['windows']} "
+          f"windows, {fc['dispatches']} pins-first launches) "
+          f"{results['/v1/forecast']['s'] * 1e3:.1f} ms, card "
+          f"{results['/v1/forecast']['card_ms']:.3f} ms; 0 nvcc builds; /metrics "
+          f"simon_twin_agreement_rate {metric(m.decode(), 'simon_twin_agreement_rate')} "
+          f"[{gpu}]", flush=True)
+
+    # ---- the cut: the oracle engine, and the JAX package's digest
+    fused_scan.reset_launch_counts()
+    GLOBAL.reset()
+    cut, cut_s, answers = twin_cut_digest(ClusterMirror, FeedSource, TwinDaemon,
+                                          ResourceTypes, AppResource, record_simulation,
+                                          reset_name_counter, "cuda", "cuda")
+    check_notes("phase 27 (cut)", GLOBAL.notes)
+    cut_launches = dict(fused_scan.LAUNCHES)
+    c_nodes, c_bound, c_feed = twin_cluster(TWIN_JAX_NODES, TWIN_JAX_BOUND, TWIN_JAX_DECISIONS)
+    c_cluster = ResourceTypes()
+    c_cluster.nodes, c_cluster.pods = c_nodes, c_bound
+    c_app = ResourceTypes()
+    c_app.pods = c_feed
+    reset_name_counter()
+    c_steps = record_simulation(c_cluster, [AppResource("feed", c_app)])
+    oracle = ClusterMirror(c_cluster, FeedSource(c_steps, batch=TWIN_FEED_BATCH),
+                           engine="oracle")
+    oracle.bootstrap()
+    while not oracle.source.exhausted:
+        oracle.poll_once()
+    oracle.drain_backlog()
+    req_apps = parse_request_body(json.dumps(twin_queries("cuda")[0][1]).encode(),
+                                  "application/json")[0].apps
+    o_whatif = queries.whatif(oracle, req_apps)
+    o_drain = queries.drain(oracle, selector={"zone": TWIN_DRAIN_ZONE})
+    for got, want_doc in ((answers[0][1], o_whatif), (answers[1][1], o_drain)):
+        a = {k: v for k, v in got.items() if k != "mirror"}
+        b = {k: v for k, v in json.loads(json.dumps(want_doc)).items() if k != "mirror"}
+        if a != b:
+            raise AssertionError(f"phase 27: at the cut the {got['kind']} answer != the "
+                                 f"oracle engine's")
+    if cut != JAX_TWIN_ANSWER:
+        raise AssertionError(f"phase 27: the cut's digest {cut}; the JAX package's "
+                             f"{JAX_TWIN_ANSWER}")
+    print(f"phase 27: {TWIN_JAX_NODES} nodes x {TWIN_JAX_BOUND} bound pods, the feed and the "
+          f"four queries through the daemon: == the JAX package's (sha256 {cut[:16]}), the "
+          f"what-if and drain answers == the oracle engine's; launches {cut_launches}, "
+          f"{cut_s:.1f} s [{gpu}]", flush=True)
+    return {"base_launches": n_dec + 2 + TWIN_NPLUSK_TRIALS,
+            "pins_launches": fc["dispatches"], "whatif_ms": results["/v1/whatif"]["s"] * 1e3}
+
+
 def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
     """One launch of `scenarios` with the allocator's peak reset: the cost
     count's workspace (obs/costs.py) must be at or above what the peak
@@ -3435,7 +4241,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only is None:
-        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24]",
+        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24,25,26,27]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3461,8 +4267,12 @@ def main(argv=None) -> int:
         import tempfile
 
         standalone = {"14": phase14, "17": phase17, "18": phase18, "19": phase19,
-                      "21": phase21, "22": phase22, "23": phase23, "24": phase24}
+                      "21": phase21, "22": phase22, "23": phase23, "24": phase24,
+                      "25": phase25, "26": phase26, "27": phase27}
         with tempfile.TemporaryDirectory() as root:
+            start_prep(root, [t for t, ph in (("shadow-full", "23"), ("shadow-cut", "23"),
+                                              ("failover-config", "26"), ("twin-feed", "27"))
+                              if ph in only])
             for name in only:
                 t0 = time.perf_counter()
                 fn = standalone[name]
@@ -3472,6 +4282,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke --only {','.join(only)}: {time.perf_counter() - t_start:.1f} s "
               f"[{gpu}]", flush=True)
         return 0
+
+    # the host-only inputs of phases 23, 26 and 27, beside what follows
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    start_prep(tmp.name)
 
     # ---- phase 2: B1 kernel vs plain on the card
     t0 = time.perf_counter()
@@ -3595,11 +4411,12 @@ def main(argv=None) -> int:
     phase13(gpu)
     print(f"phases 10-13: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
-    # ---- phases 14-18: the planner's other paths
-    import tempfile
-
+    # ---- phases 14-27: the planner's other paths, the timeline, shadow,
+    # serve, the store, failover and the twin; phase 25's processes run
+    # beside phases 14-24
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
+    with tmp as root:
+        chain = Background(store_chain, root)
         walls = {}
         for name, run in (("14", lambda: phase14(gpu)), ("15", lambda: phase15(gpu, root)),
                           ("16", lambda: phase16(gpu, walls["snap"])),
@@ -3609,7 +4426,10 @@ def main(argv=None) -> int:
                           ("21", lambda: phase21(gpu, root)),
                           ("22", lambda: phase22(gpu, root)),
                           ("23", lambda: phase23(gpu, root)),
-                          ("24", lambda: phase24(gpu, root))):
+                          ("24", lambda: phase24(gpu, root)),
+                          ("25", lambda: phase25(gpu, root, chain)),
+                          ("26", lambda: phase26(gpu, root)),
+                          ("27", lambda: phase27(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
             if name == "15":
@@ -3634,6 +4454,12 @@ def main(argv=None) -> int:
           f"tick, {serve['card_ms']:.2f} ms on the card in the measured storm) and "
           f"{serve['base_launches']} {fused_scan.KERNEL_NAME} launches (the committed scan and "
           f"its re-simulations), other {serve['other_launches']} [{gpu}]", flush=True)
+    aot, failover, twin = walls["25"], walls["26"], walls["27"]
+    print(f"phases 25-27: {fused_scan.KERNEL_NAME} launches: {aot['launches']} in phase 25's "
+          f"three processes, {failover['base_launches']} in phase 26's two daemons, "
+          f"{twin['base_launches']} in phase 27's twin; "
+          f"{fused_scan.BATCH_KERNEL_NAME} {failover['batch_launches']} in phase 26; "
+          f"pins-first {twin['pins_launches']} for phase 27's forecast [{gpu}]", flush=True)
     print("workspace estimate against the measured peak rise, a launch of each "
           "instantiation: " + json.dumps(WORKSPACE), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
@@ -3652,18 +4478,23 @@ def main(argv=None) -> int:
     print(gpu)  # nvidia-smi's own line: name, power limit
     print(json.dumps({"kernels": [
         dict(entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
-                   base_launches + shadow["launches"] + serve["base_launches"], base),
+                   base_launches + shadow["launches"] + serve["base_launches"]
+                   + aot["launches"] + failover["base_launches"] + twin["base_launches"],
+                   base),
              cluster=base["cluster"], prev_ms=base["prev_ms"],
              launches_by_phase={"3": base_launches, "23": shadow["launches"],
-                                "24": serve["base_launches"]}),
+                                "24": serve["base_launches"], "25": aot["launches"],
+                                "26": failover["base_launches"],
+                                "27": twin["base_launches"]}),
         entry(fused_scan.EXT_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1961",
               ext_launches, ext),
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
-                   cap["launches"][fused_scan.BATCH_KERNEL_NAME] + serve["batch_launches"],
-                   cap["batch"]),
+                   cap["launches"][fused_scan.BATCH_KERNEL_NAME] + serve["batch_launches"]
+                   + failover["batch_launches"], cap["batch"]),
              cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"],
              launches_by_phase={"6": cap["launches"][fused_scan.BATCH_KERNEL_NAME],
-                                "24": serve["batch_launches"]}),
+                                "24": serve["batch_launches"],
+                                "26": failover["batch_launches"]}),
         dict(entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
                    store["launches"], store), cluster=store["cluster"],
              prev_ms=store["prev_ms"]),
@@ -3679,10 +4510,12 @@ def main(argv=None) -> int:
              cluster=mixed["cluster"], prev_ms=mixed["prev_ms"]),
         dict(entry(fused_scan.PINS_FIRST_KERNEL_NAME,
                    "open_simulator_tpu/ops/pallas_scan.py:2974",
-                   outage["launches"] + timeline["launches"], outage["cut"]),
+                   outage["launches"] + timeline["launches"] + twin["pins_launches"],
+                   outage["cut"]),
              cluster=outage["cut"]["cluster"],
              pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"],
-             launches_by_phase={"17": outage["launches"], "22": timeline["launches"]}),
+             launches_by_phase={"17": outage["launches"], "22": timeline["launches"],
+                                "27": twin["pins_launches"]}),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
                    stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
              library_ms=stream["library_ms"]),

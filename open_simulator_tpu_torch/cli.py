@@ -1,5 +1,6 @@
 """simon-compatible CLI of the GPU port: `apply`, `chaos`, `defrag`,
-`shadow`, `timeline`, `serve`, `doctor`, `version` and `gen-doc`.
+`shadow`, `timeline`, `serve`, `twin`, `top`, `doctor`, `version` and
+`gen-doc`.
 
   python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml> [-i]
         [--format table|json] [--extended-resources gpu,open-local]
@@ -37,17 +38,30 @@
         [--host H] [--port P] [--max-batch B] [--queue-depth N]
         [--default-deadline S] [--drain-timeout S] [--no-warm]
         [--tick-budget S] [--max-request-pods N] [--max-sessions N]
-        [--snapshot PATH [--checkpoint-interval N] [--keep-checkpoints N]]
+        [--snapshot PATH [--replay-snapshot] [--checkpoint-interval N]
+        [--keep-checkpoints N]] [--aot-store DIR]
         [--no-incremental] [--device DEVICE] [--inject SPEC]
         [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
         [--slo-config PATH] [--obs-cadence S]
+  python -m open_simulator_tpu_torch.cli twin -f <simon-config.yaml>
+        (--feed LOG [--feed-batch N] | --tail) [--engine cuda|oracle]
+        [--device DEVICE] [--host H] [--port P] [--poll-interval S]
+        [--max-polls N] [--max-catchup N] [--tick-budget S]
+        [--max-request-pods N] [--drain-timeout S] [--breaker-cooldown S]
+        [--snapshot PATH [--replay-snapshot] [--checkpoint-interval N]
+        [--keep-checkpoints N]] [--aot-store DIR] [--inject SPEC]
+        [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
+        [--slo-config PATH] [--obs-cadence S]
+  python -m open_simulator_tpu_torch.cli top [--url URL | --host H --port P]
+        [--interval S] [--window S] [--series NAME]... [--once]
+        [--timeout S] [--format text|json]
   python -m open_simulator_tpu_torch.cli doctor BASELINE CANDIDATE
   python -m open_simulator_tpu_torch.cli version
   python -m open_simulator_tpu_torch.cli gen-doc [--output DIR]
 
 Mirrors the JAX package's CLI (cli.py cmd_apply, cmd_chaos, cmd_defrag,
-cmd_shadow, cmd_timeline, cmd_serve, cmd_doctor, cmd_version,
-cmd_gen_doc), whose
+cmd_shadow, cmd_timeline, cmd_serve, cmd_twin, cmd_top, cmd_doctor,
+cmd_version, cmd_gen_doc), whose
 reports these reproduce byte for byte, its exit codes included: 3 for a
 --deadline partial report, 4 for an interrupted one, 2 for bad input or
 a failed external dependency. The scans run on the card unless
@@ -60,13 +74,16 @@ nvcc builds where the JAX one counts XLA dispatches and recompiles.
 `--inject` sites keep the JAX package's names (obs/profile.py). Log
 level comes from the LogLevel env var (cmd/simon/simon.go:60-80).
 
-`serve` answers the JAX daemon's bodies; its `/metrics` counts the
-port's launches, nvcc builds and cost records where the JAX one counts
-dispatches, recompiles and compiled costs.
+`serve` and `twin` answer the JAX daemons' bodies; their `/metrics`
+count the port's launches, nvcc builds and cost records where the JAX
+ones count dispatches, recompiles and compiled costs. `--aot-store DIR`
+(or SIMON_AOT_STORE) keeps the built kernel libraries in a
+content-addressed store (incremental/store.py): a daemon started on a
+warm store runs no nvcc. `top` is a client of a running daemon and does
+no device work (`--fleet` waits for `simon fleet`).
 
-Not ported yet: `--mesh` (ROADMAP.md A11), `serve --aot-store` (A8) and
-`--replay-snapshot` (A10), and the other subcommands (`fleet`, `twin`,
-`top`).
+Not ported yet: `--mesh` (ROADMAP.md A11), and `fleet` with `top
+--fleet` (A10).
 """
 
 from __future__ import annotations
@@ -1022,6 +1039,8 @@ def cmd_serve(args) -> int:
             raise InputError("--keep-checkpoints must be >= 1")
         if args.checkpoint_interval and not args.snapshot:
             raise InputError("--checkpoint-interval requires --snapshot PATH")
+        if args.replay_snapshot and not args.snapshot:
+            raise InputError("--replay-snapshot requires --snapshot PATH")
         # declarative SLOs + telemetry cadence: a bad --slo-config or
         # --obs-cadence raises InputError here (the daemon constructor
         # validates the cadence) -> exit 2 before listening
@@ -1034,6 +1053,10 @@ def cmd_serve(args) -> int:
             enable_breaker_recovery(30.0)
         config = SimonConfig.from_file(args.simon_config)
         cluster = Applier(config, device=device).load_cluster()
+        # the kernel-library store is armed before the first library
+        # load (the committed scan, the warmup): a warm store then
+        # serves every library and the daemon runs no nvcc
+        _arm_store(args)
         session = Session(cluster, incremental=not args.no_incremental,
                           device=device)
         daemon = ServeDaemon(
@@ -1062,10 +1085,48 @@ def cmd_serve(args) -> int:
     arm_flight_recorder()
     if not args.no_warm:
         # one tiny request through the whole path before we listen: the
-        # kernel library is built (nvcc, on a cold checkout) and loaded,
-        # the cluster encoded and the committed scan resident
+        # kernel library is built (nvcc, on a cold checkout and an empty
+        # store) and loaded, the cluster encoded and the committed scan
+        # resident
         session.warm()
+    replay_summary = None
+    if args.replay_snapshot and os.path.exists(args.snapshot):
+        # failover bootstrap (fleet/replay.py): restore the newest
+        # verified checkpoint and replay the journal's delta suffix the
+        # dead daemon had absorbed BEFORE listening, so the first answer
+        # comes from the same committed state. After warm(), in the JAX
+        # package's order. Read-only here; the daemon resumes the same
+        # journal for append (truncating any torn tail durably)
+        from .fleet.replay import replay_into_session
+
+        replay_summary = replay_into_session(session, args.snapshot)
+        if daemon.checkpoints is not None and replay_summary["checkpoint"]:
+            # the restored generation is current: the next checkpoint
+            # is due one full interval PAST it, not immediately
+            daemon.checkpoints.note_restored(
+                replay_summary["checkpoint"]["deltaSeq"]
+            )
     daemon.start()
+    if replay_summary is not None:
+        restored = replay_summary.get("checkpoint")
+        if restored:
+            logging.info(
+                "restored checkpoint %s (deltaSeq=%d); %d absorbed "
+                "journal record(s) skipped",
+                restored["path"],
+                restored["deltaSeq"],
+                replay_summary["skippedPrefix"],
+            )
+        logging.info(
+            "replayed %d cluster delta(s) from %s "
+            "(applied=%d skipped=%d reloads=%d torn-tail-dropped=%d)",
+            replay_summary["deltas"],
+            args.snapshot,
+            replay_summary["applied"],
+            replay_summary["skipped"],
+            replay_summary["reloads"],
+            replay_summary["dropped"],
+        )
     if session.force_serial_reason:
         logging.warning(
             "cluster cannot ride the batched scan (%s); every request "
@@ -1105,6 +1166,265 @@ def _build_slo_engine(args):
     from .obs.slo import SLOEngine, load_slo_config
 
     return SLOEngine(load_slo_config(args.slo_config))
+
+
+@_with_obs("twin")
+def cmd_twin(args) -> int:
+    """Live digital-twin daemon (twin/; docs/TWIN.md): continuously
+    mirror a cluster — a live apiserver tail (--tail) or a recorded
+    decision-log feed (--feed) — on the cluster-delta substrate, audit
+    every real scheduler decision against the warm mirror (one kernel
+    launch a decision on the card), and answer what-if / drain-safety /
+    N+K / capacity-forecast queries over HTTP against LIVE state. Exit 0
+    after a clean SIGTERM/SIGINT drain, 2 on input errors and without a
+    card for the cuda engine unless `--device cpu` (before listening)."""
+    import json
+
+    from .apply.applier import Applier, SimonConfig
+    from .models.validation import InputError
+    from .obs.spans import observatory_block
+    from .obs.telemetry import arm_flight_recorder
+    from .ops.fused_scan import NoCardError, resolve_device
+    from .runtime import ExternalIOError
+    from .runtime.retry import BREAKER_COOLDOWN_ENV, enable_breaker_recovery
+    from .shadow.log import cluster_fingerprint, read_decision_log
+    from .twin.mirror import (
+        ClusterMirror,
+        FeedSource,
+        LiveSource,
+        open_twin_snapshot,
+        replay_mirror_journal,
+    )
+    from .twin.server import TwinDaemon
+
+    client = None
+    try:
+        # the card for the cuda engine, or exit 2 before any work
+        device = resolve_device(args.device) if args.engine == "cuda" else None
+        modes = sum(bool(m) for m in (args.feed, args.tail))
+        if modes != 1:
+            raise InputError(
+                "pick exactly one source: --feed LOG (tail a recorded "
+                "decision log) or --tail (poll the config's live cluster)"
+            )
+        if args.poll_interval <= 0:
+            raise InputError("--poll-interval must be > 0 seconds")
+        if args.drain_timeout < 0:
+            raise InputError("--drain-timeout must be >= 0 seconds")
+        if args.tick_budget is not None and args.tick_budget <= 0:
+            raise InputError("--tick-budget must be > 0 seconds")
+        if args.max_request_pods is not None and args.max_request_pods < 1:
+            raise InputError("--max-request-pods must be >= 1")
+        if args.max_catchup < 1:
+            raise InputError(
+                "--max-catchup must be >= 1 (0 would never apply the "
+                "backlog and the mirror would stop advancing)"
+            )
+        if args.replay_snapshot and not args.snapshot:
+            raise InputError("--replay-snapshot requires --snapshot PATH")
+        if args.checkpoint_interval is not None and args.checkpoint_interval < 1:
+            raise InputError("--checkpoint-interval must be >= 1 step")
+        if args.keep_checkpoints < 1:
+            raise InputError("--keep-checkpoints must be >= 1")
+        if args.checkpoint_interval and not args.snapshot:
+            raise InputError("--checkpoint-interval requires --snapshot PATH")
+        slo_engine = _build_slo_engine(args)
+        # resident service: breakers recover (the serve posture)
+        if args.breaker_cooldown and args.breaker_cooldown > 0:
+            if not os.environ.get(BREAKER_COOLDOWN_ENV):
+                enable_breaker_recovery(args.breaker_cooldown)
+        config = SimonConfig.from_file(args.simon_config)
+        applier = Applier(config)
+        # arm the kernel-library store before the mirror's first probe
+        # loads a library (a warm store: no nvcc, the serve posture)
+        _arm_store(args)
+        if args.feed:
+            cluster = applier.load_cluster()
+            fp = cluster_fingerprint(cluster)
+            steps, _meta = read_decision_log(
+                args.feed,
+                fingerprint=None if args.allow_fingerprint_mismatch else fp,
+            )
+            source = FeedSource(steps, batch=args.feed_batch)
+        else:  # --tail
+            if not config.kube_config:
+                raise InputError(
+                    "--tail needs a kubeConfig cluster in the simon config "
+                    "(customConfig clusters have no scheduler to mirror)"
+                )
+            from .models.decode import ResourceTypes
+            from .models.kubeclient import KubeClient
+            from .shadow.ingest import ClusterTailer
+
+            client = KubeClient(config.kube_config)
+            tailer = ClusterTailer(client)
+            nodes, boot_steps = tailer.bootstrap()
+            cluster = ResourceTypes()
+            cluster.nodes = nodes
+            source = LiveSource(tailer, boot_steps=boot_steps)
+        mirror = ClusterMirror(
+            cluster, source, engine=args.engine, max_catchup=args.max_catchup,
+            device=device,
+        )
+        twin_replay = None
+        if args.replay_snapshot and os.path.exists(args.snapshot):
+            # before bootstrap and before the journal is attached, or
+            # replayed steps would be journaled twice
+            twin_replay = replay_mirror_journal(mirror, args.snapshot)
+        mirror.bootstrap()
+        if args.snapshot:
+            # attach AFTER replay: replayed steps must not re-append
+            mirror.journal = open_twin_snapshot(args.snapshot)
+        daemon = TwinDaemon(
+            mirror,
+            host=args.host,
+            port=args.port,
+            poll_interval_s=args.poll_interval,
+            max_polls=args.max_polls,
+            tick_budget_s=args.tick_budget,
+            max_request_pods=args.max_request_pods,
+            drain_timeout_s=args.drain_timeout,
+            slo_engine=slo_engine,
+            obs_cadence_s=args.obs_cadence,
+            snapshot_path=args.snapshot or None,
+            checkpoint_interval=args.checkpoint_interval,
+            keep_checkpoints=args.keep_checkpoints,
+        )
+        if daemon.checkpoints is not None and twin_replay and twin_replay.get(
+            "checkpoint"
+        ):
+            daemon.checkpoints.note_restored(
+                twin_replay["checkpoint"]["deltaSeq"]
+            )
+    except (OSError, ValueError, ExternalIOError, InputError, NoCardError) as e:
+        if client is not None:
+            client.close()
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    arm_flight_recorder()
+    daemon.start()
+    # machine-parsable readiness line (tests read the bound port from
+    # it — --port 0 binds an ephemeral one)
+    print(
+        f"simon twin listening on http://{daemon.host}:{daemon.port} "
+        f"(mirroring {len(mirror.oracle.nodes)} node(s), "
+        f"source {'feed' if args.feed else 'tail'})",
+        flush=True,
+    )
+    if twin_replay is not None:
+        ckpt = twin_replay.get("checkpoint")
+        print(
+            f"simon twin replay: {twin_replay['steps']} step(s) replayed, "
+            f"{twin_replay['skippedPrefix']} absorbed by checkpoint "
+            + (
+                f"(restored seq {ckpt['deltaSeq']} from {ckpt['path']})"
+                if ckpt
+                else "(no usable checkpoint)"
+            ),
+            file=sys.stderr,
+            flush=True,
+        )
+    try:
+        code = daemon.run_until_signaled()
+    finally:
+        if client is not None:
+            client.close()
+    # one JSON summary line on stderr at drain: the audit the mirror
+    # accumulated (agreement, divergences, lag) survives the process
+    print(
+        "simon twin mirror: " + json.dumps(mirror.stats(), sort_keys=True),
+        file=sys.stderr,
+    )
+    observatory = observatory_block()
+    if observatory:
+        print("simon twin observatory: " + json.dumps(observatory),
+              file=sys.stderr)
+    return code
+
+
+def _fetch_json(url: str, timeout: float):
+    """GET a daemon endpoint, decode JSON. Raises ExternalIOError with
+    the endpoint on any transport/decode failure (exit 1/2 mapping is
+    the caller's)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from .runtime import ExternalIOError
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+    except (OSError, urllib.error.URLError, ValueError) as e:
+        raise ExternalIOError(f"cannot read {url}: {e}", endpoint=url) from e
+
+
+def cmd_top(args) -> int:
+    """Live terminal dashboard against a RUNNING serve/twin daemon
+    (obs/telemetry.py): polls /v1/obs/snapshot + /v1/obs/series and
+    renders health, SLO burn rates, and sparklined history. --once
+    prints a single frame; --format json dumps the raw snapshot. A pure
+    client: no device work. Exit 0 on a clean stop (Ctrl-C included),
+    1 when the daemon is unreachable, 2 on input errors (and for
+    --fleet, whose router is not ported yet)."""
+    import json as _json
+    import time
+    from urllib.parse import quote
+
+    from .obs import telemetry as _tm
+    from .runtime import ExternalIOError
+
+    url = (args.url or f"http://{args.host}:{args.port}").rstrip("/")
+    if args.interval <= 0:
+        print("error: --interval must be > 0 seconds", file=sys.stderr)
+        return 2
+    if args.fleet:
+        print("error: --fleet renders a `simon fleet` router's frame, and "
+              "`simon fleet` is not ported yet (ROADMAP.md A10)", file=sys.stderr)
+        return 2
+    names = list(args.series or ())
+
+    def fetch():
+        snapshot = _fetch_json(f"{url}/v1/obs/snapshot", args.timeout)
+        want = names or [
+            n for n in _tm.TOP_DEFAULT_SERIES if n in (snapshot.get("latest") or {})
+        ]
+        # every name percent-encoded so the query string round-trips it
+        qs = "&".join(f"name={quote(n, safe='')}" for n in want)
+        series = (
+            _fetch_json(
+                f"{url}/v1/obs/series?{qs}&sinceSeconds={args.window:g}",
+                args.timeout,
+            )
+            if want
+            else {"series": {}}
+        )
+        return snapshot, series
+
+    try:
+        snapshot, series = fetch()
+    except ExternalIOError as e:
+        print(f"simon top: {e}", file=sys.stderr)
+        return 1
+    if args.format == "json":
+        print(_json.dumps({"snapshot": snapshot, "series": series}, indent=2))
+        return 0
+    if args.once:
+        print(_tm.render_top_frame(snapshot, series, url))
+        return 0
+    try:
+        while True:
+            # ANSI home+clear per frame: a live dashboard, not a scroll
+            print("\x1b[2J\x1b[H" + _tm.render_top_frame(snapshot, series, url),
+                  flush=True)
+            time.sleep(args.interval)
+            try:
+                snapshot, series = fetch()
+            except ExternalIOError as e:
+                print(f"simon top: {e}", file=sys.stderr)
+                return 1
+    except KeyboardInterrupt:
+        return 0
 
 
 def cmd_doctor(args) -> int:
@@ -1734,6 +2054,14 @@ def build_parser() -> argparse.ArgumentParser:
         "torn tail recovered, interior damage refused)",
     )
     p_serve.add_argument(
+        "--replay-snapshot", action="store_true",
+        help="before listening, restore the newest verified checkpoint "
+        "and replay the --snapshot journal's cluster-delta suffix into "
+        "the fresh session (failover: a replacement daemon rejoins with "
+        "the dead one's committed state and, with a warm --aot-store, "
+        "no nvcc build)",
+    )
+    p_serve.add_argument(
         "--checkpoint-interval", type=int, default=None, metavar="DELTAS",
         help="write a verified, content-addressed checkpoint of the "
         "committed session every N applied deltas (requires "
@@ -1753,11 +2081,183 @@ def build_parser() -> argparse.ArgumentParser:
         "whole roster instead of launching only the request suffix "
         "against the resident committed scan (docs/PERFORMANCE.md)",
     )
+    _add_store_flag(p_serve)
     _add_device_flag(p_serve)
     _add_inject_flag(p_serve)
     _add_obs_flags(p_serve)
     _add_telemetry_flags(p_serve)
     p_serve.set_defaults(func=cmd_serve)
+
+    p_twin = sub.add_parser(
+        "twin",
+        help="live digital-twin daemon: mirror a cluster, answer "
+        "what-if/drain/N+K/forecast against live state",
+        description="Continuously mirror a cluster on the cluster-delta "
+        "substrate (a live apiserver tail or a recorded decision-log "
+        "feed), audit every real scheduler decision against the warm "
+        "mirror (agreement-rate and mirror-lag stream to /metrics as "
+        "alertable gauges), and serve on-demand queries over HTTP: "
+        "POST /v1/whatif (would these apps fit right now), /v1/drain "
+        "(can I cordon these nodes/this rack), /v1/nplusk (does the "
+        "live placement survive K node failures), /v1/forecast "
+        "(timeline windows stepped forward from the current mirrored "
+        "state). On the card a probe, a what-if, a drain and an N+K "
+        "trial are one kernel launch each, a forecast window one "
+        "pins-first launch. docs/TWIN.md.",
+    )
+    p_twin.add_argument(
+        "-f", "--simon-config", required=True, help="simon config file path"
+    )
+    p_twin.add_argument(
+        "--tail",
+        action="store_true",
+        help="poll the config's live cluster (kubeConfig required)",
+    )
+    p_twin.add_argument(
+        "--feed",
+        default="",
+        metavar="LOG",
+        help="tail a recorded decision log instead of a live cluster "
+        "(the self-conformance source; simon tailing its own recorded "
+        "feed must agree with itself 100%%)",
+    )
+    p_twin.add_argument(
+        "--feed-batch", type=int, default=64, metavar="N",
+        help="feed steps replayed per poll round",
+    )
+    p_twin.add_argument(
+        "--allow-fingerprint-mismatch",
+        action="store_true",
+        help="replay a --feed log recorded against different inputs "
+        "(divergences become meaningful; default refuses loudly)",
+    )
+    p_twin.add_argument(
+        "--engine",
+        choices=["cuda", "oracle"],
+        default="cuda",
+        help="mirror probe/query engine: cuda = kernel launches on the "
+        "card (or the plain versions with --device cpu), oracle = the "
+        "serial host walk",
+    )
+    p_twin.add_argument("--host", default="127.0.0.1", help="bind address")
+    p_twin.add_argument(
+        "--port", type=int, default=8081, help="bind port (0 = ephemeral)"
+    )
+    p_twin.add_argument(
+        "--poll-interval", type=float, default=2.0, metavar="SECONDS",
+        help="tail poll cadence",
+    )
+    p_twin.add_argument(
+        "--max-polls", type=int, default=None, metavar="N",
+        help="stop tailing after N polls (the mirror stays queryable "
+        "at its final state; default: tail until signaled)",
+    )
+    p_twin.add_argument(
+        "--max-catchup", type=int, default=256, metavar="N",
+        help="max backlog steps applied per poll round (a recovered "
+        "flap's giant diff converges across rounds instead of blocking "
+        "queries)",
+    )
+    p_twin.add_argument(
+        "--tick-budget", type=float, default=None, metavar="SECONDS",
+        help="admission sheds a query 429 (with Retry-After) when the "
+        "p95 query time times the queue ahead exceeds this",
+    )
+    p_twin.add_argument(
+        "--max-request-pods", type=int, default=None, metavar="N",
+        help="admission bound on estimated pods per what-if request",
+    )
+    p_twin.add_argument(
+        "--drain-timeout", type=float, default=30.0, metavar="SECONDS",
+        help="max wait for the tail thread and in-flight queries at "
+        "shutdown",
+    )
+    p_twin.add_argument(
+        "--breaker-cooldown", type=float, default=30.0, metavar="SECONDS",
+        help="circuit-breaker half-open recovery cooldown for the "
+        "apiserver endpoints (SIMON_BREAKER_COOLDOWN wins when set; "
+        "0 disables recovery)",
+    )
+    p_twin.add_argument(
+        "--snapshot", default="", metavar="PATH",
+        help="append every applied mirror step to this crash-safe "
+        "JSONL snapshot journal (resumed across restarts; the twin "
+        "analogue of `simon serve --snapshot`)",
+    )
+    p_twin.add_argument(
+        "--replay-snapshot", action="store_true",
+        help="before tailing, restore the newest verified checkpoint "
+        "and replay the --snapshot journal's step suffix into the "
+        "mirror (bounded twin failover; docs/TWIN.md)",
+    )
+    p_twin.add_argument(
+        "--checkpoint-interval", type=int, default=None, metavar="STEPS",
+        help="write a verified checkpoint of the mirrored cluster "
+        "every N applied steps (requires --snapshot); restore then "
+        "replays at most N journal steps and the absorbed prefix is "
+        "compacted only after the digest verifies "
+        "(docs/ROBUSTNESS.md; default: off)",
+    )
+    p_twin.add_argument(
+        "--keep-checkpoints", type=int, default=2, metavar="N",
+        help="checkpoint generations retained; a corrupt newest "
+        "generation falls back loudly to the previous one (default 2)",
+    )
+    _add_store_flag(p_twin)
+    _add_device_flag(p_twin)
+    _add_inject_flag(p_twin)
+    _add_obs_flags(p_twin)
+    _add_telemetry_flags(p_twin)
+    p_twin.set_defaults(func=cmd_twin)
+
+    p_top = sub.add_parser(
+        "top",
+        help="live terminal dashboard against a running serve/twin daemon",
+        description="Poll a RUNNING daemon's /v1/obs/snapshot and "
+        "/v1/obs/series endpoints and render a live dashboard: health "
+        "and degradation reasons, SLO burn rates and alert states, and "
+        "sparklined history of the key operational signals (QPS, queue "
+        "depth, latency percentiles, agreement rate, device memory). "
+        "`simon top` is a pure reader — it does no device work and "
+        "never perturbs the daemon beyond two GETs per refresh.",
+    )
+    p_top.add_argument(
+        "--url", default="",
+        help="daemon base URL (wins over --host/--port)",
+    )
+    p_top.add_argument("--host", default="127.0.0.1", help="daemon host")
+    p_top.add_argument("--port", type=int, default=8080, help="daemon port")
+    p_top.add_argument(
+        "--interval", type=float, default=2.0, metavar="SECONDS",
+        help="refresh interval",
+    )
+    p_top.add_argument(
+        "--window", type=float, default=300.0, metavar="SECONDS",
+        help="history window rendered in the sparklines",
+    )
+    p_top.add_argument(
+        "--series", action="append", metavar="NAME",
+        help="render this series instead of the curated defaults "
+        "(repeatable; names as listed by GET /v1/obs/series)",
+    )
+    p_top.add_argument(
+        "--fleet", action="store_true",
+        help="the fleet-router frame of a `simon fleet` endpoint (not "
+        "ported yet: exits 2)",
+    )
+    p_top.add_argument(
+        "--once", action="store_true",
+        help="render one frame and exit (no screen clearing)",
+    )
+    p_top.add_argument(
+        "--timeout", type=float, default=5.0, metavar="SECONDS",
+        help="per-request HTTP timeout",
+    )
+    p_top.add_argument(
+        "--format", choices=("text", "json"), default="text",
+        help="json dumps the raw snapshot+series instead of rendering",
+    )
+    p_top.set_defaults(func=cmd_top)
 
     p_doctor = sub.add_parser(
         "doctor",
@@ -1901,7 +2401,7 @@ def _add_obs_flags(p: argparse.ArgumentParser):
 
 
 def _add_telemetry_flags(p: argparse.ArgumentParser):
-    """Resident-telemetry flags of the serve daemon
+    """Resident-telemetry flags of the serve and twin daemons
     (docs/OBSERVABILITY.md production-telemetry section)."""
     p.add_argument(
         "--slo-config",
@@ -1925,6 +2425,31 @@ def _add_telemetry_flags(p: argparse.ArgumentParser):
     )
 
 
+def _add_store_flag(p: argparse.ArgumentParser):
+    """Kernel-library store flag of the resident daemons
+    (incremental/store.py): a warm store lets a fresh process answer
+    its first request with no nvcc build."""
+    p.add_argument(
+        "--aot-store", default="", metavar="DIR",
+        help="keep the built kernel libraries in this directory and load "
+        "them at startup (content-addressed by source and toolchain: "
+        "the nvcc version, its flags and the arch; torn, corrupt or "
+        "mismatched entries are refused loudly and rebuilt; "
+        "SIMON_AOT_STORE is the flagless form)",
+    )
+
+
+def _arm_store(args) -> None:
+    """Configure the process-wide kernel-library store from --aot-store
+    BEFORE the first library load (the daemon's committed scan or its
+    mirror's first probe)."""
+    store_dir = getattr(args, "aot_store", "")
+    if store_dir:
+        from .incremental.store import configure_store
+
+        configure_store(store_dir)
+
+
 def _add_inject_flag(p: argparse.ArgumentParser):
     """Chaos fault-injection flag shared by the guarded commands
     (runtime/inject.py)."""
@@ -1940,7 +2465,8 @@ def _add_inject_flag(p: argparse.ArgumentParser):
         "package's names): jit.<site> (scan, sweep_probe, sweep_many, "
         "<site>_sweep, defrag_sweep, scenario_scan, stream_bench: a "
         "launch), io.<label>, journal.fsync.<subsystem>, budget.check, "
-        "ledger.predict_fit, serve.tick, incremental.suffix, ckpt.*. "
+        "ledger.predict_fit, serve.tick, incremental.suffix, ckpt.*, "
+        "aot.store_load, fleet.replay, twin.poll, twin.apply_delta. "
         "Production paths are unmodified when unset",
     )
 

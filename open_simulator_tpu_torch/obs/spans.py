@@ -475,10 +475,11 @@ def export_chrome_trace(path: str, spans: Optional[List[SpanRecord]] = None):
 def observatory_block() -> dict:
     """The cost-record / memory-ledger / histogram snapshot attached to
     trace artifacts, in the JAX package's shape but for `costs`, whose
-    records are the port's (obs/costs.py CostRecord). Lazy sibling
-    imports keep this module stdlib-only at load time. The JAX
-    package's `incremental` and `aot_store` blocks have no counterpart
-    in the port yet."""
+    records are the port's (obs/costs.py CostRecord), and for
+    `aot_store`, whose entries are kernel libraries
+    (incremental/store.py). Lazy sibling imports keep this module
+    stdlib-only at load time."""
+    from ..incremental.store import aot_store_block, incremental_block
     from . import profile
     from .costs import COSTS
     from .histo import HISTOS
@@ -501,6 +502,15 @@ def observatory_block() -> dict:
     per_device = LEDGER.device_summary()
     if per_device:
         out["per_device"] = per_device
+    # delta re-simulation and kernel-library store counters
+    # (incremental/): suffix_fraction and hit_rate are doctor-gated
+    # dimensions (obs/doctor.py)
+    inc = incremental_block()
+    if inc:
+        out["incremental"] = inc
+    store = aot_store_block()
+    if store:
+        out["aot_store"] = store
     if RECORDER.dropped:
         out["spans_dropped"] = RECORDER.dropped
     return out

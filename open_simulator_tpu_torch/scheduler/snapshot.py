@@ -1,6 +1,5 @@
 """Cluster snapshot: serialize/restore simulation state (the port's copy
-of the JAX package's scheduler/snapshot.py; the live-simulator resume,
-resume_simulator, is not ported yet).
+of the JAX package's scheduler/snapshot.py).
 
 The reference has no persistence — every run rebuilds the fake cluster
 from YAML (SURVEY.md §5: checkpoint/resume absent; the `simulator-plan`
@@ -18,7 +17,7 @@ from __future__ import annotations
 import json
 
 from ..models.decode import ResourceTypes
-from .core import NodeStatus, SimulateResult
+from .core import NodeStatus, SimulateResult, Simulator
 
 SNAPSHOT_VERSION = 1
 
@@ -71,12 +70,50 @@ def load_snapshot(path: str) -> SimulateResult:
         ],
         node_status=statuses,
     )
-    # carried alongside (not part of the scheduling result proper)
+    # carried alongside (not part of the scheduling result proper);
+    # resume_simulator picks these up
     result.snapshot_extras = {
         "pdbs": data.get("podDisruptionBudgets") or [],
         "priority_classes": data.get("priorityClasses") or [],
     }
     return result
+
+
+def resume_simulator(
+    result: SimulateResult,
+    engine: str = "cuda",
+    pdbs=None,
+    priority_classes=None,
+    device=None,
+) -> Simulator:
+    """Rebuild a live Simulator from a snapshot: nodes re-admitted with
+    their mutated annotations, pods re-placed with their bindings (GPU
+    devices honored via the gpu-index annotation). PDBs and
+    PriorityClasses default to what load_snapshot carried
+    (snapshot_extras) so preemption on the resumed simulator matches a
+    fresh simulate(). The cuda engine's scans run on `device` (the card
+    unless the caller names another).
+
+    Always resumes with the default first-max selectHost: the "sample"
+    mode's RNG stream position is not part of a snapshot (Go's global
+    rand has no checkpoint either), so a sample-mode run cannot be
+    resumed stream-faithfully — re-run it fresh instead."""
+    extras = getattr(result, "snapshot_extras", {}) or {}
+    if pdbs is None:
+        pdbs = extras.get("pdbs") or []
+    if priority_classes is None:
+        priority_classes = extras.get("priority_classes") or []
+    sim = Simulator(engine=engine, device=device)
+    cluster = ResourceTypes()
+    cluster.nodes = [ns.node for ns in result.node_status]
+    from .oracle import Oracle
+
+    sim.oracle = Oracle(cluster.nodes, pdbs=pdbs, priority_classes=priority_classes)
+    for ns in result.node_status:
+        for pod in ns.pods:
+            sim.oracle.place_existing_pod(pod)
+            sim.cluster_pods.append(pod)
+    return sim
 
 
 def cluster_from_snapshot(result: SimulateResult) -> ResourceTypes:

@@ -525,6 +525,29 @@ def _observatory_lines(snap: dict) -> List[str]:
         "Operations, summed over every recorded launch.",
         counts.get("cost_ops_launched_total", 0),
     )
+    # -- the kernel-library store (incremental/store.py)
+    metric(
+        "simon_aot_store_hit_total", "counter",
+        "Kernel libraries loaded from the persistent store instead of "
+        "built by nvcc (--aot-store).",
+        counts.get("aot_store_hit_total", 0),
+    )
+    metric(
+        "simon_aot_store_miss_total", "counter",
+        "Store probes that found no entry (the library was built).",
+        counts.get("aot_store_miss_total", 0),
+    )
+    metric(
+        "simon_aot_store_reject_total", "counter",
+        "Store entries refused loudly: torn or unparseable manifest, "
+        "digest mismatch, corrupt payload — each one rebuilt by nvcc.",
+        counts.get("aot_store_reject_total", 0),
+    )
+    metric(
+        "simon_aot_store_save_total", "counter",
+        "Kernel libraries saved into the store (temporary + rename).",
+        counts.get("aot_store_save_total", 0),
+    )
     # -- delta re-simulation (incremental/resim.py)
     metric(
         "simon_incremental_suffix_pods_total", "counter",

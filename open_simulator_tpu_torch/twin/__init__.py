@@ -1,9 +1,16 @@
-"""The cluster-delta substrate of the digital twin (twin/deltas.py).
+"""`simon twin` — the live digital twin (the port's copy of the JAX
+package's twin/).
 
-The typed ``ClusterDelta`` vocabulary and its incremental applicator,
-shared by the shadow replayer (shadow/replay.py) and the timeline's
-event stream (``deltas_to_events``). The twin daemon itself (mirror,
-queries, server) is not ported yet (ROADMAP.md A9).
+One resident process that continuously mirrors a cluster and answers
+anything against LIVE state: the shadow tailer's ingest
+(shadow/ingest.py), the serve daemon's warm sessions, and the
+timeline's forward stepping, fused on one substrate — the typed
+``ClusterDelta`` vocabulary and its incremental applicator
+(``deltas``). ``mirror`` tails a feed or a live cluster through the
+shadow replayer, ``queries`` answers what-if, drain, N+K and forecast
+questions (one kernel launch a what-if, drain or N+K trial, one
+pins-first launch a forecast window on the card), ``server`` is the
+HTTP daemon behind ``simon twin``.
 """
 
 from .deltas import (  # noqa: F401

@@ -37,9 +37,10 @@ timeline's event stream (timeline/events.py) share this floor:
   outside the canonical state: they encode arrival history, which a
   cold reload of the *resulting* cluster does not have.)
 
-The JAX package's other consumers of this module (the twin mirror and
-queries, the serve session's pushed deltas) are not ported yet
-(ROADMAP.md A7, A9).
+Consumers: the shadow replayer (shadow/replay.py), the twin mirror
+(twin/mirror.py) and queries (twin/queries.py), the serve session's
+pushed deltas (``POST /v1/cluster-delta``, serve/session.py) and the
+timeline's event stream (``deltas_to_events``).
 """
 
 from __future__ import annotations

@@ -1360,3 +1360,104 @@ def test_cuda_session_answers_the_cpu_session_bodies():
                        s.state_digest(), launched)
     assert out["cuda"][:4] == out["cpu"][:4]
     assert out["cuda"][4] == 2 and out["cpu"][4] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_twin_queries_equal_the_cpu_twin():
+    """The twin on the card answers the `device="cpu"` twin's bodies: a
+    feed tailed at agreement 1.0, a what-if (its one B1 launch == B1's
+    plain version on its inputs), a drain of a zone (one launch), N+K
+    (one launch a trial) and a forecast (one pins-first launch a window
+    that places pods)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from chip_smoke import twin_cluster
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.shadow.record import record_simulation
+    from open_simulator_tpu_torch.twin import queries
+    from open_simulator_tpu_torch.twin.mirror import ClusterMirror, FeedSource
+
+    nodes, bound, feed = twin_cluster(300, 600, 40)
+    cluster = ResourceTypes()
+    cluster.nodes, cluster.pods = nodes, bound
+    app = ResourceTypes()
+    app.pods = feed
+    reset_name_counter()
+    steps = record_simulation(cluster, [AppResource("feed", app)])
+    whatif_pods = ResourceTypes()
+    whatif_pods.deployments = [{"kind": "Deployment", "metadata": {"name": "w", "namespace": "q"},
+                                "spec": {"replicas": 30, "template": {"spec": {"containers": [{
+                                    "name": "c", "image": "i", "resources": {"requests": {
+                                        "cpu": "2", "memory": "4Gi"}}}]}}}}]
+    out, calls = {}, []
+    real = fused_scan.run_fused_scan
+
+    def record(plan, cls, active, valid, pinned=None, site="scan"):
+        outs = real(plan, cls, active, valid, pinned, site=site)
+        calls.append((plan, cls, active, valid, pinned, outs))
+        return outs
+
+    for device in ("cuda", "cpu"):
+        mirror = ClusterMirror(copy.deepcopy(cluster), FeedSource(steps, batch=64), device=device)
+        mirror.bootstrap()
+        while not mirror.source.exhausted:
+            mirror.poll_once()
+        mirror.drain_backlog()
+        launches = []
+        answers = []
+        for call in (lambda: queries.whatif(mirror, [AppResource("w", whatif_pods)]),
+                     lambda: queries.drain(mirror, selector={"zone": "z5"}),
+                     lambda: queries.nplusk(mirror, k=1, trials=4),
+                     lambda: queries.forecast(mirror, horizon_s=120.0, arrival_rate=1.0,
+                                              policy="static:0")):
+            fused_scan.reset_launch_counts()
+            if device == "cuda" and not answers:
+                fused_scan.run_fused_scan = record
+            try:
+                doc = call()
+            finally:
+                fused_scan.run_fused_scan = real
+            launches.append(dict(fused_scan.LAUNCHES))
+            answers.append({k: v for k, v in doc.items() if k != "mirror"})
+        out[device] = (answers, mirror.state_digest(), mirror.stats()["agreementRate"],
+                       launches)
+    assert out["cuda"][:3] == out["cpu"][:3] and out["cuda"][2] == 1.0
+    kinds = out["cuda"][3]
+    assert kinds[0][fused_scan.KERNEL_NAME] == kinds[1][fused_scan.KERNEL_NAME] == 1
+    assert kinds[2][fused_scan.KERNEL_NAME] == 4
+    assert kinds[3][fused_scan.PINS_FIRST_KERNEL_NAME] == out["cuda"][0][3]["dispatches"] >= 1
+    plan, cls, active, valid, pinned, outs = calls[0]
+    want = fused_scan.fused_scan_reference(plan, cls, active, valid, pinned)
+    assert torch.equal(outs[0].cpu(), want[0].cpu())
+    for k in want[1]:
+        assert torch.equal(outs[1][k].cpu(), want[1][k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_cuda_store_round_trip_on_the_card(tmp_path):
+    """A store filled by one process serves the next one's fused_scan.cu
+    library (no nvcc build), and its B1 launch == the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, SIMON_AOT_STORE=str(tmp_path / "store"))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.store_child(*sys.argv[1:]))"
+    docs = []
+    for tag in ("fill", "load"):
+        out = subprocess.run([sys.executable, "-c", code, str(tmp_path / tag), "300", "200"],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        assert out.returncode == 0, out.stderr[-3000:]
+        docs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    fill, load = docs
+    assert fill["nvcc_builds_total"] == 1 and fill["aot_store_save_total"] == 1
+    assert load["nvcc_builds_total"] == 0 and load["aot_store_hit_total"] == 1
+    assert fill["launches"] == load["launches"] == 1
+    assert fill["max_abs_err"] == load["max_abs_err"] == 0
+    assert fill["library"] == load["library"]

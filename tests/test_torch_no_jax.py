@@ -32,7 +32,8 @@ for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.c
              "timeline.stepper", "timeline.compare", "serve", "serve.session",
              "serve.admission", "serve.coalescer", "serve.sessions", "serve.server",
              "incremental", "incremental.resim", "obs.telemetry", "obs.slo",
-             "runtime.checkpoint"):
+             "runtime.checkpoint", "incremental.store", "fleet", "fleet.replay",
+             "twin.mirror", "twin.queries", "twin.server"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -227,12 +228,67 @@ def test_serve_path_imports_no_jax():
     assert "stateDigest" in out.stdout
 
 
+# the slice-11 paths in a fresh interpreter, on the CPU: the twin daemon
+# tailing a recorded feed (a what-if and a drain over HTTP), `simon top`
+# against it, the serve failover replay and the kernel-library store's
+# obs block
+_TWIN = r"""
+import contextlib, io, json, sys, urllib.request
+from open_simulator_tpu_torch import cli
+from open_simulator_tpu_torch.apply.applier import Applier, SimonConfig
+from open_simulator_tpu_torch.shadow.log import read_decision_log
+from open_simulator_tpu_torch.twin.mirror import ClusterMirror, FeedSource
+from open_simulator_tpu_torch.twin.server import TwinDaemon
+from open_simulator_tpu_torch.fleet.replay import replay_into_session
+from open_simulator_tpu_torch.incremental.store import configure_store, aot_store_block
+log = sys.argv[1] + "/feed.jsonl"
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main(["shadow", "-f", "example/simon-config.yaml", "--record", log]) == 0
+cluster = Applier(SimonConfig.from_file("example/simon-config.yaml")).load_cluster()
+steps, _meta = read_decision_log(log)
+mirror = ClusterMirror(cluster, FeedSource(steps, batch=64), device="cpu")
+mirror.bootstrap()
+d = TwinDaemon(mirror, port=0, poll_interval_s=0.02)
+d.start()
+base = f"http://{d.host}:{d.port}"
+for _ in range(200):
+    h = json.loads(urllib.request.urlopen(base + "/healthz").read())
+    if h["mirror"]["feedExhausted"] and h["mirror"]["backlog"] == 0:
+        break
+def post(path, doc):
+    req = urllib.request.Request(base + path, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=120).read())
+pod = {"kind": "Pod", "metadata": {"name": "q", "namespace": "x"}, "spec": {"containers": [
+       {"name": "c", "image": "i", "resources": {"requests": {"cpu": "100m", "memory": "64Mi"}}}]}}
+print(post("/v1/whatif", {"apps": [{"name": "q", "yaml": json.dumps(pod)}]})["kind"])
+print(post("/v1/drain", {"nodes": [cluster.nodes[0]["metadata"]["name"]]})["kind"])
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert cli.main(["top", "--url", base, "--once"]) == 0
+assert "simon top" in out.getvalue()
+assert d.shutdown() == 0
+configure_store(sys.argv[1] + "/store")
+print(aot_store_block(), h["mirror"]["agreementRate"])
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_twin_top_and_failover_paths_import_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _TWIN, str(tmp_path)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["whatif", "drain", "{}", "1.0"]
+
+
 @pytest.mark.parametrize("argv", [
     ["chaos", "-f", "example/simon-gpushare-config.yaml"],
     ["defrag", "--snapshot", "SNAP"],
     ["timeline", "-f", "example/simon-config.yaml", "--synthetic", "5"],
     ["shadow", "-f", "example/simon-config.yaml", "--decision-log", "LOG"],
     ["serve", "-f", "example/simon-config.yaml", "--port", "0"],
+    ["twin", "-f", "example/simon-config.yaml", "--feed", "LOG", "--port", "0"],
 ])
 def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
     """Without `--device cpu` the new commands ask for the card: with

@@ -1,8 +1,9 @@
 """First use of the port's kernel libraries from several threads at
 once (a serve daemon's dispatcher and a request-handler thread).
 
-A stub `nvcc` (a script that sleeps, then writes its `-o`) stands in
-for the compiler: two threads that build one source together get the
+A stub `nvcc` (a script that sleeps, then writes its `-o`; asked for
+`--version`, it prints a version line, which keys the library) stands
+in for the compiler: two threads that build one source together get the
 same library, and it is compiled once."""
 
 import os
@@ -15,6 +16,10 @@ from open_simulator_tpu_torch.utils import nvcc
 from open_simulator_tpu_torch.utils.trace import COUNTERS
 
 STUB = """#!/bin/sh
+if [ "$1" = "--version" ]; then
+  echo "nvcc: stub compiler, release 0.0"
+  exit 0
+fi
 sleep 0.5
 while [ $# -gt 0 ]; do
   if [ "$1" = "-o" ]; then out="$2"; fi

@@ -424,7 +424,12 @@ def test_observatory_block_shape_after_launches():
     block = observatory_block()
     assert {"costs", "histograms"} <= set(block)
     assert "obstest_block" in block["costs"] and "launch/obstest_block" in block["histograms"]
-    assert "incremental" not in block and "aot_store" not in block
+    # the store and re-simulation blocks (incremental/store.py) are
+    # there exactly when their counters moved in this process
+    from open_simulator_tpu_torch.incremental.store import aot_store_block, incremental_block
+
+    assert block.get("incremental", {}) == incremental_block()
+    assert block.get("aot_store", {}) == aot_store_block()
 
 
 def test_ledger_span_watermarks_need_a_card():
