@@ -201,7 +201,19 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     pins-first launch a window that places pods); 0 nvcc builds; at a cut
     of 500 nodes x 1,000 bound pods the what-if and drain answers == the
     oracle engine's and everything == the JAX package's
-    (tools/jax_twin_answer.py).
+    (tools/jax_twin_answer.py);
+28. the serve fleet (`simon fleet`, a subprocess; its replicas port
+    `simon serve` subprocesses on the card) in front of phase 24's
+    cluster, with 1 and then 2 replicas, each in a fresh fleet directory:
+    r0 builds the kernel library into the fleet's store, r1 loads it; a
+    warm storm, then 8 clients x 4 POSTs of a 50-replica Deployment with
+    the tenants balanced over the slots (qps, p50/p95); on 2 replicas a
+    delta for a tenant of r0, r0 killed with SIGKILL in the middle of a
+    storm: every reply 200 or 429/503 with Retry-After and its own
+    request id, the rerouted first 200 == the survivor's answer, the
+    respawned replacement 0 nvcc builds with the dead replica's state
+    digest (deltaSeq 1), the audit log valid, `simon top --fleet`
+    exits 0, each replica's B6 launches == its ticks + its warm-up.
 
 Phase 2 also times B1 through the instrumented wrapper against the bare
 launcher in turns; phases 2-10 and 17b hold one launch of each
@@ -212,14 +224,15 @@ before launch, the same report, no OOM caught.
 
 Phases 14-27 fail the run when a trace note reports a downgrade or the
 serial floor, unless the phase injected that fault, as do the CLI runs
-of phases 6 and 11.
+of phases 6 and 11; phase 28 when a replica counts a failed, serial or
+degraded tick.
 
     python3 chip_smoke.py --only 25,26,27
 
 runs phase 1 and the named phases that stand alone (14, 17, 18, 19, 21,
-22, 23, 24, 25, 26, 27), and prints no kernels or ok line.
+22, 23, 24, 25, 26, 27, 28), and prints no kernels or ok line.
 
-Cuts that keep the script near 5 minutes (the kernels always run every
+Cuts that keep the script inside its time (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
 do not depend on the later pods): phase 4b 5,000 pods; phase 5's plain
 check the first 5,000 pods; phases 7 and 8's the first 5,000 (cut
@@ -235,12 +248,16 @@ fold to 2,000 x 20,000, so not run there); phase 17a's plain check the
 first 5,000 pods; phase 18's 100 nodes x 1,000 pods (the torch scan);
 phase 27's decisions 200 -> TWIN_DECISIONS.
 
-Host-only inputs run beside the card's phases, so that phases 25-27 fit
-the time limit with no earlier depth cut: phase 23's two decision logs
-and phase 27's feed are recorded on the serial oracle in subprocesses
-started after phase 1, and phase 25's three processes (each at a small
-scenario: the store does not depend on the shape) run beside phases
-14-24.
+Host work runs beside the card's phases, so that the script fits its
+time with no further depth cut: phase 23's two decision logs and phase
+27's feed are recorded on the serial oracle in subprocesses started
+after phase 1; phases 14-19, 21 and 22 run in a second process on the
+card (`lane`, started after phase 13, its lines printed after phase
+28's) beside phases 20 and 23-28 in this one; and phase 25's three
+processes (each at a small scenario: the store does not depend on the
+shape) run beside phases 20-24. Phases 14-28 share the card and the
+host's cores with the other lane, so their times are those of a shared
+machine.
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line (every fused-scan entry but the B2 one carries
@@ -254,8 +271,10 @@ launches of phase 11's full-width plan; the `fused_scan_batch
 (pins-first)` entry is phase 17b's launch, with phase 17's and phase
 22's launches and its us a pinned and a free pod step; the
 `fused_scan_base` entry's launches are phase 3's, 23's, 24's, 25's (the
-subprocesses' own counts), 26's (the daemons' `scan` site) and 27's, the
-`fused_scan_batch` entry's phase 6's, 24's and 26's, the pins-first
+subprocesses' own counts), 26's (the daemons' `scan` site), 27's and
+28's (the fleet's replicas, at `scan`; the killed replica's as it read
+just before the kill), the `fused_scan_batch` entry's phase 6's, 24's,
+26's and 28's (at `scenario_scan`), the pins-first
 entry's 17's, 22's and 27's, each entry's `launches_by_phase` splits
 them), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
@@ -498,6 +517,21 @@ TWIN_JAX_NODES = 500
 TWIN_JAX_BOUND = 1_000
 TWIN_JAX_DECISIONS = 100
 JAX_TWIN_ANSWER = "aa795ec5e84caaaaa19d5619272d44874e9df5e6d035f3ea06194db2b42a9a3e"
+# phase 28: the serve fleet on phase 24's cluster (phase 26's config):
+# `simon fleet` with 1 and then 2 replicas, each in a fresh fleet
+# directory (its kernel-library store empty); FLEET_CLIENTS clients x
+# FLEET_PER_CLIENT POSTs of a SERVE_REPLICAS-replica Deployment of 500m /
+# 1 GiB pods (bench.py run_fleet_qps's request), the tenants balanced
+# over the slots, one warm storm first;
+# on the 2-replica fleet a delta journaled for a tenant of r0, then r0
+# killed with SIGKILL once FLEET_KILL_AFTER replies of a storm are back.
+# Both fleets start together (the 2-replica one idles while the other
+# is measured), so their boots and nvcc builds overlap
+FLEET_CLIENTS = 8
+FLEET_PER_CLIENT = 4
+FLEET_WARM_PER_CLIENT = 1
+FLEET_KILL_AFTER = 8
+FLEET_PROBE_S = 0.5
 
 
 # processes started beside the card's phases; any still running at exit
@@ -521,9 +555,10 @@ def start_child(root, label, fn, *args, env=None):
     return proc
 
 
-def wait_child(proc, timeout=1200):
+def wait_child(proc, timeout=1200, echo=False):
     """(the child's last stdout line as JSON, its stderr); raises when it
-    failed."""
+    failed. With `echo` its other stdout lines are printed first (all of
+    them when it failed)."""
     rc = proc.wait(timeout=timeout)
     out, err = proc.files
     out.seek(0)
@@ -531,9 +566,12 @@ def wait_child(proc, timeout=1200):
     stdout, stderr = out.read(), err.read()
     out.close()
     err.close()
+    lines = stdout.strip().splitlines()
+    if echo:
+        print("\n".join(lines if rc else lines[:-1]), flush=True)
     if rc != 0:
         raise AssertionError(f"{proc.label}: exit {rc}: {stderr[-3000:]}")
-    return json.loads(stdout.strip().splitlines()[-1]), stderr
+    return json.loads(lines[-1]), stderr
 
 
 @__import__("atexit").register
@@ -566,6 +604,44 @@ class Background:
         if "error" in self._out:
             raise self._out["error"]
         return self._out["value"]
+
+
+# phases 14-19, 21 and 22 run in a second process on the card beside the
+# main one's 20 and 23-28: the host leads each of them (the card is idle
+# most of the time), so the two lanes share the machine's cores instead
+# of taking turns. LANE_KEEP: what the main process reads of each one's
+# result (the rest stays in the lane)
+LANE_B = ("14", "15", "16", "17", "18", "19", "21", "22")
+LANE_KEEP = {"14": ("launches", "rounds"), "16": ("launches",), "17": ("launches", "cut"),
+             "19": ("launches",), "22": ("launches", "windows", "device_ms")}
+
+
+def lane(root, names) -> int:
+    """Phases `names` (comma-separated, of LANE_B) in this process, in
+    order, in the directory `root`; the last stdout line is {"walls":
+    {phase: LANE_KEEP's part of its result}, "workspace": this process's
+    WORKSPACE entries}."""
+    import torch
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    gpu = card()
+    runs = {"14": lambda w: phase14(gpu), "15": lambda w: phase15(gpu, root),
+            "16": lambda w: phase16(gpu, w["15"]), "17": lambda w: phase17(gpu, root),
+            "18": lambda w: phase18(gpu, root), "19": lambda w: phase19(gpu, root),
+            "21": lambda w: phase21(gpu, root), "22": lambda w: phase22(gpu, root)}
+    walls = {}
+    for name in names.split(","):
+        t0 = time.perf_counter()
+        walls[name] = runs[name](walls)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}] (lane b)",
+              flush=True)
+        torch.cuda.empty_cache()
+    keep = {k: {f: walls[k][f] for f in fields} for k, fields in LANE_KEEP.items()
+            if k in walls}
+    print(json.dumps({"walls": keep, "workspace": WORKSPACE}, default=lambda o: o.item()),
+          flush=True)
+    return 0
 
 
 # host-only inputs, recorded on the serial oracle in subprocesses that
@@ -3176,14 +3252,15 @@ def serve_deltas(pods, evict_at, n_arrive, tag="late"):
     return recs
 
 
-def http_json(base, path, doc=None, timeout=600):
+def http_json(base, path, doc=None, timeout=600, headers=None):
     """(status, headers, body bytes) of a GET (doc None) or a JSON POST."""
     import urllib.error
     import urllib.request
 
     data = None if doc is None else json.dumps(doc).encode()
     req = urllib.request.Request(base + path, data=data,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, dict(resp.headers), resp.read()
@@ -4161,6 +4238,327 @@ def phase27(gpu, root=None) -> dict:
             "pins_launches": fc["dispatches"], "whatif_ms": results["/v1/whatif"]["s"] * 1e3}
 
 
+def balanced_tenants(ring, slots, count, prefix="p28-tenant") -> list:
+    """One tenant a client, their ring owners dealt round-robin over the
+    slots (bench.py balanced_tenants)."""
+    out, j = [], 0
+    for i in range(count):
+        while True:
+            t = f"{prefix}-{j}"
+            j += 1
+            if ring.route_order(t)[0] == slots[i % len(slots)]:
+                out.append(t)
+                break
+    return out
+
+
+class FleetStorm:
+    """One thread a tenant, each POSTing the envelope `per_client` times
+    through the router with its own request ids; `done` counts the
+    replies back. `join()` returns the replies [(tenant, rid, status,
+    headers, body, seconds)] and the wall time."""
+
+    def __init__(self, base, tenants, tag, per_client=FLEET_PER_CLIENT):
+        import threading
+
+        self.replies, self.errors, self.done = [], [], 0
+        self.per_client = per_client
+        self._lock = threading.Lock()
+        self.t0 = time.perf_counter()
+        self._threads = [threading.Thread(target=self._client, args=(base, t, f"{tag}-{k}"))
+                         for k, t in enumerate(tenants)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, base, tenant, tag):
+        envelope = serve_envelope("fq")
+        for j in range(self.per_client):
+            rid = f"{tag}-{j}"
+            t0 = time.perf_counter()
+            try:
+                status, headers, body = http_json(base, "/v1/simulate", envelope, headers={
+                    "X-Simon-Tenant": tenant, "X-Simon-Request-Id": rid})
+            except Exception as e:  # a lost request: reported by join()
+                with self._lock:
+                    self.errors.append((rid, repr(e)))
+                continue
+            with self._lock:
+                self.replies.append((tenant, rid, status, headers, body,
+                                     time.perf_counter() - t0))
+                self.done += 1
+
+    def join(self, label):
+        for t in self._threads:
+            t.join()
+        wall = time.perf_counter() - self.t0
+        want = len(self._threads) * self.per_client
+        bad = [(rid, status, headers.get("X-Simon-Request-Id"), body[:200])
+               for _t, rid, status, headers, body, _s in self.replies
+               if headers.get("X-Simon-Request-Id") != rid
+               or not (status == 200 or (status in (429, 503) and headers.get("Retry-After")))]
+        if self.errors or len(self.replies) != want or bad:
+            raise AssertionError(f"{label}: {len(self.replies)} of {want} replies, lost "
+                                 f"{self.errors[:4]}, wrong {bad[:4]}")
+        return self.replies, wall
+
+
+def replica_counts(url) -> dict:
+    """A replica's launches by site, ticks, nvcc builds, store hits and
+    the counters of a degraded path, from its /metrics."""
+    text = http_json(url, "/metrics")[2].decode()
+    out = {"b1": metric(text, 'simon_launches_site_total{site="scan"}'),
+           "b6": metric(text, 'simon_launches_site_total{site="scenario_scan"}')}
+    for name in ("serve_batches_total", "nvcc_builds_total", "aot_store_hit_total",
+                 "serve_batch_errors_total", "serve_admission_serial_total",
+                 "incremental_fallbacks_total", "guard_oom_predicted_total",
+                 "guard_oom_reactive_total"):
+        out[name] = metric(text, f"simon_{name}")
+    return out
+
+
+def check_replica(label, counts) -> None:
+    """A tick is one B6 launch (and the warm-up one more); no tick
+    failed, went serial or degraded."""
+    degraded = {k: v for k, v in counts.items() if v and k in (
+        "serve_batch_errors_total", "serve_admission_serial_total",
+        "incremental_fallbacks_total", "guard_oom_predicted_total", "guard_oom_reactive_total")}
+    if counts["b6"] != counts["serve_batches_total"] + 1 or degraded:
+        raise AssertionError(f"{label}: B6 launches {counts['b6']} for "
+                             f"{counts['serve_batches_total']} ticks and the warm-up; {degraded}")
+
+
+class FleetProcess:
+    """`simon fleet -f cfg --replicas n` started now in a fresh fleet
+    directory under `root`; a thread reads its readiness line and the
+    time it came."""
+
+    def __init__(self, cfg, root, n):
+        import threading
+
+        self.n, self.dir, self.err = n, Path(root) / f"fleet-{n}", Path(root) / f"fleet-{n}.err"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "open_simulator_tpu_torch.cli", "fleet", "-f", cfg,
+             "--replicas", str(n), "--port", "0", "--fleet-dir", str(self.dir),
+             "--probe-interval", str(FLEET_PROBE_S), "--drain-timeout", "60"],
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=open(self.err, "w"), text=True)
+        _CHILDREN.append(self.proc)
+        self.line, self.ready_s, self.rc = "", None, None
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        self.line = self.proc.stdout.readline()
+        self.ready_s = time.perf_counter() - self.t0
+
+    def ready(self):
+        """The router's base URL, once the fleet printed its readiness line."""
+        self._reader.join(timeout=900)
+        if "listening on http://" not in self.line:
+            raise AssertionError(f"phase 28 (the fleet of {self.n}): no readiness line "
+                                 f"({self.line!r}): {self.err.read_text()[-2000:]}")
+        return self.line.split("listening on ", 1)[1].split()[0].rstrip("/")
+
+    def drain(self) -> int:
+        """SIGTERM, then the fleet's exit code (once; later calls return it)."""
+        import signal
+
+        if self.rc is None:
+            self.proc.send_signal(signal.SIGTERM)
+            self.rc = self.proc.wait(timeout=180)
+            self.proc.stdout.close()
+        return self.rc
+
+
+def fleet_health(base, slot) -> dict:
+    doc = json.loads(http_json(base, "/healthz")[2])
+    return next(r for r in doc["replicas"] if r["id"] == slot)
+
+
+def phase28(gpu, root) -> dict:
+    """The serve fleet on the card: `simon fleet` (a subprocess, its
+    replicas port `simon serve` subprocesses on the card) in front of
+    phase 24's cluster, measured first with 1 replica, then with 2, each
+    in a fresh fleet directory whose kernel-library store r0 fills (the
+    others load it); both fleets start together, the second idles while
+    the first is measured. A warm storm (FLEET_WARM_PER_CLIENT POSTs a
+    client), then a measured one (qps, p50/p95).
+    On 2 replicas: a delta journaled for a tenant of r0, r0 killed with
+    SIGKILL in the middle of a storm; the rerouted first 200 (== the
+    survivor's answer to the same request), the probe loop's respawn and
+    the replacement's first direct answer timed. Gates: every reply 200
+    or 429/503 with Retry-After and its own request id, none lost; r1
+    and the replacement 0 nvcc builds; the replacement's state digest ==
+    the dead replica's, deltaSeq 1; the audit log validates; `simon top
+    --fleet --once` and `--format json` exit 0; each replica's B6
+    launches == its ticks + the warm-up, no degraded tick; SIGTERM
+    drains with exit 0."""
+    root = Path(root)
+    cfg = root / "failover" / "simon-config.yaml"  # phase 26's, when it ran
+    cfg = str(cfg) if cfg.exists() else prepared(root, "failover-config")["cfg"]
+    results, counts = {}, {}
+    fleets = {n: FleetProcess(cfg, root, n) for n in (1, 2)}
+    try:
+        for n in (1, 2):
+            measure_fleet(fleets[n], results.setdefault(n, {}), counts)
+    finally:
+        for fleet in fleets.values():
+            fleet.drain()
+    for n, fleet in fleets.items():
+        if fleet.rc != 0 or list(fleet.dir.glob("*.lock")):
+            raise AssertionError(f"phase 28: the fleet of {n} drained with exit {fleet.rc}, "
+                                 f"locks {list(fleet.dir.glob('*.lock'))}: "
+                                 f"{fleet.err.read_text()[-2000:]}")
+        results[n]["ready_s"] = fleet.ready_s
+    for label, c in counts.items():
+        check_replica(f"phase 28 ({label})", c)
+    builds = {k: int(c["nvcc_builds_total"]) for k, c in counts.items()}
+    if any(v for k, v in builds.items() if not k.endswith("/r0")) or \
+            any(v != 1 for k, v in builds.items() if k.endswith("/r0")):
+        raise AssertionError(f"phase 28: nvcc builds {builds} (r0 of each fresh fleet "
+                             f"builds once; r1 and the replacement load the store)")
+    one, two = results[1], results[2]
+    print(f"phase 28 (the serve fleet, {SERVE_NODES} nodes x {SERVE_PODS} committed pods, "
+          f"{FLEET_CLIENTS} clients x {FLEET_PER_CLIENT} POSTs of a 50-replica Deployment, "
+          f"tenants balanced over the slots; both fleets started together): 1 replica ready "
+          f"in {one['ready_s']:.1f} s (r0 builds into its store), {one['qps']:.2f} qps, p50 "
+          f"{one['p50']:.1f} ms, p95 {one['p95']:.1f} ms; 2 replicas ready in "
+          f"{two['ready_s']:.1f} s (r0 builds, then r1 loads), {two['qps']:.2f} qps, p50 {two['p50']:.1f} ms, p95 {two['p95']:.1f} ms, "
+          f"answers by slot {two['by_slot']} [{gpu}]", flush=True)
+    fo = two
+    hits = int(counts["2/r0'"]["aot_store_hit_total"])
+    print(f"phase 28: failover: a delta for r0's tenant (deltaSeq 1), r0 SIGKILLed after "
+          f"{FLEET_KILL_AFTER} replies of a storm; failover_first_200_s "
+          f"{fo['first_200_s']:.3f} (rerouted to r1, == r1's own answer); failover_seconds "
+          f"{fo['failover_s']:.3f} (the probe loop's respawn, then the replacement's first "
+          f"direct answer); the storm's {fo['storm_replies']} replies {fo['storm_statuses']}; "
+          f"audit {fo['audit']['complete']} complete episode, totalSeconds "
+          f"{fo['audit_total']:.3f}, phases {fo['audit_phases']}; the replacement's state "
+          f"digest == the dead r0's, deltaSeq {fo['delta_seq']}, "
+          f"{hits} store hit [{gpu}]", flush=True)
+    print("phase 28: launches per replica (B1 at scan, B6 at scenario_scan, ticks, nvcc "
+          "builds): " + "; ".join(
+              f"{k} {int(c['b1'])}/{int(c['b6'])}/{int(c['serve_batches_total'])}/"
+              f"{int(c['nvcc_builds_total'])}" for k, c in counts.items())
+          + f"; each replica's B6 launches == its ticks + the warm-up [{gpu}]", flush=True)
+    print("phase 28: simon top --fleet --once:\n" + two["top"].rstrip(), flush=True)
+    return {"base_launches": int(sum(c["b1"] for c in counts.values())),
+            "batch_launches": int(sum(c["b6"] for c in counts.values())),
+            "qps": {1: one["qps"], 2: two["qps"]}, "first_200_s": fo["first_200_s"],
+            "failover_s": fo["failover_s"]}
+
+
+def measure_fleet(fleet, res, counts) -> None:
+    """Phase 28 on one fleet: a warm storm, the measured storm, on 2
+    replicas the failover, each replica's counts, `top --fleet`; then
+    the drain."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.fleet.hashing import HashRing
+
+    n = fleet.n
+    base = fleet.ready()
+    slots = [f"r{i}" for i in range(n)]
+    ring = HashRing(slots)
+    tenants = balanced_tenants(ring, slots, FLEET_CLIENTS)
+    FleetStorm(base, tenants, f"warm{n}", FLEET_WARM_PER_CLIENT).join(
+        f"phase 28 ({n}, warm storm)")
+    replies, wall = FleetStorm(base, tenants, f"storm{n}").join(f"phase 28 ({n}, storm)")
+    lat = [r[5] * 1e3 for r in replies]
+    res.update(qps=len(replies) / wall, p50=float(np.percentile(lat, 50)),
+               p95=float(np.percentile(lat, 95)), wall=wall,
+               by_slot={s: sum(r[3].get("X-Simon-Fleet-Replica") == s for r in replies)
+                        for s in slots})
+    if n == 2:
+        res.update(fleet_failover(base, ring, tenants, fleet.dir, counts))
+    for slot in slots:
+        h = fleet_health(base, slot)
+        counts[f"{n}/{slot}" + ("'" if h["restarts"] else "")] = replica_counts(h["url"])
+    top = [run_cli(["top", "--fleet", "--url", base, *flags])
+           for flags in (["--once"], ["--format", "json"])]
+    if any(rc != 0 for rc, _o, _e in top) or \
+            json.loads(top[1][1])["snapshot"]["daemon"] != "fleet":
+        raise AssertionError(f"phase 28: top --fleet exits {[t[0] for t in top]}")
+    res["top"] = top[0][1]
+    fleet.drain()
+
+
+def fleet_failover(base, ring, tenants, fleet_dir, counts) -> dict:
+    """Phase 28's failover on the 2-replica fleet: one delta journaled
+    for a tenant of r0 and its what-if answered, r0's counts read, then
+    a storm, SIGKILL of r0 after FLEET_KILL_AFTER of its replies, the
+    tenant's request rerouted, the respawn awaited, the replacement
+    asked directly and through the router."""
+    import os
+    import signal
+
+    from open_simulator_tpu_torch.fleet.audit import read_audit_log, validate_audit_log
+
+    tenant = next(t for t in (f"p28-victim-{i}" for i in range(256))
+                  if ring.route_order(t)[0] == "r0")
+    hdr = {"X-Simon-Tenant": tenant}
+    envelope = serve_envelope("fq")
+    status, headers, body = http_json(base, "/v1/cluster-delta", {"deltas": [
+        {"kind": "pod_arrive", "pod": serve_pod("p28-late")}]}, headers=hdr)
+    if status != 200 or headers.get("X-Simon-Fleet-Replica") != "r0":
+        raise AssertionError(f"phase 28: the delta {status} {body[:300]!r} "
+                             f"from {headers.get('X-Simon-Fleet-Replica')}")
+    if http_json(base, "/v1/simulate", envelope, headers=hdr)[0] != 200:
+        raise AssertionError("phase 28: the tenant's what-if after its delta")
+    dead = fleet_health(base, "r0")
+    digest = json.loads(http_json(dead["url"], "/v1/state-digest")[2])
+    counts["2/r0"] = replica_counts(dead["url"])
+    storm = FleetStorm(base, tenants, "failover")
+    t0 = time.perf_counter()
+    while storm.done < FLEET_KILL_AFTER and time.perf_counter() - t0 < 300:
+        time.sleep(0.01)
+    t_kill = time.perf_counter()
+    os.kill(dead["pid"], signal.SIGKILL)
+    status, headers, rerouted = http_json(base, "/v1/simulate", envelope,
+                                          headers={**hdr, "X-Simon-Request-Id": "p28-first"})
+    first_200_s = time.perf_counter() - t_kill
+    if status != 200 or headers.get("X-Simon-Request-Id") != "p28-first" or \
+            headers.get("X-Simon-Fleet-Replica") != "r1":
+        raise AssertionError(f"phase 28: the rerouted request {status} from "
+                             f"{headers.get('X-Simon-Fleet-Replica')}: {rerouted[:300]!r}")
+    while True:
+        new = fleet_health(base, "r0")
+        if new["restarts"] == 1 and new["status"] == "up":
+            break
+        if time.perf_counter() - t_kill > 300:
+            raise AssertionError(f"phase 28: r0 not respawned: {new}")
+        time.sleep(0.05)
+    status, _h, _b = http_json(new["url"], "/v1/simulate", envelope)
+    failover_s = time.perf_counter() - t_kill
+    if status != 200:
+        raise AssertionError(f"phase 28: the replacement's first answer {status}")
+    replies, _wall = storm.join("phase 28 (the failover storm)")
+    survivor = fleet_health(base, "r1")["url"]
+    if http_json(survivor, "/v1/simulate", envelope)[2] != rerouted:
+        raise AssertionError("phase 28: the rerouted body != r1's own answer to the request")
+    digest2 = json.loads(http_json(new["url"], "/v1/state-digest")[2])
+    if digest2 != digest or digest["deltaSeq"] != 1:
+        raise AssertionError(f"phase 28: the replacement's digest {digest2} != the dead "
+                             f"replica's {digest}")
+    # the first 200 through the respawned slot closes the audit episode
+    status, headers, _b = http_json(base, "/v1/simulate", envelope, headers=hdr)
+    if status != 200 or headers.get("X-Simon-Fleet-Replica") != "r0":
+        raise AssertionError(f"phase 28: the tenant's answer after the respawn {status} "
+                             f"from {headers.get('X-Simon-Fleet-Replica')}")
+    audit_path = str(fleet_dir / "failover-audit.jsonl")
+    audit = validate_audit_log(audit_path)
+    done = [e for e in read_audit_log(audit_path)[0] if e["phase"] == "failover_complete"]
+    if audit["complete"] != 1 or audit["slots"] != ["r0"]:
+        raise AssertionError(f"phase 28: the audit log {audit}")
+    statuses = {}
+    for r in replies:
+        statuses[r[2]] = statuses.get(r[2], 0) + 1
+    return {"first_200_s": first_200_s, "failover_s": failover_s, "audit": audit,
+            "audit_total": done[0]["totalSeconds"], "audit_phases": done[0]["phases"],
+            "delta_seq": digest2["deltaSeq"], "storm_replies": len(replies),
+            "storm_statuses": statuses}
+
+
 def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
     """One launch of `scenarios` with the allocator's peak reset: the cost
     count's workspace (obs/costs.py) must be at or above what the peak
@@ -4241,7 +4639,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only is None:
-        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24,25,26,27]",
+        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24,25,26,27,28]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4268,11 +4666,12 @@ def main(argv=None) -> int:
 
         standalone = {"14": phase14, "17": phase17, "18": phase18, "19": phase19,
                       "21": phase21, "22": phase22, "23": phase23, "24": phase24,
-                      "25": phase25, "26": phase26, "27": phase27}
+                      "25": phase25, "26": phase26, "27": phase27, "28": phase28}
         with tempfile.TemporaryDirectory() as root:
-            start_prep(root, [t for t, ph in (("shadow-full", "23"), ("shadow-cut", "23"),
-                                              ("failover-config", "26"), ("twin-feed", "27"))
-                              if ph in only])
+            start_prep(root, [t for t, phs in (("shadow-full", "23"), ("shadow-cut", "23"),
+                                               ("failover-config", "26 28"),
+                                               ("twin-feed", "27"))
+                              if set(phs.split()) & set(only)])
             for name in only:
                 t0 = time.perf_counter()
                 fn = standalone[name]
@@ -4411,31 +4810,31 @@ def main(argv=None) -> int:
     phase13(gpu)
     print(f"phases 10-13: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
-    # ---- phases 14-27: the planner's other paths, the timeline, shadow,
-    # serve, the store, failover and the twin; phase 25's processes run
-    # beside phases 14-24
+    # ---- phases 14-28: the planner's other paths, the timeline, shadow,
+    # serve, the store, failover, the twin and the fleet; LANE_B's phases
+    # in a second process, phase 25's processes beside phases 20-24
     torch.cuda.empty_cache()
     with tmp as root:
+        lane_b = start_child(root, "lane-b", "lane", Path(root) / "lane-b", ",".join(LANE_B))
         chain = Background(store_chain, root)
         walls = {}
-        for name, run in (("14", lambda: phase14(gpu)), ("15", lambda: phase15(gpu, root)),
-                          ("16", lambda: phase16(gpu, walls["snap"])),
-                          ("17", lambda: phase17(gpu, root)), ("18", lambda: phase18(gpu, root)),
-                          ("19", lambda: phase19(gpu, root)),
-                          ("20", lambda: phase20(gpu, root, cap)),
-                          ("21", lambda: phase21(gpu, root)),
-                          ("22", lambda: phase22(gpu, root)),
+        for name, run in (("20", lambda: phase20(gpu, root, cap)),
                           ("23", lambda: phase23(gpu, root)),
                           ("24", lambda: phase24(gpu, root)),
                           ("25", lambda: phase25(gpu, root, chain)),
                           ("26", lambda: phase26(gpu, root)),
-                          ("27", lambda: phase27(gpu, root))):
+                          ("27", lambda: phase27(gpu, root)),
+                          ("28", lambda: phase28(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
-            if name == "15":
-                walls["snap"] = walls[name]
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}]", flush=True)
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        other = wait_child(lane_b, echo=True)[0]
+        print(f"phases {', '.join(LANE_B)} (lane b): waited {time.perf_counter() - t0:.1f} s "
+              f"for them after phase 28 [{gpu}]", flush=True)
+        walls.update(other["walls"])
+        WORKSPACE.extend(other["workspace"])
     whatif, defrag, outage = walls["14"], walls["16"], walls["17"]
     print(f"phases 14-18: B6 launches on the new paths: {whatif['launches']} in the 8-spec "
           f"what-if's {whatif['rounds']} rounds, {defrag['launches']} for two defrag plans, "
@@ -4460,6 +4859,12 @@ def main(argv=None) -> int:
           f"{twin['base_launches']} in phase 27's twin; "
           f"{fused_scan.BATCH_KERNEL_NAME} {failover['batch_launches']} in phase 26; "
           f"pins-first {twin['pins_launches']} for phase 27's forecast [{gpu}]", flush=True)
+    fleet = walls["28"]
+    print(f"phase 28: {fused_scan.KERNEL_NAME} launches {fleet['base_launches']} and "
+          f"{fused_scan.BATCH_KERNEL_NAME} {fleet['batch_launches']} in the fleets' replicas; "
+          f"qps {fleet['qps'][1]:.2f} at 1 replica, {fleet['qps'][2]:.2f} at 2; "
+          f"failover_first_200_s {fleet['first_200_s']:.3f}, failover_seconds "
+          f"{fleet['failover_s']:.3f} [{gpu}]", flush=True)
     print("workspace estimate against the measured peak rise, a launch of each "
           "instantiation: " + json.dumps(WORKSPACE), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
@@ -4479,22 +4884,24 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         dict(entry(fused_scan.KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1690",
                    base_launches + shadow["launches"] + serve["base_launches"]
-                   + aot["launches"] + failover["base_launches"] + twin["base_launches"],
-                   base),
+                   + aot["launches"] + failover["base_launches"] + twin["base_launches"]
+                   + fleet["base_launches"], base),
              cluster=base["cluster"], prev_ms=base["prev_ms"],
              launches_by_phase={"3": base_launches, "23": shadow["launches"],
                                 "24": serve["base_launches"], "25": aot["launches"],
                                 "26": failover["base_launches"],
-                                "27": twin["base_launches"]}),
+                                "27": twin["base_launches"],
+                                "28": fleet["base_launches"]}),
         entry(fused_scan.EXT_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:1961",
               ext_launches, ext),
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
                    cap["launches"][fused_scan.BATCH_KERNEL_NAME] + serve["batch_launches"]
-                   + failover["batch_launches"], cap["batch"]),
+                   + failover["batch_launches"] + fleet["batch_launches"], cap["batch"]),
              cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"],
              launches_by_phase={"6": cap["launches"][fused_scan.BATCH_KERNEL_NAME],
                                 "24": serve["batch_launches"],
-                                "26": failover["batch_launches"]}),
+                                "26": failover["batch_launches"],
+                                "28": fleet["batch_launches"]}),
         dict(entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
                    store["launches"], store), cluster=store["cluster"],
              prev_ms=store["prev_ms"]),

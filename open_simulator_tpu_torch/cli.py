@@ -1,6 +1,6 @@
 """simon-compatible CLI of the GPU port: `apply`, `chaos`, `defrag`,
-`shadow`, `timeline`, `serve`, `twin`, `top`, `doctor`, `version` and
-`gen-doc`.
+`shadow`, `timeline`, `serve`, `fleet`, `twin`, `top`, `doctor`,
+`version` and `gen-doc`.
 
   python -m open_simulator_tpu_torch.cli apply -f <simon-config.yaml> [-i]
         [--format table|json] [--extended-resources gpu,open-local]
@@ -43,6 +43,16 @@
         [--no-incremental] [--device DEVICE] [--inject SPEC]
         [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
         [--slo-config PATH] [--obs-cadence S]
+  python -m open_simulator_tpu_torch.cli fleet -f <simon-config.yaml>
+        [--replicas N] [--host H] [--port P] [--fleet-dir DIR]
+        [--probe-interval S] [--probe-timeout S] [--drain-timeout S]
+        [--spawn-attempts N] [--max-batch B] [--queue-depth N]
+        [--default-deadline S] [--tick-budget S] [--no-incremental]
+        [--checkpoint-interval N] [--keep-checkpoints N]
+        [--audit-log PATH | --no-audit-log] [--aot-store DIR]
+        [--device DEVICE] [--inject SPEC] [--trace-out PATH]
+        [--explain [POD]] [--profile-dir DIR] [--slo-config PATH]
+        [--obs-cadence S]
   python -m open_simulator_tpu_torch.cli twin -f <simon-config.yaml>
         (--feed LOG [--feed-batch N] | --tail) [--engine cuda|oracle]
         [--device DEVICE] [--host H] [--port P] [--poll-interval S]
@@ -53,14 +63,14 @@
         [--trace-out PATH] [--explain [POD]] [--profile-dir DIR]
         [--slo-config PATH] [--obs-cadence S]
   python -m open_simulator_tpu_torch.cli top [--url URL | --host H --port P]
-        [--interval S] [--window S] [--series NAME]... [--once]
+        [--interval S] [--window S] [--series NAME]... [--fleet] [--once]
         [--timeout S] [--format text|json]
   python -m open_simulator_tpu_torch.cli doctor BASELINE CANDIDATE
   python -m open_simulator_tpu_torch.cli version
   python -m open_simulator_tpu_torch.cli gen-doc [--output DIR]
 
 Mirrors the JAX package's CLI (cli.py cmd_apply, cmd_chaos, cmd_defrag,
-cmd_shadow, cmd_timeline, cmd_serve, cmd_twin, cmd_top, cmd_doctor,
+cmd_shadow, cmd_timeline, cmd_serve, cmd_fleet, cmd_twin, cmd_top, cmd_doctor,
 cmd_version, cmd_gen_doc), whose
 reports these reproduce byte for byte, its exit codes included: 3 for a
 --deadline partial report, 4 for an interrupted one, 2 for bad input or
@@ -79,11 +89,14 @@ count the port's launches, nvcc builds and cost records where the JAX
 ones count dispatches, recompiles and compiled costs. `--aot-store DIR`
 (or SIMON_AOT_STORE) keeps the built kernel libraries in a
 content-addressed store (incremental/store.py): a daemon started on a
-warm store runs no nvcc. `top` is a client of a running daemon and does
-no device work (`--fleet` waits for `simon fleet`).
+warm store runs no nvcc. `fleet` supervises N port `serve` replicas
+behind a consistent-hash router (fleet/): they share one such store
+under `--fleet-dir`, so only the first replica builds, and a replica
+killed with SIGKILL is respawned into its slot and replays its journal.
+`top` is a client of a running daemon (`--fleet`: of a fleet router)
+and does no device work.
 
-Not ported yet: `--mesh` (ROADMAP.md A11), and `fleet` with `top
---fleet` (A10).
+Not ported yet: `--mesh` (ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -1157,6 +1170,152 @@ def cmd_serve(args) -> int:
     return code
 
 
+@_with_obs("fleet")
+def cmd_fleet(args) -> int:
+    """N-replica serve fleet behind one consistent-hash router
+    (fleet/; docs/FLEET.md): spawn N port `simon serve` replicas sharing
+    one kernel-library store, route tenant-affine, probe /healthz, and
+    fail over on replica death — the replacement resumes its slot's
+    snapshot journal and replays the dead replica's delta stream,
+    answering its first request with no nvcc build. The replicas run on
+    the card unless `--device cpu` is given (passed through to each);
+    without a card the fleet exits 2 before spawning. Exit 0 after a
+    clean SIGTERM drain of every replica, 3 when one had to be killed,
+    2 on input/startup errors."""
+    from .fleet.replica import DoubleSpawnError, ReplicaProcess, serve_argv
+    from .fleet.router import FleetRouter
+    from .models.validation import InputError
+    from .ops.fused_scan import resolve_device
+    from .runtime.errors import GuardError
+
+    replicas = []
+    try:
+        if args.replicas < 1:
+            raise InputError("--replicas must be >= 1")
+        if args.probe_interval <= 0:
+            raise InputError("--probe-interval must be > 0 seconds")
+        if args.probe_timeout <= 0:
+            raise InputError("--probe-timeout must be > 0 seconds")
+        if args.drain_timeout < 0:
+            raise InputError("--drain-timeout must be >= 0 seconds")
+        if args.spawn_attempts < 1:
+            raise InputError("--spawn-attempts must be >= 1")
+        if args.checkpoint_interval is not None and args.checkpoint_interval < 1:
+            raise InputError("--checkpoint-interval must be >= 1 delta")
+        if args.keep_checkpoints is not None and args.keep_checkpoints < 1:
+            raise InputError("--keep-checkpoints must be >= 1")
+        slo_engine = _build_slo_engine(args)
+        if not os.path.isfile(args.simon_config):
+            raise InputError(f"config file not found: {args.simon_config}")
+        # the replicas' device, or exit 2 before any spawn (a replica
+        # without its card would exit 2 too; nothing moves to the CPU)
+        resolve_device(args.device)
+        fleet_dir = os.path.abspath(args.fleet_dir)
+        os.makedirs(fleet_dir, exist_ok=True)
+        # replicas share ONE content-addressed kernel-library store: the
+        # first spawn builds into it, every later spawn (and every
+        # failover replacement) loads from it and runs no nvcc
+        store = (
+            os.path.abspath(args.aot_store)
+            if args.aot_store
+            else os.path.join(fleet_dir, "aot-store")
+        )
+        extra = []
+        if args.max_batch is not None:
+            extra += ["--max-batch", str(args.max_batch)]
+        if args.queue_depth is not None:
+            extra += ["--queue-depth", str(args.queue_depth)]
+        if args.default_deadline is not None:
+            extra += ["--default-deadline", str(args.default_deadline)]
+        if args.tick_budget is not None:
+            extra += ["--tick-budget", str(args.tick_budget)]
+        if args.drain_timeout:
+            extra += ["--drain-timeout", str(args.drain_timeout)]
+        if args.no_incremental:
+            extra += ["--no-incremental"]
+        config_path = os.path.abspath(args.simon_config)
+        for i in range(args.replicas):
+            slot = f"r{i}"
+            rep = ReplicaProcess(
+                slot,
+                [],  # argv bound below, once the snapshot path exists
+                fleet_dir,
+                probe_timeout_s=args.probe_timeout,
+            )
+            rep.argv = serve_argv(
+                config_path,
+                aot_store=store,
+                snapshot_path=rep.snapshot_path,
+                checkpoint_interval=args.checkpoint_interval,
+                keep_checkpoints=args.keep_checkpoints,
+                device=args.device,
+                extra=extra,
+            )
+            replicas.append(rep)
+        # first replica spawns alone (it runs the nvcc builds that fill
+        # the shared store), the rest spawn concurrently and load
+        replicas[0].spawn(attempts=args.spawn_attempts)
+        if len(replicas) > 1:
+            import threading
+
+            errors = []
+
+            def _spawn(rep):
+                try:
+                    rep.spawn(attempts=args.spawn_attempts)
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    errors.append((rep.slot, e))
+
+            threads = [threading.Thread(target=_spawn, args=(r,)) for r in replicas[1:]]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                # surface the first concurrent-spawn failure with its
+                # original (taxonomy-typed) class intact
+                raise errors[0][1]
+        # failover audit timeline (fleet/audit.py): fsync'd JSONL in
+        # the fleet dir unless pointed elsewhere (or disabled)
+        audit = None
+        if not args.no_audit_log:
+            from .fleet.audit import FailoverAudit
+
+            audit = FailoverAudit(
+                args.audit_log or os.path.join(fleet_dir, "failover-audit.jsonl")
+            )
+        router = FleetRouter(
+            replicas,
+            host=args.host,
+            port=args.port,
+            probe_interval_s=args.probe_interval,
+            drain_timeout_s=args.drain_timeout,
+            slo_engine=slo_engine,
+            obs_cadence_s=args.obs_cadence,
+            spawn_attempts=args.spawn_attempts,
+            audit=audit,
+        )
+    except (OSError, ValueError, RuntimeError, GuardError, DoubleSpawnError,
+            InputError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        for rep in replicas:
+            rep.kill()
+            rep.release()
+        return 2
+    from .obs.telemetry import arm_flight_recorder
+
+    arm_flight_recorder()
+    router.start()
+    # machine-parsable readiness line (tests read the bound port from
+    # it — --port 0 binds an ephemeral one)
+    print(
+        f"simon fleet listening on http://{router.host}:{router.port} "
+        f"({len(replicas)} replicas)",
+        flush=True,
+    )
+    return router.run_until_signaled()
+
+
 def _build_slo_engine(args):
     """--slo-config as an SLOEngine (None when unset). Raises InputError
     on a bad config; the caller's guarded setup block turns that into
@@ -1362,11 +1521,12 @@ def _fetch_json(url: str, timeout: float):
 def cmd_top(args) -> int:
     """Live terminal dashboard against a RUNNING serve/twin daemon
     (obs/telemetry.py): polls /v1/obs/snapshot + /v1/obs/series and
-    renders health, SLO burn rates, and sparklined history. --once
-    prints a single frame; --format json dumps the raw snapshot. A pure
-    client: no device work. Exit 0 on a clean stop (Ctrl-C included),
-    1 when the daemon is unreachable, 2 on input errors (and for
-    --fleet, whose router is not ported yet)."""
+    renders health, SLO burn rates, and sparklined history; --fleet
+    renders a `simon fleet` router's frame (per-slot panes, the
+    fleet-wide signals). --once prints a single frame; --format json
+    dumps the raw snapshot. A pure client: no device work. Exit 0 on a
+    clean stop (Ctrl-C included), 1 when the daemon is unreachable, 2
+    on input errors."""
     import json as _json
     import time
     from urllib.parse import quote
@@ -1378,17 +1538,25 @@ def cmd_top(args) -> int:
     if args.interval <= 0:
         print("error: --interval must be > 0 seconds", file=sys.stderr)
         return 2
-    if args.fleet:
-        print("error: --fleet renders a `simon fleet` router's frame, and "
-              "`simon fleet` is not ported yet (ROADMAP.md A10)", file=sys.stderr)
-        return 2
     names = list(args.series or ())
+    fleet = bool(args.fleet)
 
     def fetch():
         snapshot = _fetch_json(f"{url}/v1/obs/snapshot", args.timeout)
-        want = names or [
-            n for n in _tm.TOP_DEFAULT_SERIES if n in (snapshot.get("latest") or {})
-        ]
+        if names:
+            want = list(names)
+        elif fleet:
+            # the router-wide signals that exist, plus the per-slot panes
+            # of every slot the router reports; a slot whose series are
+            # missing renders as gaps (the series endpoint answers an
+            # unknown name with an empty list)
+            want = [n for n in _tm.FLEET_TOP_DEFAULT_SERIES
+                    if n in (snapshot.get("latest") or {})]
+            for slot in sorted(snapshot.get("replicas") or {}):
+                want.extend(_tm.fleet_slot_series(str(slot)))
+        else:
+            want = [n for n in _tm.TOP_DEFAULT_SERIES
+                    if n in (snapshot.get("latest") or {})]
         # every name percent-encoded so the query string round-trips it
         qs = "&".join(f"name={quote(n, safe='')}" for n in want)
         series = (
@@ -1406,17 +1574,17 @@ def cmd_top(args) -> int:
     except ExternalIOError as e:
         print(f"simon top: {e}", file=sys.stderr)
         return 1
+    render = _tm.render_fleet_top_frame if fleet else _tm.render_top_frame
     if args.format == "json":
         print(_json.dumps({"snapshot": snapshot, "series": series}, indent=2))
         return 0
     if args.once:
-        print(_tm.render_top_frame(snapshot, series, url))
+        print(render(snapshot, series, url))
         return 0
     try:
         while True:
             # ANSI home+clear per frame: a live dashboard, not a scroll
-            print("\x1b[2J\x1b[H" + _tm.render_top_frame(snapshot, series, url),
-                  flush=True)
+            print("\x1b[2J\x1b[H" + render(snapshot, series, url), flush=True)
             time.sleep(args.interval)
             try:
                 snapshot, series = fetch()
@@ -2088,6 +2256,113 @@ def build_parser() -> argparse.ArgumentParser:
     _add_telemetry_flags(p_serve)
     p_serve.set_defaults(func=cmd_serve)
 
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="N-replica serve fleet behind one consistent-hash router",
+        description="Spawn N `simon serve` replicas sharing one "
+        "content-addressed kernel-library store and route requests tenant-affine "
+        "over a consistent-hash ring (docs/FLEET.md). The router "
+        "probes each replica's /healthz, honors degraded Retry-After "
+        "hints, and fails over on replica death: in-flight requests "
+        "reroute with their ORIGINAL X-Simon-Request-Id (503 + "
+        "Retry-After when no replica can answer, never a silent "
+        "drop), and the replacement replica resumes its slot's "
+        "snapshot journal, replays the dead replica's cluster-delta "
+        "stream, and answers its first request with no nvcc "
+        "build. The replicas run on the card unless --device cpu "
+        "is given. Fleet-aggregated /metrics carries per-replica "
+        "labels from a cardinality-bounded allowlist. SIGTERM drains "
+        "every replica then exits 0.",
+    )
+    p_fleet.add_argument(
+        "-f", "--simon-config", required=True,
+        help="simon config file served by every replica",
+    )
+    p_fleet.add_argument(
+        "--replicas", type=int, default=2, metavar="N",
+        help="serve replicas to spawn and supervise (default 2)",
+    )
+    p_fleet.add_argument("--host", default="127.0.0.1", help="bind address")
+    p_fleet.add_argument(
+        "--port", type=int, default=8080,
+        help="router bind port (0 = ephemeral; the readiness line "
+        "prints it; replicas always bind ephemeral ports)",
+    )
+    p_fleet.add_argument(
+        "--fleet-dir", default="simon-fleet", metavar="DIR",
+        help="fleet state directory: per-slot snapshot journals, "
+        "slot lock files, replica logs, and (unless --aot-store is "
+        "set) the shared kernel-library store (default ./simon-fleet)",
+    )
+    p_fleet.add_argument(
+        "--probe-interval", type=float, default=2.0, metavar="SECONDS",
+        help="health-probe cadence per replica; a degraded replica's "
+        "Retry-After hint stretches its own cadence (default 2.0)",
+    )
+    p_fleet.add_argument(
+        "--probe-timeout", type=float, default=5.0, metavar="SECONDS",
+        help="per-probe HTTP timeout (default 5.0)",
+    )
+    p_fleet.add_argument(
+        "--drain-timeout", type=float, default=30.0, metavar="SECONDS",
+        help="SIGTERM drain bound per replica; a replica still up "
+        "after this is killed and the fleet exits 3 instead of 0",
+    )
+    p_fleet.add_argument(
+        "--spawn-attempts", type=int, default=4, metavar="N",
+        help="spawn attempts per replica (capped-exponential backoff "
+        "between attempts) before a boot or failover gives up",
+    )
+    p_fleet.add_argument(
+        "--max-batch", type=int, default=None, metavar="B",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--queue-depth", type=int, default=None, metavar="N",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--default-deadline", type=float, default=None, metavar="SECONDS",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--tick-budget", type=float, default=None, metavar="SECONDS",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--no-incremental", action="store_true",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--checkpoint-interval", type=int, default=None, metavar="DELTAS",
+        help="forwarded to every replica: checkpoint the committed "
+        "session every N deltas so a failover replays at most N "
+        "journal deltas (bounded recovery; see `simon serve` and "
+        "docs/FLEET.md)",
+    )
+    p_fleet.add_argument(
+        "--keep-checkpoints", type=int, default=None, metavar="N",
+        help="forwarded to every replica (see `simon serve`)",
+    )
+    p_fleet.add_argument(
+        "--audit-log", default="", metavar="PATH",
+        help="failover audit timeline path (fsync'd JSONL: probe_flap "
+        "-> declared_dead -> lock_reclaim -> respawn -> replay_progress "
+        "-> first_200 per failover, validated by "
+        "tools/validate_audit.py; default <fleet-dir>/"
+        "failover-audit.jsonl)",
+    )
+    p_fleet.add_argument(
+        "--no-audit-log", action="store_true",
+        help="disable the failover audit timeline",
+    )
+    _add_store_flag(p_fleet)
+    _add_device_flag(p_fleet)
+    _add_inject_flag(p_fleet)
+    _add_obs_flags(p_fleet)
+    _add_telemetry_flags(p_fleet)
+    p_fleet.set_defaults(func=cmd_fleet)
+
     p_twin = sub.add_parser(
         "twin",
         help="live digital-twin daemon: mirror a cluster, answer "
@@ -2242,8 +2517,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_top.add_argument(
         "--fleet", action="store_true",
-        help="the fleet-router frame of a `simon fleet` endpoint (not "
-        "ported yet: exits 2)",
+        help="render the fleet-router frame against a `simon fleet` "
+        "endpoint: per-slot panes (up/degraded/down, request rate, "
+        "forward p95) plus the fleet-wide counters and SLO burn "
+        "table; slots whose series are missing or TTL-stale render "
+        "as gaps, never errors",
     )
     p_top.add_argument(
         "--once", action="store_true",

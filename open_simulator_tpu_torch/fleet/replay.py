@@ -37,9 +37,8 @@ boot). The read is strictly read-only: the serve daemon itself
 resumes the same file for append afterwards (and truncates the torn
 tail durably); replay must not race that by holding the file open.
 
-Injection seam ``fleet.replay`` fires once per replay. The rest of the
-JAX package's ``fleet/`` (the router and supervised replicas) is not
-ported yet (ROADMAP.md A10).
+Injection seam ``fleet.replay`` fires once per replay. A ``simon fleet``
+replica runs this on every respawn (fleet/replica.py ``serve_argv``).
 """
 
 from __future__ import annotations

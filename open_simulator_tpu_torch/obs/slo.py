@@ -46,7 +46,7 @@ storm must flip a declared SLO to burning, and the alert must clear
 after the faults stop (docs/OBSERVABILITY.md).
 
 The port's copy of the JAX package's obs/slo.py. The fleet kinds parse
-and evaluate here too; the fleet router itself is not ported yet.
+and evaluate here too, over the fleet router's series (fleet/router.py).
 """
 
 from __future__ import annotations

@@ -1461,3 +1461,94 @@ def test_cuda_store_round_trip_on_the_card(tmp_path):
     assert fill["launches"] == load["launches"] == 1
     assert fill["max_abs_err"] == load["max_abs_err"] == 0
     assert fill["library"] == load["library"]
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_kill9_replacement_builds_nothing_and_restores_the_state(tmp_path):
+    """`simon fleet --replicas 2` on the card, a fresh fleet directory:
+    r0 builds the kernel library into the shared store, r1 loads it; a
+    delta journaled for r0's tenant, r0 killed with SIGKILL, the probe
+    loop respawns it; the replacement loads the library (0 nvcc builds),
+    restores the dead replica's state digest and deltaSeq 1, and its
+    ticks are batch-kernel launches; SIGTERM drains with exit 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the replicas run the kernels")
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from open_simulator_tpu_torch.fleet.hashing import HashRing
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = tmp_path / "fleet.yaml"
+    cfg.write_text("apiVersion: simon/v1alpha1\nkind: Config\nmetadata: {name: fleet}\n"
+                   f"spec:\n  cluster: {{customConfig: {root}/example/cluster/demo}}\n")
+
+    def http(url, doc=None, tenant=None):
+        headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers["X-Simon-Tenant"] = tenant
+        req = urllib.request.Request(url, data=None if doc is None else json.dumps(doc).encode(),
+                                     headers=headers)
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+
+    def sample(url, name):
+        for line in http(url + "/metrics")[2].decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+        raise AssertionError(name)
+
+    def replica(base, slot):
+        doc = json.loads(http(base + "/healthz")[2])
+        return next(r for r in doc["replicas"] if r["id"] == slot)
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "open_simulator_tpu_torch.cli", "fleet", "-f", str(cfg),
+         "--replicas", "2", "--port", "0", "--fleet-dir", str(tmp_path / "fleet"),
+         "--probe-interval", "0.5"], cwd=root, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "simon fleet listening on http://" in line, line
+        base = line.split("listening on ", 1)[1].split()[0]
+        tenant = next(f"t{i}" for i in range(100) if HashRing(["r0", "r1"]).route(f"t{i}") == "r0")
+        pod = {"kind": "Pod", "metadata": {"name": "late", "namespace": "x"},
+               "spec": {"containers": [{"name": "c", "image": "i", "resources": {
+                   "requests": {"cpu": "100m", "memory": "64Mi"}}}]}}
+        what_if = {"apps": [{"name": "w", "yaml": json.dumps(
+            {**pod, "metadata": {"name": "w", "namespace": "x"}})}]}
+        assert http(base + "/v1/simulate", what_if, tenant)[0] == 200
+        status, hdrs, _b = http(base + "/v1/cluster-delta", {"kind": "pod_arrive", "pod": pod},
+                                tenant)
+        assert status == 200 and hdrs["X-Simon-Fleet-Replica"] == "r0"
+        dead, r1 = replica(base, "r0"), replica(base, "r1")
+        assert sample(dead["url"], "simon_nvcc_builds_total") == 1
+        assert sample(r1["url"], "simon_nvcc_builds_total") == 0
+        digest = json.loads(http(dead["url"] + "/v1/state-digest")[2])
+        os.kill(dead["pid"], signal.SIGKILL)
+        status, hdrs, rerouted = http(base + "/v1/simulate", what_if, tenant)
+        assert status == 200 and hdrs["X-Simon-Fleet-Replica"] == "r1"
+        assert http(r1["url"] + "/v1/simulate", what_if)[2] == rerouted
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            new = replica(base, "r0")
+            if new["restarts"] == 1 and new["status"] == "up":
+                break
+            time.sleep(0.2)
+        assert new["restarts"] == 1 and new["pid"] != dead["pid"]
+        assert json.loads(http(new["url"] + "/v1/state-digest")[2]) == digest
+        assert digest["deltaSeq"] == 1
+        assert sample(new["url"], "simon_nvcc_builds_total") == 0
+        assert http(base + "/v1/simulate", what_if, tenant)[1]["X-Simon-Fleet-Replica"] == "r0"
+        ticks = sample(new["url"], "simon_serve_batches_total")
+        b6 = sample(new["url"], 'simon_launches_site_total{site="scenario_scan"}')
+        assert ticks >= 1 and b6 == ticks + 1  # each tick, and the warm-up
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        proc.stdout.close()
+    assert rc == 0

@@ -33,7 +33,8 @@ for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.c
              "serve.admission", "serve.coalescer", "serve.sessions", "serve.server",
              "incremental", "incremental.resim", "obs.telemetry", "obs.slo",
              "runtime.checkpoint", "incremental.store", "fleet", "fleet.replay",
-             "twin.mirror", "twin.queries", "twin.server"):
+             "twin.mirror", "twin.queries", "twin.server", "fleet.hashing",
+             "fleet.replica", "fleet.router", "fleet.audit", "fleet.trace"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 
@@ -282,6 +283,66 @@ def test_twin_top_and_failover_paths_import_no_jax(tmp_path):
     assert out.stdout.split() == ["whatif", "drain", "{}", "1.0"]
 
 
+# the fleet path in a fresh interpreter, on the CPU: the fleet router
+# in front of a port serve daemon, a routed what-if, its stitched trace,
+# `top --fleet` against the router and the audit validator; the replica
+# argv names the port's CLI. (`simon fleet` with replica processes runs
+# in tests/test_torch_fleet.py)
+_FLEET = r"""
+import contextlib, io, json, sys, urllib.request
+from open_simulator_tpu_torch import cli
+from open_simulator_tpu_torch.apply.applier import Applier, SimonConfig
+from open_simulator_tpu_torch.fleet.audit import FailoverAudit, validate_audit_log
+from open_simulator_tpu_torch.fleet.replica import serve_argv
+from open_simulator_tpu_torch.fleet.router import FleetRouter
+from open_simulator_tpu_torch.obs.telemetry import arm_flight_recorder
+from open_simulator_tpu_torch.serve.server import ServeDaemon
+from open_simulator_tpu_torch.serve.session import Session
+argv = serve_argv("cfg.yaml", aot_store="s", snapshot_path="j", device="cpu")
+assert argv[1:4] == ["-m", "open_simulator_tpu_torch.cli", "serve"], argv
+assert argv[-2:] == ["--device", "cpu"], argv
+cluster = Applier(SimonConfig.from_file("example/simon-config.yaml"),
+                  device="cpu").load_cluster()
+d = ServeDaemon(Session(cluster, device="cpu"), port=0, max_batch=4)
+d.start()
+class Replica:
+    slot, restarts, probe_failures, retry_after_s = "r0", 0, 0, 0
+    url = f"http://{d.host}:{d.port}"
+    def probe(self):
+        return {"probeOk": True, "degraded": False}
+arm_flight_recorder()
+audit = FailoverAudit(sys.argv[1] + "/audit.jsonl")
+router = FleetRouter([Replica()], port=0, probe_interval_s=0, audit=audit)
+router.start()
+base = f"http://{router.host}:{router.port}"
+dep = {"kind": "Deployment", "metadata": {"name": "w", "namespace": "x"},
+       "spec": {"replicas": 2, "template": {"spec": {"containers": [{"name": "c",
+       "image": "i", "resources": {"requests": {"cpu": "100m", "memory": "64Mi"}}}]}}}}
+req = urllib.request.Request(base + "/v1/simulate", data=json.dumps(
+    {"apps": [{"name": "w", "yaml": json.dumps(dep)}]}).encode(),
+    headers={"Content-Type": "application/json", "X-Simon-Request-Id": "nojax"})
+with urllib.request.urlopen(req, timeout=120) as resp:
+    print(json.loads(resp.read())["success"], resp.headers["X-Simon-Request-Id"])
+with urllib.request.urlopen(base + "/v1/fleet/trace?requestId=nojax", timeout=60) as resp:
+    names = {e["name"] for e in json.loads(resp.read())["traceEvents"]}
+assert {"fleet/request", "fleet/forward", "serve/request"} <= names, names
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert cli.main(["top", "--fleet", "--url", base, "--once"]) == 0
+assert "slot" in out.getvalue()
+print(router.shutdown(), d.shutdown(), validate_audit_log(sys.argv[1] + "/audit.jsonl")["events"])
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "open_simulator_tpu"))
+assert not bad, bad
+"""
+
+
+def test_fleet_path_imports_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _FLEET, str(tmp_path)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["True", "nojax", "0", "0", "0"]
+
+
 @pytest.mark.parametrize("argv", [
     ["chaos", "-f", "example/simon-gpushare-config.yaml"],
     ["defrag", "--snapshot", "SNAP"],
@@ -289,6 +350,7 @@ def test_twin_top_and_failover_paths_import_no_jax(tmp_path):
     ["shadow", "-f", "example/simon-config.yaml", "--decision-log", "LOG"],
     ["serve", "-f", "example/simon-config.yaml", "--port", "0"],
     ["twin", "-f", "example/simon-config.yaml", "--feed", "LOG", "--port", "0"],
+    ["fleet", "-f", "example/simon-config.yaml", "--port", "0", "--fleet-dir", "FLEET"],
 ])
 def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
     """Without `--device cpu` the new commands ask for the card: with
@@ -314,7 +376,7 @@ def test_chaos_and_defrag_default_to_the_card(argv, tmp_path, monkeypatch):
                          str(log)]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     err = io.StringIO()
-    subs = {"SNAP": str(snap), "LOG": str(log)}
+    subs = {"SNAP": str(snap), "LOG": str(log), "FLEET": str(tmp_path / "fleet")}
     with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main([subs.get(a, a) for a in argv])
     assert rc == 2 and "needs a GPU" in err.getvalue()

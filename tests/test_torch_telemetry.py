@@ -173,8 +173,19 @@ OBJECTIVES = [
 ]
 
 
+@pytest.fixture
+def own_slo_counters(monkeypatch):
+    """Each package's SLO engine counts its alerts in a Counters of the
+    test's own: the exposition lines carry `slo_alerts_*_total`, and the
+    process-wide registries hold whatever earlier tests in the same
+    process fired (pytest-xdist's loadfile runs several files in one)."""
+    for pkg in PKGS:
+        counters = importlib.import_module(f"{pkg}.utils.trace").Counters()
+        monkeypatch.setattr(_slo(pkg), "COUNTERS", counters)
+
+
 @pytest.mark.parametrize("seed", [3, 11])
-def test_slo_burn_states_equal_the_jax_package(seed):
+def test_slo_burn_states_equal_the_jax_package(seed, own_slo_counters):
     """Seeded traffic with a fault storm and a recovery: at each
     evaluation both engines report the same states, and the serialized
     engine and its exposition lines are equal."""

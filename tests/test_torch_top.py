@@ -118,9 +118,43 @@ def test_top_input_errors_and_unreachable_daemon_equal_the_jax_cli():
         assert port == jax and port[0] == code
 
 
-def test_top_fleet_waits_for_the_fleet_router():
-    rc, out, err = _run(PORT, ["top", "--fleet", "--once"])
-    assert rc == 2 and not out and "simon fleet" in err and "not ported yet" in err
+@pytest.mark.parametrize("router_pkg", PKGS)
+def test_top_fleet_waits_for_the_fleet_router(router_pkg):
+    """`top --fleet` reads a fleet router (each package's, in front of
+    two stub replicas): both CLIs print the same frame and JSON with the
+    timings masked, with a pane for each slot; without a router it
+    cannot connect (exit 1, as the JAX CLI)."""
+    from test_torch_fleet import StubReplica
+
+    reps = [StubReplica("r0"), StubReplica("r1")]
+    router = _mod(router_pkg, "fleet.router").FleetRouter(reps, port=0, probe_interval_s=0,
+                                                          obs_cadence_s=0.2)
+    router.start()
+    url = f"http://{router.host}:{router.port}"
+    try:
+        for i in range(6):
+            req = urllib.request.Request(url + "/v1/simulate", data=b"{}", headers={
+                "Content-Type": "application/json", "X-Simon-Tenant": f"top-t{i}"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert resp.status == 200
+        # one last sample, then the frame holds still for both CLIs
+        router.telemetry.stop()
+        for flags in (["--once"], ["--format", "json"]):
+            port, jax = _run(PORT, ["top", "--fleet", "--url", url, *flags]), \
+                _run(JAX, ["top", "--fleet", "--url", url, *flags])
+            assert port[0] == jax[0] == 0
+            assert _mask(port[1]) == _mask(jax[1])
+            if "json" in flags:
+                assert json.loads(port[1])["snapshot"]["daemon"] == "fleet"
+            else:
+                assert "slot" in port[1] and "\nr0 " in port[1] and "\nr1 " in port[1]
+    finally:
+        for r in reps:
+            r.stop()
+        router.httpd.shutdown()
+        router.httpd.server_close()
+    argv = ["top", "--fleet", "--once", "--url", "http://127.0.0.1:9", "--timeout", "2"]
+    assert _run(PORT, argv) == _run(JAX, argv) and _run(PORT, argv)[0] == 1
 
 
 def _mask(text: str) -> str:
@@ -157,6 +191,11 @@ def test_top_against_each_package_daemon_equals_the_jax_cli(daemon_pkg):
         with urllib.request.urlopen(req, timeout=120) as resp:
             assert resp.status == 200
         time.sleep(0.6)  # a few telemetry samples after the request
+        # the sampler stops after one last sample, which sees the
+        # request: both CLIs then read one frame (under load the 0.6 s
+        # may pass without a sample, and the second CLI would read a
+        # line the first did not)
+        d.telemetry.stop()
         series = ["--series", "counter/serve_requests_total",
                   "--series", "gauge/serve_queue_depth"]
         for flags in (["--once", *series], ["--format", "json", *series]):
