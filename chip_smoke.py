@@ -213,7 +213,23 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     request id, the rerouted first 200 == the survivor's answer, the
     respawned replacement 0 nvcc builds with the dead replica's state
     digest (deltaSeq 1), the audit log valid, `simon top --fleet`
-    exits 0, each replica's B6 launches == its ticks + its warm-up.
+    exits 0, each replica's B6 launches == its ticks + its warm-up;
+29. the device mesh (parallel/mesh.py), in the second lane: (a) `apply`
+    on the quickstart with `--mesh auto`, `--mesh 1` and SIMON_MESH=auto
+    == the bytes with no mesh, `--mesh 2` on one card exits 2 with the
+    JAX package's message; (b) on a 2-shard mesh of cuda:0 (one card
+    repeated, the tests' seam): `probe_many` over 8 counts at phase 6's
+    10,000 nodes x 100,000 pods is 2 B6 launches == the one-launch
+    answer, `probe_scenarios` over 64 K=2 outage rows at phase 17b's
+    2,000 x 20,000 is 2 pins-first launches == the unsharded launch, and
+    `TorchEngine.scan_scenarios` over 16 request rows on phase 24's
+    10,000 nodes x 20,000 pods is 2 launches == one; each a scenario-axis
+    decision of the layout planner; (c) phase 18's custom-plugin batch
+    at MESH_NODES nodes (the node threshold) x MESH_PODS pods through
+    `TorchEngine.scan_active` on the node-sharded torch scan ==
+    unsharded on the card == the plain path (the torch scan on the
+    CPU), ms a pod step for each; (d) (b) and (c) again on a mesh of real
+    cards where there are two or more, else one line saying so.
 
 Phase 2 also times B1 through the instrumented wrapper against the bare
 launcher in turns; phases 2-10 and 17b hold one launch of each
@@ -230,7 +246,7 @@ degraded tick.
     python3 chip_smoke.py --only 25,26,27
 
 runs phase 1 and the named phases that stand alone (14, 17, 18, 19, 21,
-22, 23, 24, 25, 26, 27, 28), and prints no kernels or ok line.
+22, 23, 24, 25, 26, 27, 28, 29), and prints no kernels or ok line.
 
 Cuts that keep the script inside its time (the kernels always run every
 pod; the plain version runs the first pods of a scan, whose placements
@@ -251,8 +267,8 @@ phase 27's decisions 200 -> TWIN_DECISIONS.
 Host work runs beside the card's phases, so that the script fits its
 time with no further depth cut: phase 23's two decision logs and phase
 27's feed are recorded on the serial oracle in subprocesses started
-after phase 1; phases 14-19, 21 and 22 run in a second process on the
-card (`lane`, started after phase 13, its lines printed after phase
+after phase 1; phases 14-19, 21, 22 and 29 run in a second process on
+the card (`lane`, started after phase 13, its lines printed after phase
 28's) beside phases 20 and 23-28 in this one; and phase 25's three
 processes (each at a small scenario: the store does not depend on the
 shape) run beside phases 20-24. Phases 14-28 share the card and the
@@ -274,9 +290,9 @@ launches of phase 11's full-width plan; the `fused_scan_batch
 subprocesses' own counts), 26's (the daemons' `scan` site), 27's and
 28's (the fleet's replicas, at `scan`; the killed replica's as it read
 just before the kill), the `fused_scan_batch` entry's phase 6's, 24's,
-26's and 28's (at `scenario_scan`), the pins-first
-entry's 17's, 22's and 27's, each entry's `launches_by_phase` splits
-them), and
+26's, 28's (at `scenario_scan`) and 29's (its sharded runs), the
+pins-first entry's 17's, 22's, 27's and 29's, each entry's
+`launches_by_phase` splits them), and
 `{"ok": true, "device": {...}}`. It imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -527,6 +543,19 @@ JAX_TWIN_ANSWER = "aa795ec5e84caaaaa19d5619272d44874e9df5e6d035f3ea06194db2b42a9
 # killed with SIGKILL once FLEET_KILL_AFTER replies of a storm are back.
 # Both fleets start together (the 2-replica one idles while the other
 # is measured), so their boots and nvcc builds overlap
+# phase 29: the mesh. MESH_SHARDS shards of cuda:0; probe_many's
+# MESH_COUNTS at phase 6's shape (around its answer, +55); MESH_ROWS of
+# phase 17b's K=2 outage rows; MESH_REQUESTS request rows of
+# SERVE_REPLICAS pods on phase 24's cluster; the node axis at
+# MESH_NODES (the layout planner's node threshold) x MESH_PODS pods of
+# phase 18's plugin, its CPU plain path over the first MESH_PLAIN_PODS
+MESH_SHARDS = 2
+MESH_COUNTS = tuple(range(51, 59))
+MESH_ROWS = 64
+MESH_REQUESTS = 16
+MESH_NODES = 25_000
+MESH_PODS = 200
+MESH_PLAIN_PODS = 200
 FLEET_CLIENTS = 8
 FLEET_PER_CLIENT = 4
 FLEET_WARM_PER_CLIENT = 1
@@ -611,9 +640,10 @@ class Background:
 # most of the time), so the two lanes share the machine's cores instead
 # of taking turns. LANE_KEEP: what the main process reads of each one's
 # result (the rest stays in the lane)
-LANE_B = ("14", "15", "16", "17", "18", "19", "21", "22")
+LANE_B = ("14", "15", "16", "17", "18", "19", "21", "22", "29")
 LANE_KEEP = {"14": ("launches", "rounds"), "16": ("launches",), "17": ("launches", "cut"),
-             "19": ("launches",), "22": ("launches", "windows", "device_ms")}
+             "19": ("launches",), "22": ("launches", "windows", "device_ms"),
+             "29": ("batch_launches", "pins_launches")}
 
 
 def lane(root, names) -> int:
@@ -629,7 +659,8 @@ def lane(root, names) -> int:
     runs = {"14": lambda w: phase14(gpu), "15": lambda w: phase15(gpu, root),
             "16": lambda w: phase16(gpu, w["15"]), "17": lambda w: phase17(gpu, root),
             "18": lambda w: phase18(gpu, root), "19": lambda w: phase19(gpu, root),
-            "21": lambda w: phase21(gpu, root), "22": lambda w: phase22(gpu, root)}
+            "21": lambda w: phase21(gpu, root), "22": lambda w: phase22(gpu, root),
+            "29": lambda w: phase29(gpu, root)}
     walls = {}
     for name in names.split(","):
         t0 = time.perf_counter()
@@ -4559,6 +4590,250 @@ def fleet_failover(base, ring, tenants, fleet_dir, counts) -> dict:
             "storm_statuses": statuses}
 
 
+def mesh_cli(gpu) -> None:
+    """Phase 29a: `apply` on the quickstart with --mesh auto, --mesh 1
+    and SIMON_MESH=auto == its bytes without a mesh on this machine's
+    cards (one card: every spec resolves to no mesh); --mesh past the
+    cards exits 2 with the JAX package's message."""
+    import os
+
+    import torch
+
+    from open_simulator_tpu_torch.parallel import mesh as mesh_mod
+
+    base = ["apply", "-f", QUICKSTART, "--format", "json"]
+    rc, want, err = run_cli(base)
+    if rc != 0:
+        raise AssertionError(f"phase 29a: apply exited {rc}: {err[-2000:]}")
+    cards = torch.cuda.device_count()
+    runs = [("--mesh auto", base + ["--mesh", "auto"], None),
+            ("--mesh 1", base + ["--mesh", "1"], None),
+            ("SIMON_MESH=auto", base, "auto")]
+    for label, argv, env in runs:
+        if env is not None:
+            os.environ["SIMON_MESH"] = env
+        try:
+            mesh_mod.configure(None)
+            got = run_cli(argv)
+        finally:
+            os.environ.pop("SIMON_MESH", None)
+            mesh_mod.configure(None)
+        if got[:2] != (0, want):
+            raise AssertionError(f"phase 29a: apply with {label} exited {got[0]} or its "
+                                 f"bytes differ from the run without a mesh")
+    over = cards + 1
+    rc, out, err = run_cli(base + ["--mesh", str(over)])
+    mesh_mod.configure(None)
+    msg = f"error: --mesh {over}: only {cards} local device(s) available\n"
+    if (rc, out, err) != (2, "", msg):
+        raise AssertionError(f"phase 29a: --mesh {over} exited {rc}, stderr {err[-500:]!r}")
+    print(f"phase 29a: apply on {QUICKSTART} with --mesh auto, --mesh 1 and SIMON_MESH=auto "
+          f"== no mesh ({cards} card(s), each resolves to no mesh); --mesh {over} exits 2: "
+          f"{msg.strip()!r} [{gpu}]", flush=True)
+
+
+def mesh_rows(label, gpu, mesh, call, kernel) -> int:
+    """One sharded dispatch `call(mesh)` against `unsharded` (the same
+    call without a mesh): equal answers, one `kernel` launch a shard,
+    one scenario-axis decision. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    decided = COUNTERS.get("mesh_layout_scenario_total")
+    fused_scan.reset_launch_counts()
+    got, (ms,) = timed(lambda: call(mesh), 1)
+    launches = fused_scan.LAUNCHES[kernel]
+    if COUNTERS.get("mesh_layout_scenario_total") - decided != 1 or launches != mesh.size:
+        raise AssertionError(f"{label}: {launches} {kernel} launches for {mesh.size} shards, "
+                             f"{COUNTERS.get('mesh_layout_scenario_total') - decided} "
+                             f"scenario-axis decisions")
+    want, (one_ms,) = timed(lambda: call(None), 1)
+    for g, w in zip(got, want):
+        if not np.array_equal(np.asarray(g), np.asarray(w)):
+            raise AssertionError(f"{label}: the sharded answer != the one-launch answer")
+    # again in turns, past the first use of each launch shape
+    _, (one_again,) = timed(lambda: call(None), 1)
+    _, (again,) = timed(lambda: call(mesh), 1)
+    torch.cuda.empty_cache()
+    print(f"{label}: {launches} {kernel} launches (one a shard) == the one-launch answer; "
+          f"{ms:.1f} then {again:.1f} ms sharded, {one_ms:.1f} then {one_again:.1f} ms in one "
+          f"launch (host wall around the call, synchronised) [{gpu}]", flush=True)
+    return launches
+
+
+def mesh_scenarios(gpu, mesh, tag, sweeps) -> dict:
+    """Phase 29b (or d): the scenario axis on `mesh`."""
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    cap, (outage, masks), (engine, actives) = sweeps
+
+    def many(m):
+        cap.mesh = m
+        r = cap.probe_many(list(MESH_COUNTS))
+        return r.placements, r.unscheduled, r.cpu_util, r.mem_util, r.vg_util
+
+    def rows(m):
+        outage.mesh = m
+        return outage.probe_scenarios(*masks)
+
+    def requests(m):
+        engine.mesh = m
+        return (engine.scan_scenarios(actives),)
+
+    out = {"batch_launches": 0, "pins_launches": 0}
+    out["batch_launches"] += mesh_rows(
+        f"phase 29{tag} (probe_many over {len(MESH_COUNTS)} counts, {CAP_NODES} nodes x "
+        f"{CAP_PODS} pods)", gpu, mesh, many, fused_scan.BATCH_KERNEL_NAME)
+    out["pins_launches"] += mesh_rows(
+        f"phase 29{tag} (probe_scenarios over {len(masks[0])} K=2 outage rows, {CHAOS_NODES} "
+        f"nodes x {CHAOS_PODS} pods)", gpu, mesh, rows, fused_scan.PINS_FIRST_KERNEL_NAME)
+    out["batch_launches"] += mesh_rows(
+        f"phase 29{tag} (scan_scenarios over {len(actives)} request rows, {SERVE_NODES} nodes "
+        f"x {SERVE_PODS} pods + {SERVE_REPLICAS} a row)", gpu, mesh, requests,
+        fused_scan.BATCH_KERNEL_NAME)
+    cap.mesh = outage.mesh = engine.mesh = None
+    return out
+
+
+def mesh_sweeps(gpu):
+    """Phase 29b's inputs: the capacity sweep at phase 6's shape, the
+    outage rows of phase 17b's cut at its committed count, and an engine
+    over phase 24's cluster with MESH_REQUESTS request rows."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.apply.applier import _capacity_feasible
+    from open_simulator_tpu_torch.models import workloads as wl
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.parallel.sweep import CapacitySweep
+    from open_simulator_tpu_torch.resilience.chaos import ChaosEngine
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+    from open_simulator_tpu_torch.scheduler.engine import TorchEngine
+    from open_simulator_tpu_torch.scheduler.oracle import Oracle
+
+    def sweep(n_nodes, n_pods, max_count):
+        nodes, deployments, template = build_capacity_scenario(n_nodes, n_pods)
+        cluster, res = ResourceTypes(), ResourceTypes()
+        cluster.nodes, res.deployments = nodes, deployments
+        wl.reset_name_counter()
+        return CapacitySweep(cluster, [AppResource("bench", res)], template, max_count,
+                             device="cuda")
+
+    t0 = time.perf_counter()
+    cap = sweep(CAP_NODES, CAP_PODS, max(MESH_COUNTS))
+    cut = sweep(CHAOS_NODES, CHAOS_PODS, 64)
+    feasible, caps = _capacity_feasible()
+    best = cut.find_min_count(feasible, start=cut.lower_bound(*caps))
+    chaos = ChaosEngine(cut, best.count, best.placements)
+    scens, _mode = chaos.build_scenarios(2, 1, 32)
+    picks = np.linspace(0, len(scens) - 1, MESH_ROWS).astype(int)
+    masks = [np.stack(m) for m in zip(*(chaos._masks(scens[i])[:3] for i in picks))]
+    nodes, pods = build_serve_cluster()
+    wl.reset_name_counter()
+    requests = [serve_pod(f"mesh-r{r}-{k}") for r in range(MESH_REQUESTS)
+                for k in range(SERVE_REPLICAS)]
+    engine = TorchEngine(Oracle(nodes), device="cuda")
+    engine.begin_batch(pods + requests)
+    actives = np.zeros((MESH_REQUESTS, len(pods) + len(requests)), bool)
+    actives[:, :len(pods)] = True
+    for r in range(MESH_REQUESTS):
+        lo = len(pods) + r * SERVE_REPLICAS
+        actives[r, lo:lo + SERVE_REPLICAS] = True
+    print(f"phase 29b: inputs built in {time.perf_counter() - t0:.1f} s (host): the capacity "
+          f"sweep, phase 17b's cut at +{best.count} with {len(scens)} K=2 outages "
+          f"({MESH_ROWS} taken), phase 24's cluster with {MESH_REQUESTS} request rows [{gpu}]",
+          flush=True)
+    return cap, (cut, masks), (engine, actives)
+
+
+def mesh_nodes(gpu, mesh, tag) -> dict:
+    """Phase 29c (or d): phase 18's custom-plugin batch at MESH_NODES
+    nodes on the node axis through TorchEngine.scan_active: == the
+    unsharded torch scan on the card == the plain path (the torch scan
+    on the CPU); ms a pod step."""
+    import copy
+
+    import numpy as np
+
+    from open_simulator_tpu_torch.parallel import mesh as mesh_mod
+    from open_simulator_tpu_torch.scheduler.engine import TorchEngine
+    from open_simulator_tpu_torch.scheduler.oracle import Oracle
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+    from open_simulator_tpu_torch.utils.trace import COUNTERS
+
+    if MESH_NODES < mesh_mod.node_threshold():
+        raise AssertionError("phase 29c: below the node threshold")
+    nodes = [cap_node(f"node-{i:05d}", 16, 64, {"zone": f"z{i % 16}"})
+             for i in range(MESH_NODES)]
+    pods = [{"kind": "Pod", "metadata": {"name": f"mesh-p{i:04d}", "namespace": "mesh",
+                                         "labels": {"app": f"app{i % 7}"}},
+             "spec": {"containers": [{"name": "c", "image": "app", "resources": {
+                 "requests": {"cpu": "2", "memory": "4Gi"}}}]}} for i in range(MESH_PODS)]
+    default_registry.clear()
+    default_registry.register(a1g_plugin(SchedulerPlugin))
+    try:
+        out = {}
+        for label, dev, m, n_pods in (("sharded", "cuda", mesh, MESH_PODS),
+                                      ("unsharded", "cuda", None, MESH_PODS),
+                                      ("plain", "cpu", None, MESH_PLAIN_PODS)):
+            eng = TorchEngine(Oracle(copy.deepcopy(nodes)), device=dev)
+            eng.mesh = m
+            eng.begin_batch(copy.deepcopy(pods[:n_pods]))
+            decided = COUNTERS.get("mesh_layout_node_total")
+            launches = COUNTERS.get("launches_mesh_scan")
+            placed, (ms,) = timed(lambda: eng.scan_active(np.ones(n_pods, bool)), 1)
+            routed = (COUNTERS.get("mesh_layout_node_total") - decided,
+                      COUNTERS.get("launches_mesh_scan") - launches)
+            if routed != ((1, 1) if m is not None else (0, 0)):
+                raise AssertionError(f"phase 29{tag}: {label}: node decisions and mesh_scan "
+                                     f"launches {routed}")
+            out[label] = (np.asarray(placed), ms / n_pods)
+    finally:
+        default_registry.clear()
+    if not (np.array_equal(out["sharded"][0], out["unsharded"][0])
+            and np.array_equal(out["unsharded"][0][:MESH_PLAIN_PODS], out["plain"][0])):
+        raise AssertionError(f"phase 29{tag}: the node-sharded placements != unsharded != "
+                             f"the plain path")
+    if (out["sharded"][0] < 0).any():
+        raise AssertionError(f"phase 29{tag}: a pod found no node")
+    print(f"phase 29{tag} (node axis, {MESH_NODES} nodes x {MESH_PODS} pods, phase 18's plugin, "
+          f"{mesh.size} shards on {[str(d) for d in mesh.distinct()]}): placements == the "
+          f"unsharded torch scan on the card == the plain path (CPU torch scan); "
+          f"{out['sharded'][1]:.3f} ms a pod step sharded, {out['unsharded'][1]:.3f} unsharded "
+          f"on the card, {out['plain'][1]:.3f} on the CPU (host wall, synchronised) [{gpu}]",
+          flush=True)
+    return {"sharded_ms": out["sharded"][1], "unsharded_ms": out["unsharded"][1]}
+
+
+def phase29(gpu, root=None) -> dict:
+    """The device mesh (parallel/mesh.py): (a) the CLI's --mesh and
+    SIMON_MESH on this machine's cards, (b) the scenario axis and (c)
+    the node axis on a MESH_SHARDS-shard mesh of cuda:0, (d) both on a
+    mesh of real cards where there are two or more."""
+    import torch
+
+    from open_simulator_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_cli(gpu)
+    one_card = mesh_mod.Mesh(["cuda:0"] * MESH_SHARDS)
+    sweeps = mesh_sweeps(gpu)
+    out = mesh_scenarios(gpu, one_card, "b", sweeps)
+    out.update(mesh_nodes(gpu, one_card, "c"))
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        real = mesh_mod.Mesh([f"cuda:{i}" for i in range(cards)])
+        again = mesh_scenarios(gpu, real, "d", sweeps)
+        out["batch_launches"] += again["batch_launches"]
+        out["pins_launches"] += again["pins_launches"]
+        mesh_nodes(gpu, real, "d")
+    else:
+        print(f"phase 29d: not run: {cards} card on this machine, the real-card mesh needs a "
+              f"second [{gpu}]", flush=True)
+    return out
+
+
 def workspace_check(label, gpu, plan, cls, scenarios, batch=False, pins_first=False) -> None:
     """One launch of `scenarios` with the allocator's peak reset: the cost
     count's workspace (obs/costs.py) must be at or above what the peak
@@ -4639,7 +4914,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only is None:
-        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24,25,26,27,28]",
+        print("usage: python3 chip_smoke.py [--only 14,17,18,19,21,22,23,24,25,26,27,28,29]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4666,7 +4941,8 @@ def main(argv=None) -> int:
 
         standalone = {"14": phase14, "17": phase17, "18": phase18, "19": phase19,
                       "21": phase21, "22": phase22, "23": phase23, "24": phase24,
-                      "25": phase25, "26": phase26, "27": phase27, "28": phase28}
+                      "25": phase25, "26": phase26, "27": phase27, "28": phase28,
+                      "29": phase29}
         with tempfile.TemporaryDirectory() as root:
             start_prep(root, [t for t, phs in (("shadow-full", "23"), ("shadow-cut", "23"),
                                                ("failover-config", "26 28"),
@@ -4859,7 +5135,9 @@ def main(argv=None) -> int:
           f"{twin['base_launches']} in phase 27's twin; "
           f"{fused_scan.BATCH_KERNEL_NAME} {failover['batch_launches']} in phase 26; "
           f"pins-first {twin['pins_launches']} for phase 27's forecast [{gpu}]", flush=True)
-    fleet = walls["28"]
+    fleet, mesh = walls["28"], walls["29"]
+    print(f"phase 29: {fused_scan.BATCH_KERNEL_NAME} launches {mesh['batch_launches']} and "
+          f"pins-first {mesh['pins_launches']} in the sharded runs [{gpu}]", flush=True)
     print(f"phase 28: {fused_scan.KERNEL_NAME} launches {fleet['base_launches']} and "
           f"{fused_scan.BATCH_KERNEL_NAME} {fleet['batch_launches']} in the fleets' replicas; "
           f"qps {fleet['qps'][1]:.2f} at 1 replica, {fleet['qps'][2]:.2f} at 2; "
@@ -4896,12 +5174,14 @@ def main(argv=None) -> int:
               ext_launches, ext),
         dict(entry(fused_scan.BATCH_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2974",
                    cap["launches"][fused_scan.BATCH_KERNEL_NAME] + serve["batch_launches"]
-                   + failover["batch_launches"] + fleet["batch_launches"], cap["batch"]),
+                   + failover["batch_launches"] + fleet["batch_launches"]
+                   + mesh["batch_launches"], cap["batch"]),
              cluster=cap["batch"]["cluster"], prev_ms=cap["batch"]["prev_ms"],
              launches_by_phase={"6": cap["launches"][fused_scan.BATCH_KERNEL_NAME],
                                 "24": serve["batch_launches"],
                                 "26": failover["batch_launches"],
-                                "28": fleet["batch_launches"]}),
+                                "28": fleet["batch_launches"],
+                                "29": mesh["batch_launches"]}),
         dict(entry(fused_scan.STORE_KERNEL_NAME, "open_simulator_tpu/ops/pallas_scan.py:2028",
                    store["launches"], store), cluster=store["cluster"],
              prev_ms=store["prev_ms"]),
@@ -4917,12 +5197,12 @@ def main(argv=None) -> int:
              cluster=mixed["cluster"], prev_ms=mixed["prev_ms"]),
         dict(entry(fused_scan.PINS_FIRST_KERNEL_NAME,
                    "open_simulator_tpu/ops/pallas_scan.py:2974",
-                   outage["launches"] + timeline["launches"] + twin["pins_launches"],
-                   outage["cut"]),
+                   outage["launches"] + timeline["launches"] + twin["pins_launches"]
+                   + mesh["pins_launches"], outage["cut"]),
              cluster=outage["cut"]["cluster"],
              pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"],
              launches_by_phase={"17": outage["launches"], "22": timeline["launches"],
-                                "27": twin["pins_launches"]}),
+                                "27": twin["pins_launches"], "29": mesh["pins_launches"]}),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],
                    stream), source="open_simulator_tpu_torch/csrc/stream_bench.cu",
              library_ms=stream["library_ms"]),

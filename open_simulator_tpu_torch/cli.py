@@ -96,7 +96,10 @@ killed with SIGKILL is respawned into its slot and replays its journal.
 `top` is a client of a running daemon (`--fleet`: of a fleet router)
 and does no device work.
 
-Not ported yet: `--mesh` (ROADMAP.md A11).
+`--mesh auto|off|N` on `apply`, `chaos` and `timeline` (the SIMON_MESH
+environment variable for every command) splits batched scans over the
+local CUDA devices (parallel/mesh.py): `auto` is every card, `N` the
+first N; a count beyond the cards there are exits 2.
 """
 
 from __future__ import annotations
@@ -242,6 +245,7 @@ def cmd_apply(args) -> int:
     from .utils.trace import ProfileCaptureError
 
     try:
+        _configure_mesh(args)
         if args.interactive and args.deadline is not None:
             raise InputError(
                 "--deadline is not available in interactive mode (the "
@@ -376,6 +380,7 @@ def cmd_chaos(args) -> int:
     from .utils.trace import GLOBAL, ProfileCaptureError
 
     try:
+        _configure_mesh(args)
         config = SimonConfig.from_file(args.simon_config)
         applier = Applier(config, use_greed=args.use_greed, device=args.device)
         cluster = applier.load_cluster()
@@ -860,6 +865,7 @@ def cmd_timeline(args) -> int:
     from .utils.trace import GLOBAL, ProfileCaptureError
 
     try:
+        _configure_mesh(args)
         sources = sum(
             1 for m in (args.synthetic, args.trace, args.from_decision_log)
             if m
@@ -1806,6 +1812,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--chaos-trials", type=int, default=32,
         help="sampled K-failure scenarios per escalation (K >= 2)",
     )
+    _add_mesh_flag(p_apply)
     _add_guard_flags(p_apply)
     _add_obs_flags(p_apply)
     p_apply.add_argument(
@@ -1881,6 +1888,7 @@ def build_parser() -> argparse.ArgumentParser:
         "on the named nodes (default all)",
     )
     p_chaos.add_argument("--use-greed", action="store_true", help=argparse.SUPPRESS)
+    _add_mesh_flag(p_chaos)
     _add_guard_flags(p_chaos)
     _add_obs_flags(p_chaos)
     _add_device_flag(p_chaos)
@@ -2134,6 +2142,7 @@ def build_parser() -> argparse.ArgumentParser:
         "reference; the encoding still lives on --device)",
     )
     _add_device_flag(p_timeline)
+    _add_mesh_flag(p_timeline)
     _add_guard_flags(p_timeline)
     _add_obs_flags(p_timeline)
     p_timeline.add_argument(
@@ -2624,6 +2633,33 @@ def build_parser() -> argparse.ArgumentParser:
     p_doc.add_argument("--output", default="docs/commandline-torch")
     p_doc.set_defaults(func=cmd_gen_doc)
     return parser
+
+
+def _add_mesh_flag(p: argparse.ArgumentParser):
+    p.add_argument(
+        "--mesh",
+        default=None,
+        metavar="auto|off|N",
+        help="split batched scans over the local CUDA devices: auto = "
+        "every card, N = the first N cards, off = one device (the "
+        "default; the SIMON_MESH env var changes it). The layout planner "
+        "picks the scenario axis (one batch-kernel launch a card) or the "
+        "node axis (the node-sharded torch scan) per launch; a device "
+        "OOM halves a chunk of scenarios, every other fault propagates",
+    )
+
+
+def _configure_mesh(args) -> None:
+    """Wire --mesh into the process-wide mesh (parallel/mesh.py). The
+    flag wins; without it the SIMON_MESH default stands. Resolves the
+    devices now against --device, so that a count beyond the cards there
+    are is a clean exit-2 InputError here."""
+    from .parallel import mesh as mesh_mod
+
+    spec = getattr(args, "mesh", None)
+    if spec is not None:
+        mesh_mod.configure(spec)
+    mesh_mod.current_mesh(getattr(args, "device", None))
 
 
 def _add_device_flag(p: argparse.ArgumentParser):

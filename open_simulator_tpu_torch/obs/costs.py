@@ -285,28 +285,41 @@ class CostRegistry:
         with self._lock:
             self._declared[site] = (plan, int(pods))
 
-    def estimate_bytes(self, site: str, rows: int) -> Optional[int]:
+    def declare_bytes(self, site: str, nbytes: int) -> None:
+        """The device bytes one scan at `site` needs, for a site with no
+        kernel plan (the torch scan's, ``scan_bytes``)."""
+        with self._lock:
+            self._declared[site] = (None, int(nbytes))
+
+    def estimate_bytes(self, site: str, rows: int, shards: int = 1) -> Optional[int]:
         """Predicted device workspace of one launch of `rows` scenarios
         at `site`, on clusters of the largest size (``workspace_bytes``
-        of the plan its caller declared); None for a site with no
-        declared plan (the torch scan's), which stays reactive."""
+        of the plan its caller declared); None for a site with nothing
+        declared, which stays reactive. With ``shards`` > 1 the rows are
+        split over a mesh (parallel/mesh.py), one launch a device: the
+        estimate is PER DEVICE, the workspace of ceil(rows / shards)."""
         with self._lock:
             declared = self._declared.get(site)
         if declared is None:
             return None
         plan, pods = declared
+        if plan is None:
+            return pods
+        if shards > 1:
+            rows = -(-int(rows) // int(shards))
         return workspace_bytes(plan, pods, int(rows))
 
-    def chunk_estimator(self, site: str, plan=None, pods: int = 0
+    def chunk_estimator(self, site: str, plan=None, pods: int = 0, shards: int = 1
                         ) -> Callable[[int, int], Optional[int]]:
         """An ``estimate(lo, hi)`` for guard.run_chunked: the predicted
-        workspace of launching rows [lo, hi) at `site`. With a plan the
-        estimate exists before the first launch."""
+        workspace of launching rows [lo, hi) at `site`, per device of a
+        ``shards``-device mesh. With a plan the estimate exists before
+        the first launch."""
         if plan is not None:
             self.declare(site, plan, pods)
 
         def estimate(lo: int, hi: int) -> Optional[int]:
-            return self.estimate_bytes(site, hi - lo)
+            return self.estimate_bytes(site, hi - lo, shards=shards)
 
         return estimate
 
@@ -327,6 +340,15 @@ class CostRegistry:
                 "ops_launched": COUNTERS.get("cost_ops_launched_total"),
             }
         return out
+
+
+def scan_bytes(static, init) -> int:
+    """Device bytes of one torch scan (ops/scan.py): its static tensors,
+    the initial state and the state the scan clones from it."""
+    def nbytes(tup):
+        return sum(t.numel() * t.element_size() for t in tup if t is not None)
+
+    return nbytes(static) + 2 * nbytes(init)
 
 
 COSTS = CostRegistry()

@@ -16,7 +16,13 @@ caching allocator:
   the caller stays reactive). ``guard.run_chunked`` asks before every
   chunk and splits a chunk predicted not to fit before launching it.
 - the verdicts are counted (``ledger_predict_*``), and the executor
-  counts a hit or a miss after the launch.
+  counts a hit or a miss after the launch;
+- the mesh (parallel/mesh.py): ``watch(devices)`` adds a mesh's cards to
+  every poll, so ``device_summary`` has one row a distinct device;
+  ``predict_fit(..., shards=N)`` compares a PER-DEVICE estimate with the
+  tightest watched device's room (a sharded launch lives or dies on its
+  tightest shard), and ``would_fit`` is the verdict without the
+  counters, for the layout planner's probes.
 
 The budget is ``SIMON_DEVICE_MEM_BUDGET`` (bytes) when set, else the
 card's total memory from ``torch.cuda.mem_get_info``. On the CPU there
@@ -78,6 +84,19 @@ def device_memory_stats(device=None):
     return in_use, peak, limit, "cuda_allocator"
 
 
+def device_memory_stats_per_device(devices):
+    """[{device, in_use, limit}] for each distinct device of `devices`
+    that has allocator stats (none on the CPU)."""
+    import torch
+
+    rows = []
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        in_use, _peak, limit, source = device_memory_stats(dev)
+        if source != "none":
+            rows.append({"device": str(dev), "in_use": in_use, "limit": limit})
+    return rows
+
+
 class MemoryLedger:
     """Process-wide memory observatory; all mutation under one lock."""
 
@@ -89,25 +108,56 @@ class MemoryLedger:
         self.device = None
         self.limit = None
         self._last_in_use = 0
+        # mesh devices polled beside the launch's own (watch), and the
+        # last row of every device polled, in first-poll order
+        self._watched: list = []
+        self._rows: Dict[str, dict] = {}
         # open top-level spans: frame id -> [name, peak while open];
         # closed frames fold into `watermarks` (max per name)
         self._frames: Dict[int, list] = {}
         self._next_frame = 1
         self.watermarks: Dict[str, int] = {}
 
+    def watch(self, devices) -> None:
+        """Poll `devices` (a mesh's) at every poll from now on."""
+        import torch
+
+        with self._lock:
+            for d in devices:
+                d = torch.device(d)
+                if d.type == "cuda" and d not in self._watched:
+                    self._watched.append(d)
+
+    def _poll_watched(self, primary) -> None:
+        with self._lock:
+            watched = [d for d in self._watched if str(d) != primary]
+        for dev in watched:
+            in_use, peak, limit, source = device_memory_stats(dev)
+            if source == "none":
+                continue
+            with self._lock:
+                self._rows[str(dev)] = {"device": str(dev), "in_use": in_use, "limit": limit}
+                self.peak_bytes = max(self.peak_bytes, peak, in_use)
+
     def poll(self, device=None) -> int:
-        """Sample the card's allocator; update the process peak, every
-        open span frame and the exported gauges. Returns the bytes in
-        use (0 where there are no allocator stats)."""
+        """Sample the card's allocator (and every watched mesh device's);
+        update the process peak, every open span frame and the exported
+        gauges. Returns the bytes in use on `device` (0 where there are
+        no allocator stats)."""
         in_use, peak, limit, source = device_memory_stats(device)
+        primary = None
+        if source != "none":
+            primary = str(device if device is not None else _card())
+        self._poll_watched(primary)
         if source == "none":
             return 0
         with self._lock:
             self.samples += 1
             self.source = source
-            self.device = str(device if device is not None else _card())
+            self.device = primary
             self.limit = limit
             self._last_in_use = in_use
+            self._rows[primary] = {"device": primary, "in_use": in_use, "limit": limit}
             self.peak_bytes = max(self.peak_bytes, peak, in_use)
             for frame in self._frames.values():
                 # the allocator's peak spans the whole process: a frame
@@ -143,35 +193,61 @@ class MemoryLedger:
     # -- prediction ---------------------------------------------------------
 
     def predict_fit(self, estimate_bytes: int, *, headroom: float = DEFAULT_HEADROOM,
-                    label: str = "", device=None) -> Optional[bool]:
+                    label: str = "", device=None, shards: int = 1) -> Optional[bool]:
         """Would a launch allocating ``estimate_bytes`` fit now? None
-        when no budget is known; every verdict is counted."""
+        when no budget is known; every verdict is counted. With
+        ``shards`` > 1 the launch is split over the mesh and the
+        estimate is PER DEVICE: it is compared with the tightest watched
+        device's room, never with a summed budget divided by the shard
+        count."""
         from ..runtime import inject as _inject
 
         lie = _inject.value("ledger.predict_fit")
         if lie in ("low", "high"):
             fits = lie == "low"
-        else:
-            in_use, _peak, limit, _src = device_memory_stats(device)
-            if not limit:
+        elif shards > 1 and self._watched:
+            fits = self._fits_per_device(int(estimate_bytes), headroom)
+            if fits is None:
                 return None
-            fits = in_use + int(estimate_bytes) <= limit * headroom
+        else:
+            fits = self.would_fit(estimate_bytes, headroom=headroom, device=device)
+            if fits is None:
+                return None
         COUNTERS.inc("ledger_predictions_total")
         COUNTERS.inc("ledger_predict_fit_total" if fits else "ledger_predict_unfit_total")
         if not fits and label:
             COUNTERS.inc(f"ledger_predict_unfit_{label}")
         return fits
 
+    def _fits_per_device(self, per_device_bytes: int, headroom: float) -> Optional[bool]:
+        """Would ``per_device_bytes`` fit on the TIGHTEST watched device?
+        None when no device reports a limit."""
+        with self._lock:
+            watched = list(self._watched)
+        limited = [r for r in device_memory_stats_per_device(watched) if r.get("limit")]
+        if not limited:
+            return None
+        return per_device_bytes <= min(r["limit"] * headroom - r["in_use"] for r in limited)
+
+    def would_fit(self, estimate_bytes: int, *, headroom: float = DEFAULT_HEADROOM,
+                  device=None) -> Optional[bool]:
+        """predict_fit's single-device verdict WITHOUT the counters: for
+        planning probes (parallel/mesh.py plan_layout) that are no
+        launch, so that the predicted-vs-actual counts stay about
+        launches that ran."""
+        in_use, _peak, limit, _src = device_memory_stats(device)
+        if not limit:
+            return None
+        return in_use + int(estimate_bytes) <= limit * headroom
+
     # -- reporting ----------------------------------------------------------
 
     def device_summary(self) -> list:
-        """One row ({device, in_use, limit}) for the card polled last;
-        none before the first poll."""
+        """One row ({device, in_use, limit}) a device polled (the
+        launches' cards and every watched mesh device), from its last
+        poll; none before the first."""
         with self._lock:
-            if self.device is None:
-                return []
-            return [{"device": self.device, "in_use": self._last_in_use,
-                     "limit": self.limit}]
+            return [dict(r) for r in self._rows.values()]
 
     def reset(self) -> None:
         with self._lock:
@@ -181,6 +257,8 @@ class MemoryLedger:
             self.device = None
             self.limit = None
             self._last_in_use = 0
+            self._watched.clear()
+            self._rows.clear()
             self._frames.clear()
             self.watermarks.clear()
 

@@ -1534,8 +1534,9 @@ def max_active_clusters(plan: FusedPlan, scenarios: int, batch: bool, cluster: i
     query), cached per instantiation and shape."""
     shape = launch_shape(plan, cluster)
     d = block_dims(plan)
+    dev = plan.device
     key = (_flags(plan, batch), plan.n, plan.u, d["k"], d["g"], d["w"], scenarios, shape,
-           torch.cuda.current_device())
+           dev.index if dev.index is not None else torch.cuda.current_device())
     if key not in _MAX_ACTIVE:
         out = ctypes.c_int64(0)
         with torch.cuda.device(plan.device):

@@ -44,9 +44,15 @@ Differences of form, none of meaning:
   rather than computed as zeros, and an inactive pod costs nothing;
 - under sample, the check for a rejected Intn draw (the `lax.cond` on
   `any(rej0)`) is one host sync a step (`.item()`), and the rare
-  rejection fixpoint (the `while_loop`) one more sync an iteration;
-- the node-sharded mesh context of the JAX version is not ported (ROADMAP
-  A11): the scan runs on one device.
+  rejection fixpoint (the `while_loop`) one more sync an iteration.
+
+Every cross-node reduction of a step goes through a reduction context
+(`ctx`), as in the JAX version: `_LocalCtx` here, the identity, and the
+node-sharded scan's `_ShardCtx` (parallel/mesh.py), whose combines
+exchange every shard's value. A block is skipped only on replicated
+data (the class, the pin, the features), never on a shard's own nodes,
+so every shard makes the same exchanges in the same order. Sample mode
+stays on one device.
 """
 
 from __future__ import annotations
@@ -197,26 +203,73 @@ class ScanState(NamedTuple):
     rng_overflow: torch.Tensor = None  # [] bool
 
 
+class _LocalCtx:
+    """Node-axis reduction context of the single-device scan (the JAX
+    package's ops/scan.py _LocalCtx): every cross-node combine is the
+    identity (the local reduction already saw the whole axis), a gather
+    is plain indexing and the select a first-max argmax. The
+    node-sharded scan (parallel/mesh.py _ShardCtx) substitutes a context
+    whose combines exchange every shard's value, so one step serves both
+    layouts and the sharded scan cannot drift from this one."""
+
+    def combine_max(self, x):
+        return x
+
+    def combine_min(self, x):
+        return x
+
+    def combine_sum(self, x):
+        return x
+
+    def combine_any(self, x):
+        return x
+
+    def total_nodes(self, n_local: int) -> int:
+        """The node count of the whole axis (a shard's is its own)."""
+        return n_local
+
+    def gather_vec(self, vec, idx: int):
+        """vec[idx] of a host vector at a GLOBAL node index."""
+        return vec[idx]
+
+    def gather_cols(self, arr, idx):
+        """arr[..., idx] at a GLOBAL node index (a 0-d tensor)."""
+        return arr.index_select(arr.dim() - 1, idx.view(1))[..., 0]
+
+    def first_max_index(self, masked):
+        """GLOBAL index (0-d tensor) of the first maximum."""
+        return masked.argmax()
+
+    def commit_onehot(self, node, inc):
+        """The commit at a GLOBAL node as the (index [1], increment) pair
+        the in-place commit takes: the JAX package's one-hot in index
+        form. A shard that does not hold the node adds 0."""
+        return node.view(1), inc
+
+
+LOCAL_CTX = _LocalCtx()
+
+
 def _fdiv(a, b):
     """Integer floor division, as jnp's `//`."""
     return torch.div(a, b, rounding_mode="floor")
 
 
-def _default_normalize(raw, feasible, reverse: bool):
+def _default_normalize(raw, feasible, reverse: bool, ctx=LOCAL_CTX):
     """DefaultNormalizeScore (plugins/helper/normalize_score.go:26-53)
     over the feasible set."""
-    max_count = torch.where(feasible, raw, 0).max()
+    max_count = ctx.combine_max(torch.where(feasible, raw, 0).max())
     base = torch.where(max_count > 0, _fdiv(MAX_SCORE * raw, max_count.clamp(min=1)), 0)
     if reverse:
         return torch.where(max_count > 0, MAX_SCORE - base, MAX_SCORE)
     return base
 
 
-def _minmax_normalize(raw, feasible):
+def _minmax_normalize(raw, feasible, ctx=LOCAL_CTX):
     """Simon/GpuShare/OpenLocal NormalizeScore (plugin/simon.go:75-100)
     over the feasible set; all-equal collapses to MinNodeScore=0."""
-    hi = torch.where(feasible, raw, -_I64_MAX).max()
-    lo = torch.where(feasible, raw, _I64_MAX).min()
+    hi = ctx.combine_max(torch.where(feasible, raw, -_I64_MAX).max())
+    lo = ctx.combine_min(torch.where(feasible, raw, _I64_MAX).min())
     rng = hi - lo
     return torch.where(rng > 0, _fdiv((raw - lo) * MAX_SCORE, rng.clamp(min=1)), 0)
 
@@ -462,7 +515,7 @@ def _sample_select(masked, feasible, rng_hist, n: int):
 
 
 def _terms_eval(static: ScanStatic, state: ScanState, u: int, node_valid, features,
-                host: _Host, rows: _Rows, log_w):
+                host: _Host, rows: _Rows, log_w, ctx=LOCAL_CTX):
     """InterPodAffinity filter + raw score and PodTopologySpread hard
     filter + soft score for pod class u over all nodes.
 
@@ -535,8 +588,9 @@ def _terms_eval(static: ScanStatic, state: ScanState, u: int, node_valid, featur
             hvals = static.topo_val[hrow]  # [Hm, N]
             cand_nodes = static.h_cand_nodes[h] & node_valid[None, :]
             counts_h = state.tgt[hrow]  # [Hm, N]
-            minc = torch.where(cand_nodes, counts_h, _I64_MAX).min(dim=1).values
-            minc = torch.where(cand_nodes.any(dim=1), minc, 0)
+            minc = ctx.combine_min(
+                torch.where(cand_nodes, counts_h, _I64_MAX).min(dim=1).values)
+            minc = torch.where(ctx.combine_any(cand_nodes.any(dim=1)), minc, 0)
             pair_in = cand_nodes & (hvals >= 0)
             cnt_eff = torch.where(pair_in, counts_h, 0)
             selfm = static.h_self[h, u]
@@ -560,20 +614,21 @@ def _terms_eval(static: ScanStatic, state: ScanState, u: int, node_valid, featur
             svals = static.topo_val[srow]
             if host.s_is_host[s]:
                 # hostname rows: the domain count is the eligible-node count
-                sz = eligible.sum()
+                sz = ctx.combine_sum(eligible.sum())
                 cnt = state.tgt[srow]
             else:
                 # distinct eligible topology values through the static
                 # value one-hot [Vs, N]
-                sz = (static.s_val_onehot[s] & eligible[None, :]).any(dim=1).sum()
+                sz = ctx.combine_any(
+                    (static.s_val_onehot[s] & eligible[None, :]).any(dim=1)).sum()
                 cnt = state.soft_counts[s]
             cnt = cnt * (svals >= 0)
             weight = log_w[sz]  # np.log(sz + 2.0), one host table
             score_f = score_f + (cnt * weight + float(int(host.s_max_skew[s]) - 1))
         raw = score_f.to(torch.int64)
-        any_valid = eligible.any()
-        mx = torch.where(eligible, raw, -_I64_MAX).max()
-        mn = torch.where(eligible, raw, _I64_MAX).min()
+        any_valid = ctx.combine_any(eligible.any())
+        mx = ctx.combine_max(torch.where(eligible, raw, -_I64_MAX).max())
+        mn = ctx.combine_min(torch.where(eligible, raw, _I64_MAX).min())
         normalized = torch.where(
             mx == 0, MAX_SCORE, _fdiv(MAX_SCORE * (mx + mn - raw), mx.clamp(min=1))
         )
@@ -583,16 +638,19 @@ def _terms_eval(static: ScanStatic, state: ScanState, u: int, node_valid, featur
     return ipa_ok, spread_ok, ipa_raw, soft_score
 
 
-def _terms_commit(static: ScanStatic, state: ScanState, u: int, node, inc, features):
+def _terms_commit(static: ScanStatic, state: ScanState, u: int, node, inc, features,
+                  ctx=LOCAL_CTX):
     """Rank-1 count updates after a commit (AddPod semantics), in place.
 
     Node-space form: incrementing the count at the placed value means
     incrementing every node sharing that value, a masked broadcast
     `(topo_val == placed value) * inc` over the [T, N] table. `node` is
-    the placed node (0-d, clamped at 0) and `inc` 1 or 0 (committed or
-    not); rows the class does not touch carry a zero increment."""
+    the placed node (0-d GLOBAL index, clamped at 0) and `inc` 1 or 0
+    (committed or not); rows the class does not touch carry a zero
+    increment. The placed node's values come from the shard holding it
+    (ctx.gather_cols); every shard then updates its own nodes."""
     if features.terms:
-        val_at = static.topo_val.index_select(1, node.view(1))[:, 0]  # [T]
+        val_at = ctx.gather_cols(static.topo_val, node)  # [T]
         eqi = ((static.topo_val == val_at[:, None]) & (val_at >= 0)[:, None]).long()
         state.tgt.add_((static.term_match[:, u].long() * inc)[:, None] * eqi)
 
@@ -601,7 +659,7 @@ def _terms_commit(static: ScanStatic, state: ScanState, u: int, node, inc, featu
         state.own_aff_pref_w.add_((static.carry_pref_comb[:, u] * inc)[:, None] * eqi)
         state.own_anti_pref_w.add_((static.carry_anti_pref_w[:, u] * inc)[:, None] * eqi)
 
-        g_val = static.g_topo_val.index_select(1, node.view(1))[:, 0]  # [A]
+        g_val = ctx.gather_cols(static.g_topo_val, node)  # [A]
         g_ok = g_val >= 0
         g_eq = (static.g_topo_val == g_val[:, None]) & g_ok[:, None]
         g_match = static.match_all[:, u][static.group_of_row]  # [A]
@@ -612,8 +670,8 @@ def _terms_commit(static: ScanStatic, state: ScanState, u: int, node, inc, featu
     if features.soft_spread:
         # soft spread counts restricted to qualifying PLACED nodes (s_q
         # gates who counts, not who reads)
-        s_val = static.s_topo_val.index_select(1, node.view(1))[:, 0]  # [Cs]
-        s_ok = (s_val >= 0) & static.s_q.index_select(1, node.view(1))[:, 0]
+        s_val = ctx.gather_cols(static.s_topo_val, node)  # [Cs]
+        s_ok = (s_val >= 0) & ctx.gather_cols(static.s_q, node)
         s_eq = (static.s_topo_val == s_val[:, None]) & s_ok[:, None]
         s_match = static.term_match[:, u][static.s_row]  # [Cs]
         s_inc = (s_match & s_ok).long() * inc
@@ -643,7 +701,7 @@ def _gpu_allocate(avail, dev_valid, per_gpu_mem: int, count: int):
 
 
 def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
-           custom_spec, host: _Host, ipa_raw, soft_score, local_raw):
+           custom_spec, host: _Host, ipa_raw, soft_score, local_raw, ctx=LOCAL_CTX):
     """The weighted sum of every score plugin for pod class u over all
     nodes (int64); the normalisations run over the feasible set."""
     n = static.alloc_mcpu.shape[0]
@@ -670,13 +728,13 @@ def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
         total = total + balanced * w.balanced
     if w.nodeaff:
         total = total + _default_normalize(
-            static.nodeaff_raw[u], feasible, reverse=False) * w.nodeaff
+            static.nodeaff_raw[u], feasible, reverse=False, ctx=ctx) * w.nodeaff
     if w.tainttol:
         total = total + _default_normalize(
-            static.taint_intol[u], feasible, reverse=True) * w.tainttol
+            static.taint_intol[u], feasible, reverse=True, ctx=ctx) * w.tainttol
     if w.simon or w.gpushare:
         # Simon and Open-Gpu-Share share one formula (simon.go:44-67)
-        total = total + _minmax_normalize(static.simon_raw[u], feasible) * (
+        total = total + _minmax_normalize(static.simon_raw[u], feasible, ctx) * (
             w.simon + w.gpushare)
     if w.spread:
         # PodTopologySpread soft score (MaxNodeScore everywhere when
@@ -690,8 +748,8 @@ def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
     if features.ipa and w.ipa:
         # InterPodAffinity NormalizeScore (scoring.go:246-270): bounds
         # include 0, float divide, int64 truncation
-        ipa_mx = torch.where(feasible, ipa_raw, 0).max().clamp(min=0)
-        ipa_mn = torch.where(feasible, ipa_raw, 0).min().clamp(max=0)
+        ipa_mx = ctx.combine_max(torch.where(feasible, ipa_raw, 0).max()).clamp(min=0)
+        ipa_mn = ctx.combine_min(torch.where(feasible, ipa_raw, 0).min()).clamp(max=0)
         ipa_diff = (ipa_mx - ipa_mn).double()
         ipa = torch.where(
             ipa_diff > 0,
@@ -701,7 +759,7 @@ def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
         )
         total = total + ipa * w.ipa
     if features.storage and w.openlocal:
-        total = total + _minmax_normalize(local_raw, feasible) * w.openlocal
+        total = total + _minmax_normalize(local_raw, feasible, ctx) * w.openlocal
     if features.custom:
         # out-of-tree custom plugins: 0 none, 1 default, 2 reverse,
         # 3 min-max
@@ -712,11 +770,11 @@ def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
             if mode_k == 0:
                 score_k = raw_k
             elif mode_k == 1:
-                score_k = _default_normalize(raw_k, feasible, reverse=False)
+                score_k = _default_normalize(raw_k, feasible, reverse=False, ctx=ctx)
             elif mode_k == 2:
-                score_k = _default_normalize(raw_k, feasible, reverse=True)
+                score_k = _default_normalize(raw_k, feasible, reverse=True, ctx=ctx)
             else:
-                score_k = _minmax_normalize(raw_k, feasible)
+                score_k = _minmax_normalize(raw_k, feasible, ctx)
             total = total + score_k * weight_k
     return total
 
@@ -749,20 +807,21 @@ def _host_array(x, dtype):
 
 
 def run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_node,
-                    node_valid, pod_active, features=None, weights=None, site: str = "scan"):
+                    node_valid, pod_active, features=None, weights=None, site: str = "scan",
+                    ctx=None):
     """The masked scan below, as one instrumented dispatch at `site`
     (obs/profile.py): counted, its device time taken by CUDA events
     around the whole eager loop on the card."""
     with profile.launch(site, static.alloc_mcpu.device) as ln:
         ln.start()
         out = _run_scan_masked(static, init, class_of_pod, pinned_node, node_valid,
-                               pod_active, features=features, weights=weights)
+                               pod_active, features=features, weights=weights, ctx=ctx)
         ln.stop()
     return out
 
 
 def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_node,
-                     node_valid, pod_active, features=None, weights=None):
+                     node_valid, pod_active, features=None, weights=None, ctx=None):
     """run_scan with scenario masks: `node_valid[n]` gates candidate
     nodes, `pod_active[p]` skips pods that do not exist in this
     scenario. An inactive pod commits nothing, consumes no Go-RNG word
@@ -779,7 +838,14 @@ def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_n
     With features.sample the returned placements are a (placements,
     consumed_words) pair and init.rng_hist must carry the GoRand
     607-output history (int64 bit patterns).
+
+    `ctx` is the node-axis reduction context (None: the single-device
+    `LOCAL_CTX`). Under parallel/mesh.py's `_ShardCtx`, `static`,
+    `init` and `node_valid` are one shard's node slice, while the pins
+    stay GLOBAL node indices and the placements come out global.
     """
+    if ctx is None:
+        ctx = LOCAL_CTX
     if features is not None and weights is not None:
         raise ValueError(
             "pass weights inside features (features_of_batch(..., weights=)) "
@@ -808,7 +874,8 @@ def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_n
         state = state._replace(rng_overflow=torch.zeros((), dtype=torch.bool, device=dev))
     # log(k + 2) for every domain count k a soft constraint can see
     log_w = torch.as_tensor(
-        np.log(np.arange(max(n, static.s_val_onehot.shape[1]) + 1, dtype=np.float64) + 2.0),
+        np.log(np.arange(max(ctx.total_nodes(n), static.s_val_onehot.shape[1]) + 1,
+                         dtype=np.float64) + 2.0),
         device=dev,
     )
     w = features.weights if features.weights is not None else _DEFAULT_WEIGHTS
@@ -825,7 +892,7 @@ def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_n
             continue
         u = int(cls_h[i])
         pin = int(pin_h[i]) if features.pins else -1
-        if pin >= 0 and not valid_h[pin]:
+        if pin >= 0 and not ctx.gather_vec(valid_h, pin):
             # a pod pinned to a masked-out node does not exist in this
             # scenario; never commit resources outside node_valid
             continue
@@ -876,18 +943,19 @@ def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_n
                 feasible = feasible & local_ok
             # InterPodAffinity + PodTopologySpread
             ipa_ok, spread_ok, ipa_raw, soft_score = _terms_eval(
-                static, state, u, node_valid, features, host, rows, log_w
+                static, state, u, node_valid, features, host, rows, log_w, ctx
             )
             if ipa_ok is not None:
                 feasible = feasible & ipa_ok
             if spread_ok is not None:
                 feasible = feasible & spread_ok
             total = _score(static, state, u, feasible, features, w, custom_spec, host,
-                           ipa_raw, soft_score, local_raw if features.storage else None)
+                           ipa_raw, soft_score, local_raw if features.storage else None,
+                           ctx)
 
             # select: first max over feasible, or the reservoir walk
             masked = torch.where(feasible, total, _I64_MIN)
-            found = feasible.any()
+            found = ctx.combine_any(feasible.any())
             if features.sample:
                 best, new_hist, step_ovf, used = _sample_select(
                     masked, feasible, state.rng_hist, n
@@ -896,31 +964,31 @@ def _run_scan_masked(static: ScanStatic, init: ScanState, class_of_pod, pinned_n
                 state.rng_overflow.logical_or_(step_ovf)
                 consumed[i] = used
             else:
-                best = masked.argmax()
+                best = ctx.first_max_index(masked)
             placement = torch.where(found, best, -1)
             placements[i] = placement
             node = placement.clamp(min=0)
             inc = found.long()
 
         # ---- commit at the placed node, in place (adds 0 when the pod
-        # found no node) ----
-        idx = node.view(1)
+        # found no node, or on a shard that does not hold it) ----
+        idx, inc_at = ctx.commit_onehot(node, inc)
         for row, val in ((state.used_mcpu, host.req_mcpu[u]), (state.used_mem, host.req_mem[u]),
                          (state.used_eph, host.req_eph[u]), (state.nz_mcpu, host.nz_mcpu[u]),
                          (state.nz_mem, host.nz_mem[u]), (state.pod_cnt, 1)):
             if val:
-                row.index_add_(0, idx, (inc * int(val)).view(1))
+                row.index_add_(0, idx, (inc_at * int(val)).view(1))
         if features.scalars:
-            state.used_scalar.index_add_(1, idx, (static.req_scalar[u] * inc)[:, None])
+            state.used_scalar.index_add_(1, idx, (static.req_scalar[u] * inc_at)[:, None])
         if features.ports:
-            state.ports_used[idx] |= static.want_ports[u][None, :] & (inc > 0)
+            state.ports_used[idx] |= static.want_ports[u][None, :] & (inc_at > 0)
         if gpu_mem_u > 0:
-            state.gpu_used.index_add_(0, idx, gpu_take[idx] * (gpu_mem_u * inc))
+            state.gpu_used.index_add_(0, idx, gpu_take[idx] * (gpu_mem_u * inc_at))
         if features.storage:
-            state.vg_used.index_add_(0, idx, vg_take[idx] * inc)
-            state.ssd_used[idx] |= ssd_take[idx] & (inc > 0)
-            state.hdd_used[idx] |= hdd_take[idx] & (inc > 0)
-        _terms_commit(static, state, u, node, inc, features)
+            state.vg_used.index_add_(0, idx, vg_take[idx] * inc_at)
+            state.ssd_used[idx] |= ssd_take[idx] & (inc_at > 0)
+            state.hdd_used[idx] |= hdd_take[idx] & (inc_at > 0)
+        _terms_commit(static, state, u, node, inc, features, ctx)
 
     if features.sample:
         return (placements, consumed), state

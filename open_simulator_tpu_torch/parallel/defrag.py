@@ -18,8 +18,9 @@ the capacity sweep (sweep.py):
   at once, one cluster of blocks a depth, with the per-scenario pins
   and one pass over the pods; the largest depth with zero
   unschedulable pods wins. A batch the kernel does not carry (custom
-  score plugins) runs each depth on the torch scan, trace-noted. There
-  is no mesh (ROADMAP.md A11)
+  score plugins) runs each depth on the torch scan, trace-noted. With
+  `mesh=` (parallel/mesh.py) the depths split into one launch a mesh
+  device over its share
 - the winning depth is then replayed through the serial oracle, which
   validates it placement-for-placement (including device-level GPU and
   VG state the batched search tracks only in aggregate) and yields the
@@ -123,10 +124,12 @@ def plan_defrag(
     snapshot: SimulateResult,
     max_drain: Optional[int] = None,
     protect: Optional[Callable[[dict], bool]] = None,
+    mesh=None,
     device=None,
 ) -> DefragResult:
     """Find the deepest feasible drain and its migration plan. The depth
-    scans run on `device` (None = the card)."""
+    scans run on `device` (None = the card), or with `mesh` one batch
+    launch a mesh device over its share of the depths."""
     import torch
 
     from ..obs.costs import COSTS
@@ -215,14 +218,23 @@ def plan_defrag(
         GLOBAL.note("defrag-kernel", f"{fused_scan.BATCH_KERNEL_NAME} ({dev.type})")
 
         def evaluate(lo, hi):
-            # one batch launch for the chunk's depths; one read back
-            rows = fused_scan.run_fused_scan_batch(
-                plan, batch.class_of_pod,
-                list(zip(pod_active[lo:hi], node_valid[lo:hi], pinned[lo:hi])),
-                site="defrag_sweep")
-            return list(to_host(torch.stack([r[0] for r in rows])).astype(np.int64))
+            # one batch launch for the chunk's depths (one a mesh
+            # device); one read back a launch
+            scenarios = list(zip(pod_active[lo:hi], node_valid[lo:hi], pinned[lo:hi]))
+            if mesh is not None:
+                from .mesh import launch_rows
 
-        estimate = COSTS.chunk_estimator("defrag_sweep", plan, len(batch.class_of_pod))
+                shares = [outs for _p, _lo, _hi, outs in launch_rows(
+                    mesh, plan, batch.class_of_pod, scenarios, site="defrag_sweep")]
+            else:
+                shares = [fused_scan.run_fused_scan_batch(
+                    plan, batch.class_of_pod, scenarios, site="defrag_sweep")]
+            return [row for rows in shares
+                    for row in to_host(torch.stack([r[0] for r in rows])).astype(np.int64)]
+
+        shards = mesh.size if mesh is not None else 1
+        estimate = COSTS.chunk_estimator("defrag_sweep", plan, len(batch.class_of_pod),
+                                         shards=shards)
     else:
         from ..ops import scan as scan_ops
         from ..ops.encode import to_scan_state, to_scan_static
@@ -241,13 +253,15 @@ def plan_defrag(
             ]
 
         estimate = None
+        shards = 1
 
     # the chunked executor (runtime/guard.py): a depth batch that
     # exhausts device memory is halved and launched again
     from ..runtime.guard import run_chunked
 
     with profiled("defrag/scan"):
-        place_by_depth = run_chunked(evaluate, sc, label="defrag", estimate=estimate)
+        place_by_depth = run_chunked(evaluate, sc, label="defrag", estimate=estimate,
+                                     shards=shards)
     unsched = np.array([int((pl == -1).sum()) for pl in place_by_depth], dtype=np.int64)
     with phase("defrag/validate"):
         return _pick_depth(

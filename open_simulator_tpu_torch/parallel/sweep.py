@@ -26,10 +26,18 @@ kernel's pins-first mode). Device work goes through runtime/guard.py:
 a device OOM halves a chunk of scenarios; a single scenario that still
 runs out raises on the card (on the CPU it goes to the serial oracle,
 trace-noted); every other error propagates. There is
-no mesh (ROADMAP.md A11), and no counterpart of the reference's
-preload_plan_group (ops/pallas_scan.py), which packs every spec's plan
-into one host-to-TPU transfer for its relay: each plan here is built on
-the card by its own sweep, with no relay between.
+no counterpart of the reference's preload_plan_group
+(ops/pallas_scan.py), which packs every spec's plan into one host-to-TPU
+transfer for its relay: each plan here is built on the card by its own
+sweep, with no relay between.
+
+The device mesh (parallel/mesh.py; `CapacitySweep.mesh`, from
+`current_mesh`): the layout planner splits probe_many's counts and
+probe_scenarios' rows into one batch-kernel launch a mesh device
+(`mesh_<site>_sweep` for the outage rows), the chunked executor told
+the shard count; and a probe of a torch-scan batch takes the
+node-sharded torch scan (site `mesh_scan`) when the planner picks the
+node axis.
 """
 
 from __future__ import annotations
@@ -227,6 +235,15 @@ class CapacitySweep:
             )
         self._scan_inputs = None  # the torch scan's (static, init), lazily
         self._pins_plan = None  # the plan with pins on, lazily
+        # the process-wide mesh (parallel/mesh.py): the layout planner
+        # decides per request whether to split the scenario axis
+        # (probe_many, probe_scenarios) or the node axis (a torch-scan
+        # probe) across it; None = one device
+        from . import mesh as mesh_mod
+
+        self.mesh = mesh_mod.current_mesh(self.device)
+        self._node_plan = None  # the node-sharded scan's state, lazily
+        self._mesh_plans: dict = {}  # device -> (plan, its copy there)
         # optional resumable journal (runtime/journal.py): probe()
         # serves journaled counts without touching the device and
         # appends every fresh result (attach_journal)
@@ -400,10 +417,37 @@ class CapacitySweep:
         if self.plan is not None:
             res = self._probe_kernel(count)
         else:
-            res = self._probe_torch_scan(count, self.node_valid(count))
+            from . import mesh as mesh_mod
+
+            valid = self.node_valid(count)
+            # the node axis: ONE scenario over a cluster the planner
+            # says is too big (or predicted not to fit) on one device
+            layout = mesh_mod.plan_layout(
+                "sweep_probe", mesh=self.mesh, n_scenarios=1, n_nodes=self.n,
+                sample=bool(getattr(self.features, "sample", False)))
+            if layout.axis == "node":
+                res = self._probe_mesh(count, valid)
+            else:
+                res = self._probe_torch_scan(count, valid)
         if self.journal is not None:
             self.journal.record_probe(_probe_to_record(res))
         return res
+
+    def _probe_mesh(self, count: int, valid) -> ProbeResult:
+        """One capacity probe on the node-sharded torch scan: the padded,
+        split state is built once a sweep (NodeShardPlan)."""
+        from ..utils.trace import profiled
+        from . import mesh as mesh_mod
+
+        if self._node_plan is None:
+            static, init = self._scan_static_state()
+            self._node_plan = mesh_mod.NodeShardPlan(
+                self.mesh, static, init, self.batch.class_of_pod, self.batch.pinned_node,
+                self.features)
+        with profiled("sweep/probe"):
+            pl, unsched, cpu, mem, vg = self._node_plan.run(valid, self.pod_active(valid))
+        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
+                           mem_util=mem, vg_util=vg, placements=pl)
 
     def _probe_kernel(self, count: int) -> ProbeResult:
         from ..utils.trace import profiled
@@ -440,11 +484,20 @@ class CapacitySweep:
 
     def launch_counts(self, counts: List[int]):
         """Launch several counts in ONE batch-kernel launch (one cluster
-        of blocks a count) without waiting for it: the device rows,
-        for results_of. Needs a kernel plan."""
+        of blocks a count) without waiting for it: the device rows, for
+        results_of. Needs a kernel plan."""
         scenarios = [self._scenario(c) for c in counts]
         return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios,
                                                site="sweep_many")
+
+    def launch_counts_on(self, mesh, counts: List[int]):
+        """launch_counts split over `mesh`: one batch-kernel launch a
+        mesh device over its share of the counts, rows in count order."""
+        from . import mesh as mesh_mod
+
+        return [row for _p, _lo, _hi, outs in mesh_mod.launch_rows(
+            mesh, self.plan, self.batch.class_of_pod, [self._scenario(c) for c in counts],
+            site="sweep_many", plans=self._mesh_plans) for row in outs]
 
     def results_of(self, counts: List[int], rows) -> List[ProbeResult]:
         """ProbeResults of launch_counts' rows (the first read waits for
@@ -452,13 +505,14 @@ class CapacitySweep:
         return [self._result(c, self.node_valid(c), placements, final)
                 for c, (placements, final) in zip(counts, rows)]
 
-    def probe_counts(self, counts: List[int]) -> List[ProbeResult]:
+    def probe_counts(self, counts: List[int], mesh=None) -> List[ProbeResult]:
         """Evaluate several counts: in ONE launch of the scenario-batch
-        kernel (`fused_scan_batch`, one cluster of blocks per count),
-        through the chunked executor (a device OOM halves the batch, and
-        a single count that still runs out raises on the card); on the
-        torch scan one probe after another. Journaled counts are
-        served from the journal and fresh ones recorded."""
+        kernel (`fused_scan_batch`, one cluster of blocks per count), or
+        with `mesh` one launch a mesh device, through the chunked
+        executor (a device OOM halves the batch, and a single count that
+        still runs out raises on the card); on the torch scan one probe
+        after another. Journaled counts are served from the journal and
+        fresh ones recorded."""
         from ..utils.trace import profiled
 
         counts = list(counts)
@@ -471,14 +525,19 @@ class CapacitySweep:
             return [self.probe(c) for c in counts]
 
         def evaluate(lo, hi):
-            return self.results_of(counts[lo:hi], self.launch_counts(counts[lo:hi]))
+            rows = (self.launch_counts(counts[lo:hi]) if mesh is None
+                    else self.launch_counts_on(mesh, counts[lo:hi]))
+            return self.results_of(counts[lo:hi], rows)
 
+        shards = mesh.size if mesh is not None else 1
         with profiled("sweep/probe"):
             out = run_chunked(
                 evaluate, len(counts), label="sweep",
                 serial_fallback=self._serial_floor(lambda i: self._probe_serial(
                     counts[i], self.node_valid(counts[i]))),
-                estimate=COSTS.chunk_estimator("sweep_many", self.plan, len(self.pods)),
+                estimate=COSTS.chunk_estimator("sweep_many", self.plan, len(self.pods),
+                                               shards=shards),
+                shards=shards,
             )
         if self.journal is not None:
             for r in out:
@@ -490,9 +549,20 @@ class CapacitySweep:
         r1, r2 = self.probe_counts([c1, c2])
         return r1, r2
 
-    def probe_many(self, counts: List[int]) -> SweepResult:
-        """Evaluate many counts in one batch launch."""
-        res = self.probe_counts(list(counts))
+    def probe_many(self, counts: List[int], mesh=None) -> SweepResult:
+        """Evaluate many counts in one batch launch, or split over a
+        mesh: an explicit `mesh` wins (sweep_node_counts(mesh=));
+        otherwise the sweep's mesh when the layout planner picks the
+        scenario axis."""
+        if mesh is None and self.plan is not None:
+            from . import mesh as mesh_mod
+
+            layout = mesh_mod.plan_layout(
+                "sweep_many", mesh=self.mesh, n_scenarios=len(counts), n_nodes=self.n,
+                sample=bool(getattr(self.features, "sample", False)))
+            if layout.axis == "scenario":
+                mesh = self.mesh
+        res = self.probe_counts(list(counts), mesh=mesh)
         return SweepResult(
             counts=list(counts),
             unscheduled=np.array([r.unscheduled for r in res], dtype=np.int64),
@@ -613,18 +683,36 @@ class CapacitySweep:
             self._pins_plan = dataclasses.replace(self.plan, has_pins=True)
         return self._pins_plan
 
-    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool, site: str):
-        """One batch launch over the rows at `site`; their (placements,
-        unscheduled, cpu, mem, vg) tuples, reduced on the device and
-        read back once."""
+    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool, site: str,
+                     mesh=None):
+        """One batch launch over the rows at `site`, or with `mesh` one
+        launch a mesh device over its share; their (placements,
+        unscheduled, cpu, mem, vg) tuples, reduced on each launch's
+        device and read back once a launch."""
+        scenarios = list(zip(pod_active, node_valid, pinned))
+        if mesh is None:
+            shares = [(self._plan_with_pins(), 0, len(scenarios), fused_scan.run_fused_scan_batch(
+                self._plan_with_pins(), self.batch.class_of_pod, scenarios,
+                pins_first=pins_first, site=site))]
+        else:
+            from . import mesh as mesh_mod
+
+            shares = mesh_mod.launch_rows(mesh, self._plan_with_pins(), self.batch.class_of_pod,
+                                          scenarios, site=site, pins_first=pins_first,
+                                          plans=self._mesh_plans)
+        out = []
+        for plan, lo, hi, rows in shares:
+            out.extend(self._row_stats(plan, rows, node_valid[lo:hi]))
+        return out
+
+    def _row_stats(self, plan, rows, node_valid):
+        """The (placements, unscheduled, cpu, mem, vg) tuples of one
+        launch's rows, reduced on its plan's device."""
         import torch
 
-        rows = fused_scan.run_fused_scan_batch(
-            self._plan_with_pins(), self.batch.class_of_pod,
-            list(zip(pod_active, node_valid, pinned)), pins_first=pins_first, site=site)
-        dev = self.plan.device
+        dev = plan.device
         valid_t = torch.from_numpy(np.ascontiguousarray(node_valid)).to(dev)
-        alloc = self.plan.alloc
+        alloc = plan.alloc
         placements = torch.stack([r[0] for r in rows]).long()
         used_c = torch.stack([r[1]["used_mcpu"] for r in rows])
         used_m = torch.stack([r[1]["used_mem"] for r in rows])
@@ -680,15 +768,26 @@ class CapacitySweep:
         sc = node_valid.shape[0]
         launch_site = f"{site}_sweep"
         estimate = None
+        shards = 1
         if self.plan is not None:
+            from . import mesh as mesh_mod
+
+            # the scenario axis: outage rows are independent, so a mesh
+            # splits them into one launch a device at mesh_<site>_sweep
+            layout = mesh_mod.plan_layout(launch_site, mesh=self.mesh, n_scenarios=sc,
+                                          n_nodes=self.n)
+            mesh = self.mesh if layout.axis == "scenario" else None
+            shards = mesh.size if mesh is not None else 1
             GLOBAL.note(f"{site}-kernel", f"{fused_scan.PINS_FIRST_KERNEL_NAME} "
                         f"({self.plan.device.type})")
             estimate = COSTS.chunk_estimator(launch_site, self._plan_with_pins(),
-                                             len(self.pods))
+                                             len(self.pods), shards=shards)
 
             def evaluate(lo, hi):
                 return self._kernel_rows(pod_active[lo:hi], node_valid[lo:hi],
-                                         pinned[lo:hi], pins_first=True, site=launch_site)
+                                         pinned[lo:hi], pins_first=True,
+                                         site=f"mesh_{launch_site}" if mesh else launch_site,
+                                         mesh=mesh)
         else:
             GLOBAL.note(f"{site}-kernel", f"torch-scan ({self.scan_reason})")
 
@@ -705,7 +804,7 @@ class CapacitySweep:
 
         rows = run_chunked(evaluate, sc, label=site,
                            serial_fallback=self._serial_floor(serial_fallback), budget=budget,
-                           estimate=estimate)
+                           estimate=estimate, shards=shards)
         placements = np.stack([np.asarray(r[0]) for r in rows])
         unsched = np.array([int(r[1]) for r in rows], dtype=np.int64)
         cpu = np.array([float(r[2]) for r in rows])
@@ -1014,11 +1113,13 @@ def sweep_node_counts(
     apps: List[AppResource],
     new_node_spec: Optional[dict],
     counts: List[int],
+    mesh=None,
     use_greed: bool = False,
     score_weights=None,
     device=None,
 ) -> SweepResult:
-    """Evaluate `counts` candidate new-node counts in one batch launch."""
+    """Evaluate `counts` candidate new-node counts in one batch launch,
+    or with `mesh` one launch a mesh device."""
     max_count = max(counts) if new_node_spec is not None else 0
     sweep = CapacitySweep(
         cluster,
@@ -1029,4 +1130,4 @@ def sweep_node_counts(
         score_weights=score_weights,
         device=device,
     )
-    return sweep.probe_many(counts)
+    return sweep.probe_many(counts, mesh=mesh)

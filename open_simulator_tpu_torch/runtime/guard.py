@@ -73,6 +73,7 @@ def run_chunked(
     trace=None,
     budget=None,
     estimate=None,
+    shards=1,
 ):
     """Evaluate items [0, n_items) in device chunks with halving on
     device OOM.
@@ -95,7 +96,13 @@ def run_chunked(
     (``ledger_predict_hit_total`` / ``ledger_predict_miss_total``).
     ``budget.check`` runs between chunks; on expiry the raised
     ExecutionHalted carries ``partial_results`` (None where
-    incomplete)."""
+    incomplete).
+
+    ``shards`` is the device count of a launch split over a mesh
+    (parallel/mesh.py): an int, or a callable read before each chunk.
+    The estimate is then PER DEVICE (``chunk_estimator(...,
+    shards=)``), and the ledger compares it with the tightest mesh
+    device's room."""
     from ..utils.trace import COUNTERS, GLOBAL
 
     tr = trace or GLOBAL
@@ -117,7 +124,9 @@ def run_chunked(
             if est is not None:
                 from ..obs.ledger import LEDGER
 
-                predicted_fit = LEDGER.predict_fit(int(est), label=label)
+                cur_shards = shards() if callable(shards) else shards
+                predicted_fit = LEDGER.predict_fit(int(est), label=label,
+                                                   shards=int(cur_shards))
                 if predicted_fit is False and hi - lo > 1:
                     COUNTERS.inc("guard_oom_predicted_total")
                     mid = (lo + hi) // 2

@@ -27,6 +27,14 @@ general bind, pod by pod (simple_commit_mask).
 row of `actives` an independent masked scan over the begin_batch
 encoding, all rows in ONE launch of the batch kernel (B6) at the site
 `scenario_scan`.
+
+The device mesh (parallel/mesh.py; `engine.mesh`, else the process-wide
+`current_mesh`): the layout planner splits scan_scenarios' rows into one
+B6 launch a mesh device when it picks the scenario axis, and sends a
+torch-scan batch of scan_active to the node-sharded torch scan (site
+`mesh_scan`) when it picks the node axis. A batch the kernel carries
+never takes the node route: the mesh serves only what the kernel does
+not, as the JAX engine's mesh serves only what its Pallas plan does not.
 """
 
 from __future__ import annotations
@@ -93,6 +101,14 @@ class TorchEngine:
         # cumsum) of the last scan; rewind_sample_rng uses it when a
         # priority-scan escape discards the scanned tail
         self._last_rng = None
+        # device mesh override (None = the process-wide configured mesh,
+        # parallel/mesh.py current_mesh)
+        self.mesh = None
+
+    def _mesh(self):
+        from ..parallel import mesh as mesh_mod
+
+        return self.mesh if self.mesh is not None else mesh_mod.current_mesh(self.device)
 
     def cluster_static(self) -> ClusterStatic:
         # keyed on (node count, alloc epoch): a bind that mutates node
@@ -156,7 +172,7 @@ class TorchEngine:
                     cluster, batch, dyn, self._features, device=self.device
                 )
         if reason is not None:
-            return self._torch_scan(cluster, dyn, active, node_valid, reason)
+            return self._torch_scan(cluster, dyn, active, node_valid, reason, node_route=True)
         GLOBAL.note("batch-kernel", fused_scan.kernel_label(plan))
         with profiled("engine/scan"):
             out, _final = fused_scan.run_fused_scan(
@@ -234,24 +250,44 @@ class TorchEngine:
         if plan is None:
             plan = self.scenario_plan()
         valid = np.ones(plan.n, bool)
+        scenarios = [(row, valid, batch.pinned_node) for row in actives_arr]
+        # the scenario axis: coalesced request rows are independent, so
+        # a mesh splits them into one launch a device
+        from ..parallel import mesh as mesh_mod
+
+        m = self._mesh()
+        if m is not None:
+            layout = mesh_mod.plan_layout("scenario_scan", mesh=m,
+                                          n_scenarios=len(actives_arr), n_nodes=plan.n)
+            if layout.axis != "scenario":
+                m = None
         GLOBAL.note("batch-kernel", f"{fused_scan.BATCH_KERNEL_NAME} ({self.device.type})")
         profile.record_h2d(actives_arr.nbytes)
         with profiled("engine/scan"):
+            if m is not None:
+                shares = mesh_mod.launch_rows(m, plan, batch.class_of_pod, scenarios,
+                                              site="scenario_scan")
+                return np.concatenate([
+                    to_host(torch.stack([placements for placements, _final in outs]))
+                    for _p, _lo, _hi, outs in shares])
             out = fused_scan.run_fused_scan_batch(
                 plan,
                 batch.class_of_pod,
-                [(row, valid, batch.pinned_node) for row in actives_arr],
+                scenarios,
                 pins_first=False,
                 site="scenario_scan",
             )
             return to_host(torch.stack([placements for placements, _final in out]))
 
     def _torch_scan(self, cluster, dyn, active, node_valid, reason,
-                    site: str = "scan") -> np.ndarray:
+                    site: str = "scan", node_route: bool = False) -> np.ndarray:
         """scan_active for a batch the kernel does not carry: the eager
         torch scan (ops/scan.py) on the engine's device. Under sample
         the oracle's Go RNG history goes in and the advanced history is
-        written back, so the serial path continues the exact stream."""
+        written back, so the serial path continues the exact stream.
+        With `node_route` the layout planner may send the scan to the
+        node-sharded torch scan over the mesh (never under sample)."""
+        from ..obs.costs import COSTS, scan_bytes
         from ..ops import scan as scan_ops
         from ..ops.encode import to_scan_static, to_scan_state
         from ..utils.trace import GLOBAL, phase, profiled
@@ -268,6 +304,22 @@ class TorchEngine:
                 hist0 = oracle._rng.history()
                 init = init._replace(rng_hist=torch.as_tensor(
                     np.array(hist0, dtype=np.uint64).view(np.int64), device=self.device))
+        m = self._mesh() if node_route and not sample else None
+        if m is not None:
+            from ..parallel import mesh as mesh_mod
+
+            # site "scan": the single-device torch scan whose workspace
+            # says whether one device holds it
+            COSTS.declare_bytes("scan", scan_bytes(self._scan_static, init))
+            layout = mesh_mod.plan_layout("scan", mesh=m, n_scenarios=1, n_nodes=cluster.n)
+            if layout.axis == "node":
+                GLOBAL.note("batch-kernel", f"mesh-scan ({reason})")
+                GLOBAL.note("scan-device", self.device.type)
+                with profiled("engine/scan"):
+                    out, *_stats = mesh_mod.run_node_sharded(
+                        m, self._scan_static, init, batch.class_of_pod, batch.pinned_node,
+                        node_valid, np.asarray(active, bool), self._features)
+                return out
         GLOBAL.note("batch-kernel", f"torch-scan ({reason})")
         GLOBAL.note("scan-device", self.device.type)
         with profiled("engine/scan"):

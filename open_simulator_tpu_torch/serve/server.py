@@ -589,7 +589,9 @@ def _observatory_lines(snap: dict) -> List[str]:
         "Peak device bytes observed by the ledger this process.",
         gauges.get("device_mem_peak_bytes", 0),
     )
-    # per-device rows: the card polled last, labeled
+    # per-device rows: every card polled (the launches' and each watched
+    # mesh device), labeled: a sharded launch lives or dies on the
+    # tightest one
     from ..obs.ledger import LEDGER
 
     per_device = LEDGER.device_summary()
@@ -624,6 +626,9 @@ def _observatory_lines(snap: dict) -> List[str]:
         ("ledger_predict_miss_total", "Predicted-fit chunks that OOMed anyway."),
         ("guard_oom_predicted_total", "Chunks split predictively, zero doomed launches."),
         ("guard_oom_reactive_total", "Device OOMs caught reactively (the halving fallback)."),
+        ("mesh_layout_scenario_total", "Dispatches the layout planner sharded on the scenario axis."),
+        ("mesh_layout_node_total", "Dispatches the layout planner sharded on the node axis."),
+        ("mesh_layout_none_total", "Dispatches the planner kept on the single-device ladder."),
     ):
         metric(f"simon_{key}", "counter", help_text, counts.get(key, 0))
     # -- latency histograms (obs/histo.py)

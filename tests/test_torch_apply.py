@@ -492,3 +492,46 @@ def test_module_runs_as_a_script():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith('{"success": true, "newNodeCount": 0')
+
+
+@pytest.fixture
+def mesh_state():
+    """Restore both packages' process-wide mesh selection after the
+    test (`--mesh` configures it for the rest of the process)."""
+    from open_simulator_tpu.parallel import mesh as jmesh
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    saved = (dict(jmesh._STATE), dict(pmesh._STATE))
+    yield
+    for mod, state in zip((jmesh, pmesh), saved):
+        mod._STATE.clear()
+        mod._STATE.update(state)
+    pmesh._STATE["cache"] = {}
+
+
+@pytest.mark.parametrize("spec", ["auto", "off", "1", "many"])
+def test_mesh_flag_gives_the_jax_bytes_and_exit_code(spec, tmp_path, mesh_state):
+    """`--mesh auto|off|1` plans to the JAX CLI's bytes (the JAX one on
+    its 8-device CPU mesh, the port's on its one CPU device, where each
+    resolves to no mesh or splits rows without changing an answer); a
+    junk spec exits 2 with the JAX message."""
+    nodes, apps, new_node, extra = _synthetic("base")
+    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    argv = ["apply", "-f", cfg, "--format", "json", "--mesh", spec]
+    j = _run(jax_cli.main, jax_reset, argv)
+    p = _run(port_cli.main, port_reset, argv + ["--device", "cpu"])
+    assert p == j
+    assert p[0] == (2 if spec == "many" else 0)
+    if spec == "many":
+        assert p[2] == "error: --mesh 'many': expected auto, off, or a device count\n"
+
+
+def test_mesh_beyond_the_devices_exits_2(tmp_path, mesh_state):
+    """The port's CPU is one device (the JAX test process has eight):
+    `--mesh 2 --device cpu` is a clean exit 2 before any work."""
+    nodes, apps, new_node, extra = _synthetic("base")
+    cfg = _config(tmp_path, nodes, apps, new_node, extra)
+    rc, out, err = _run(port_cli.main, port_reset,
+                        ["apply", "-f", cfg, "--mesh", "2", "--device", "cpu"])
+    assert (rc, out) == (2, "")
+    assert err == "error: --mesh 2: only 1 local device(s) available\n"

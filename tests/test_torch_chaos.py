@@ -214,3 +214,28 @@ def test_apply_tolerate_node_failures_plans_the_spare(tmp_path):
     assert got == want and got[0] == 0
     assert json.loads(plain[1])["newNodeCount"] == 0
     assert json.loads(got[1])["newNodeCount"] == 1
+
+
+@pytest.fixture
+def mesh_state():
+    """Restore both packages' process-wide mesh selection after the
+    test (`--mesh` configures it for the rest of the process)."""
+    from open_simulator_tpu.parallel import mesh as jmesh
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    saved = (dict(jmesh._STATE), dict(pmesh._STATE))
+    yield
+    for mod, state in zip((jmesh, pmesh), saved):
+        mod._STATE.clear()
+        mod._STATE.update(state)
+    pmesh._STATE["cache"] = {}
+
+
+@pytest.mark.parametrize("spec", ["auto", "off", "1", "many"])
+def test_chaos_mesh_flag_gives_the_jax_bytes_and_exit_code(spec, mesh_state):
+    argv = ["chaos", "-f", GPUSHARE, "--new-node-count", "1", "--format", "json",
+            "--mesh", spec]
+    want = _cli(jax_cli.main, jax_reset, argv)
+    got = _cli(port_cli.main, port_reset, argv + ["--device", "cpu"])
+    assert got == want
+    assert got[0] == (2 if spec == "many" else 0) and bool(got[1]) == (spec != "many")

@@ -1552,3 +1552,101 @@ def test_cuda_fleet_kill9_replacement_builds_nothing_and_restores_the_state(tmp_
         rc = proc.wait(timeout=120)
         proc.stdout.close()
     assert rc == 0
+
+
+# -- the device mesh (parallel/mesh.py) on the card -----------------------
+
+
+def _mesh_devices(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if kind == "cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    devices = (["cuda:0", "cuda:0"] if kind == "one-card"
+               else [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    return pmesh.Mesh(devices)
+
+
+def _mesh_sweep(n_base=40, replicas=300, max_count=8):
+    from open_simulator_tpu.testing import make_fake_deployment
+    from open_simulator_tpu_torch.models.decode import ResourceTypes
+    from open_simulator_tpu_torch.models.workloads import reset_name_counter
+    from open_simulator_tpu_torch.parallel.sweep import CapacitySweep
+    from open_simulator_tpu_torch.scheduler.core import AppResource
+
+    cluster = ResourceTypes()
+    cluster.nodes = [make_fake_node(f"node-{i}", "8", "32Gi",
+                                    with_node_labels({"zone": f"z{i % 3}"}))
+                     for i in range(n_base)]
+    res = ResourceTypes()
+    res.deployments = [make_fake_deployment("web", "d", replicas, "1", "2Gi")]
+    reset_name_counter()
+    return CapacitySweep(cluster, [AppResource("d", res)],
+                         make_fake_node("template", "8", "32Gi"), max_count, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one-card", "cards"])
+def test_cuda_scenario_axis_is_one_batch_launch_a_shard(kind):
+    """probe_many and probe_scenarios split over the mesh: one launch of
+    the batch kernel (pins-first for the rows) a shard, each share's
+    answers those of the one-launch run."""
+    mesh = _mesh_devices(kind)
+    sweep = _mesh_sweep()
+    counts = list(range(8))
+    plain = sweep.probe_many(counts)
+    sweep.mesh = mesh
+    before = fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME]
+    got = sweep.probe_many(counts)
+    assert fused_scan.LAUNCHES[fused_scan.BATCH_KERNEL_NAME] - before == mesh.size
+    assert (got.placements == plain.placements).all()
+    assert (got.unscheduled == plain.unscheduled).all()
+    assert (got.cpu_util == plain.cpu_util).all()
+    valids = np.stack([sweep.node_valid(c) for c in counts])
+    valids[:, 3] = False
+    actives = np.stack([sweep.pod_active(v) for v in valids])
+    pins = np.tile(np.asarray(sweep.batch.pinned_node), (len(counts), 1))
+    before = fused_scan.LAUNCHES[fused_scan.PINS_FIRST_KERNEL_NAME]
+    rows = sweep.probe_scenarios(valids, actives, pins)
+    assert fused_scan.LAUNCHES[fused_scan.PINS_FIRST_KERNEL_NAME] - before == mesh.size
+    sweep.mesh = None
+    for g, w in zip(rows, sweep.probe_scenarios(valids, actives, pins)):
+        assert (np.asarray(g) == np.asarray(w)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one-card", "cards"])
+def test_cuda_node_sharded_torch_scan_equals_unsharded(kind, monkeypatch):
+    """A custom-score-plugin batch past the (lowered) node threshold
+    through TorchEngine.scan_active rides the node-sharded torch scan on
+    the card: the placements of the unsharded torch scan on the card and
+    on the CPU."""
+    from open_simulator_tpu_torch.scheduler.engine import TorchEngine
+    from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
+
+    mesh = _mesh_devices(kind)
+    monkeypatch.setenv("SIMON_MESH_NODE_THRESHOLD", "16")
+
+    class Digits(SchedulerPlugin):
+        name = "digits"
+        normalize = "minmax"
+
+        def score(self, pod, node):
+            return int("".join(c for c in node["metadata"]["name"] if c.isdigit())) % 7
+
+    nodes, pods = _scenario(64, 120, 3, pins=True)
+    default_registry.clear()
+    default_registry.register(Digits())
+    try:
+        out = {}
+        for label, dev, m in (("mesh", "cuda", mesh), ("card", "cuda", None),
+                              ("cpu", "cpu", None)):
+            eng = TorchEngine(Oracle(copy.deepcopy(nodes)), device=dev)
+            eng.mesh = m
+            eng.begin_batch(copy.deepcopy(pods))
+            out[label] = eng.scan_active(np.ones(len(pods), bool))
+    finally:
+        default_registry.clear()
+    assert (out["mesh"] == out["card"]).all() and (out["card"] == out["cpu"]).all()

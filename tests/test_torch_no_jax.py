@@ -34,7 +34,8 @@ for want in ("parallel.sweep", "apply.applier", "apply.report", "cli", "models.c
              "incremental", "incremental.resim", "obs.telemetry", "obs.slo",
              "runtime.checkpoint", "incremental.store", "fleet", "fleet.replay",
              "twin.mirror", "twin.queries", "twin.server", "fleet.hashing",
-             "fleet.replica", "fleet.router", "fleet.audit", "fleet.trace"):
+             "fleet.replica", "fleet.router", "fleet.audit", "fleet.trace",
+             "parallel.mesh"):
     assert f"open_simulator_tpu_torch.{want}" in mods, want
 """
 

@@ -301,6 +301,46 @@ def test_http_simulate_conformance_and_metrics(daemon):
     assert "jax" not in metrics
 
 
+def _metric(text, name):
+    line = next(ln for ln in text.splitlines() if ln.startswith(f"{name} "))
+    return float(line.split()[-1])
+
+
+def test_simon_mesh_reaches_the_daemon_and_its_metrics(daemon, monkeypatch):
+    """SIMON_MESH reaches `serve` through current_mesh at its next tick,
+    as in the JAX daemon: with `auto` over two CPU devices (reported by
+    a stand-in for the device count; the CPU is one device) a
+    one-request tick asks the layout planner, which keeps it on one
+    device, and /metrics counts the decision in
+    simon_mesh_layout_none_total; the body stays the standalone one."""
+    import torch
+
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    d, cluster = daemon
+    base = f"http://{d.host}:{d.port}"
+    saved = dict(pmesh._STATE)
+    monkeypatch.setenv("SIMON_MESH", "auto")
+    monkeypatch.setattr(pmesh, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 2)
+    pmesh._STATE["cache"] = {}
+    try:
+        before = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+        resp = _post(base, _wire("meshy", 2))
+        assert resp.status == 200
+        assert resp.read() == serial_body(cluster, request_of("meshy", 2))
+        after = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+    finally:
+        pmesh._STATE.clear()
+        pmesh._STATE.update(saved)
+        pmesh._STATE["cache"] = {}
+    for axis in ("scenario", "node"):
+        name = f"simon_mesh_layout_{axis}_total"
+        assert _metric(after, name) == _metric(before, name)
+    name = "simon_mesh_layout_none_total"
+    assert _metric(after, name) == _metric(before, name) + 1
+
+
 def test_http_concurrent_requests_byte_identical(daemon):
     d, cluster = daemon
     base = f"http://{d.host}:{d.port}"

@@ -486,3 +486,32 @@ def test_cli_injected_oom_halves_a_chunk_to_the_same_report(tmp_path):
     rc2, halved, err = _run(PORT, argv + ["--inject", "jit.timeline_sweep=oom@1"])
     assert rc == rc2 == 0 and halved == clean
     assert "timeline-chunk-halving" in json.loads(err.strip().splitlines()[-1])["notes"]
+
+
+@pytest.fixture
+def mesh_state():
+    """Restore both packages' process-wide mesh selection after the
+    test (`--mesh` configures it for the rest of the process)."""
+    from open_simulator_tpu.parallel import mesh as jmesh
+    from open_simulator_tpu_torch.parallel import mesh as pmesh
+
+    saved = (dict(jmesh._STATE), dict(pmesh._STATE))
+    yield
+    for mod, state in zip((jmesh, pmesh), saved):
+        mod._STATE.clear()
+        mod._STATE.update(state)
+    pmesh._STATE["cache"] = {}
+
+
+@pytest.mark.parametrize("spec", ["auto", "off", "1", "many"])
+def test_cli_mesh_flag_gives_the_jax_report_and_exit_code(spec, tmp_path, mesh_state):
+    argv = ["timeline", "-f", _config(tmp_path), "--synthetic", "40", "--seed", "5",
+            "--compare", "static:1,threshold", "--cadence", "20", "--warmup", "5",
+            "--max-nodes", "2", "--mesh", spec]
+    if spec == "many":
+        got = {pkg: _run(pkg, argv) for pkg in PKGS}
+        assert got[PORT] == got[JAX] and got[PORT][0] == 2
+        assert got[PORT][2] == "error: --mesh 'many': expected auto, off, or a device count\n"
+        return
+    want, got = _both_json(argv + ["--format", "json"])
+    assert got == want and got[0] == 0
