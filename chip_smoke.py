@@ -106,7 +106,8 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     chaos --failures 2 --trials 32` on the capacity shape cut to 2,000
     nodes x 20,000 pods (about 2,040 scenarios in one launch): three
     rows == plain, the worst outage re-simulated serially to the same
-    verdict, us a pinned and a free pod step; then the same command on a
+    verdict, the pinned pass's ms and us a pinned pod beside the us a
+    free pod step; then the same command on a
     500 x 5,000 cut prints the JAX package's bytes
     (tools/jax_chaos_answer.py); (c) `apply --tolerate-node-failures 1`
     on the 2,000-node cut (serial confirmation noted ok), and on the
@@ -214,7 +215,7 @@ Phases, each of which fails the run (non-zero exit, no `ok` line):
     respawned replacement 0 nvcc builds with the dead replica's state
     digest (deltaSeq 1), the audit log valid, `simon top --fleet`
     exits 0, each replica's B6 launches == its ticks + its warm-up;
-29. the device mesh (parallel/mesh.py), in the second lane: (a) `apply`
+29. the device mesh (parallel/mesh.py), in lane c: (a) `apply`
     on the quickstart with `--mesh auto`, `--mesh 1` and SIMON_MESH=auto
     == the bytes with no mesh, `--mesh 2` on one card exits 2 with the
     JAX package's message; (b) on a 2-shard mesh of cuda:0 (one card
@@ -267,13 +268,15 @@ phase 27's decisions 200 -> TWIN_DECISIONS.
 Host work runs beside the card's phases, so that the script fits its
 time with no further depth cut: phase 23's two decision logs and phase
 27's feed are recorded on the serial oracle in subprocesses started
-after phase 1; phases 14-19, 21, 22 and 29 run in a second process on
-the card (`lane`, started after phase 13, its lines printed after phase
-28's) beside phases 20 and 23-28 in this one; and phase 25's three
-processes (each at a small scenario: the store does not depend on the
-shape) run beside phases 20-24. Phases 14-28 share the card and the
-host's cores with the other lane, so their times are those of a shared
-machine.
+after phase 1; phases 11, 14-18 and 21 (lane b) and 13, 26, 28, 22 and
+29 (lane c) run in two more processes on the card (`lane`, started
+after phase 12, their lines printed after phase 27's) beside phases 20,
+19, 23-25 and 27 in this one, each lane about a third of the work; and
+phase 25's three processes (each at a small scenario: the store does
+not depend on the shape) run beside phases 20-24. Phases 1-10 and 12,
+which time the kernels line's entries, run alone; the others share the
+card and the host's cores with the other lanes, so their times are
+those of a shared machine; the script prints each lane's seconds.
 
 The last lines are the card (nvidia-smi name and power limit), a JSON
 `kernels` line (every fused-scan entry but the B2 one carries
@@ -284,8 +287,11 @@ their `plain_ms` the plain version over the first `plain_pods` and their
 `prefix_ms` the kernel's on that cut; the
 `fused_scan_store_terms` entry is phase 10's single launch with the
 launches of phase 11's full-width plan; the `fused_scan_batch
-(pins-first)` entry is phase 17b's launch, with phase 17's and phase
-22's launches and its us a pinned and a free pod step; the
+(pins-first)` entry is phase 17b's launch, its `ms` the wrapper's call
+as in every entry and `kernel_ms` the kernel alone inside that call
+(its host work outlasts it), with phase 17's, 22's, 27's and 29's
+launches, the pinned pass's ms and `us_a_pin` (that pass over its
+pinned pods), and the us a free pod step; the
 `fused_scan_base` entry's launches are phase 3's, 23's, 24's, 25's (the
 subprocesses' own counts), 26's (the daemons' `scan` site), 27's and
 28's (the fleet's replicas, at `scan`; the killed replica's as it read
@@ -635,20 +641,27 @@ class Background:
         return self._out["value"]
 
 
-# phases 14-19, 21 and 22 run in a second process on the card beside the
-# main one's 20 and 23-28: the host leads each of them (the card is idle
-# most of the time), so the two lanes share the machine's cores instead
-# of taking turns. LANE_KEEP: what the main process reads of each one's
-# result (the rest stays in the lane)
-LANE_B = ("14", "15", "16", "17", "18", "19", "21", "22", "29")
-LANE_KEEP = {"14": ("launches", "rounds"), "16": ("launches",), "17": ("launches", "cut"),
-             "19": ("launches",), "22": ("launches", "windows", "device_ms"),
+# LANES' phases run in two more processes on the card beside the main
+# one's 19, 20, 23-25 and 27: the host leads each of them (the card is
+# idle most of the time), so the three lanes share the machine's cores
+# instead of taking turns; each lane holds about a third of the work
+# (phases 26 and 28 bring their own store and failover config). Phases
+# 11 and 13 time no entry of the kernels line, so they leave the phases
+# that run alone. LANE_KEEP: what the main process reads of each one's
+# result (None: all of it; the rest stays in the lane)
+LANES = {"b": ("11", "14", "15", "16", "17", "18", "21"),
+         "c": ("13", "26", "28", "22", "29")}
+LANE_KEEP = {"11": None, "14": ("launches", "rounds"), "16": ("launches",),
+             "17": ("launches", "cut"),
+             "22": ("launches", "windows", "device_ms"),
+             "26": ("base_launches", "batch_launches"),
+             "28": ("base_launches", "batch_launches", "qps", "first_200_s", "failover_s"),
              "29": ("batch_launches", "pins_launches")}
 
 
-def lane(root, names) -> int:
-    """Phases `names` (comma-separated, of LANE_B) in this process, in
-    order, in the directory `root`; the last stdout line is {"walls":
+def lane(root, names, tag) -> int:
+    """Phases `names` (comma-separated, of LANES[tag]) in this process,
+    in order, in the directory `root`; the last stdout line is {"walls":
     {phase: LANE_KEEP's part of its result}, "workspace": this process's
     WORKSPACE entries}."""
     import torch
@@ -656,21 +669,24 @@ def lane(root, names) -> int:
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     gpu = card()
-    runs = {"14": lambda w: phase14(gpu), "15": lambda w: phase15(gpu, root),
+    runs = {"11": lambda w: phase11(gpu), "13": lambda w: phase13(gpu),
+            "14": lambda w: phase14(gpu), "15": lambda w: phase15(gpu, root),
             "16": lambda w: phase16(gpu, w["15"]), "17": lambda w: phase17(gpu, root),
-            "18": lambda w: phase18(gpu, root), "19": lambda w: phase19(gpu, root),
-            "21": lambda w: phase21(gpu, root), "22": lambda w: phase22(gpu, root),
-            "29": lambda w: phase29(gpu, root)}
+            "18": lambda w: phase18(gpu, root), "21": lambda w: phase21(gpu, root),
+            "22": lambda w: phase22(gpu, root), "26": lambda w: phase26(gpu, root),
+            "28": lambda w: phase28(gpu, root), "29": lambda w: phase29(gpu, root)}
+    t_lane = time.perf_counter()
     walls = {}
     for name in names.split(","):
         t0 = time.perf_counter()
         walls[name] = runs[name](walls)
-        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}] (lane b)",
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}] (lane {tag})",
               flush=True)
         torch.cuda.empty_cache()
-    keep = {k: {f: walls[k][f] for f in fields} for k, fields in LANE_KEEP.items()
-            if k in walls}
-    print(json.dumps({"walls": keep, "workspace": WORKSPACE}, default=lambda o: o.item()),
+    keep = {k: walls[k] if fields is None else {f: walls[k][f] for f in fields}
+            for k, fields in LANE_KEEP.items() if k in walls}
+    print(json.dumps({"walls": keep, "workspace": WORKSPACE,
+                      "seconds": time.perf_counter() - t_lane}, default=lambda o: o.item()),
           flush=True)
     return 0
 
@@ -1201,6 +1217,37 @@ def cuda_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def kernel_ms(fn):
+    """fn()'s result and the card's milliseconds of the fused-scan
+    launches it makes, each between two CUDA events around the library's
+    launch call alone: no host work of the wrapper (the rows' checks and
+    copies, the final rows' views) falls between them."""
+    import torch
+
+    from open_simulator_tpu_torch.ops import fused_scan
+
+    lib = fused_scan._library()
+    launch = lib.fused_scan_launch
+    spans = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = launch(*args)
+        end.record()
+        spans.append((start, end))
+        return err
+
+    lib.fused_scan_launch = timed  # the wrapper calls it through lib
+    try:
+        out = fn()
+    finally:
+        lib.fused_scan_launch = launch
+    torch.cuda.synchronize()
+    return out, sum(start.elapsed_time(end) for start, end in spans)
 
 
 def prefix(scenarios, k):
@@ -2005,8 +2052,11 @@ def hold_rows(label, gpu, call, picks, plain_pods=None) -> dict:
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     if err:
         raise AssertionError(f"{label}: rows {picks} != plain version ({err})")
-    _, ms = cuda_ms(lambda: fused_scan.run_fused_scan_batch(plan, cls, scenarios,
-                                                            pins_first=pins_first))
+    # the call (the rows' checks and copies, the launch, the final rows)
+    # and, inside it, the kernel alone: thousands of rows' host work can
+    # outlast the kernel
+    (_, k_ms), ms = cuda_ms(lambda: kernel_ms(lambda: fused_scan.run_fused_scan_batch(
+        plan, cls, scenarios, pins_first=pins_first)))
     from open_simulator_tpu_torch.obs import costs
 
     b_ms, b_by = costs.bound(plan, cls, scenarios)
@@ -2014,10 +2064,10 @@ def hold_rows(label, gpu, call, picks, plain_pods=None) -> dict:
           + (f" over their first {plain_pods} pods" if plain_pods else "")
           + f" ({r_times[0]:.1f} ms), placements and every row; the launch "
           f"{start.elapsed_time(end):.1f} ms in the path, {ms:.1f} ms again (CUDA events; "
-          f"clusters of {fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME if pins_first else fused_scan.BATCH_KERNEL_NAME]}), "
+          f"the kernel alone {k_ms:.3f} ms; clusters of {fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME if pins_first else fused_scan.BATCH_KERNEL_NAME]}), "
           f"bound {b_ms:.4f} ms by {b_by} [{gpu}]", flush=True)
     return {"ms": ms, "plain_ms": r_times[0], "max_abs_err": err, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "kernel_ms": k_ms}
 
 
 def phase14(gpu) -> dict:
@@ -2310,14 +2360,14 @@ def print_chaos(label, gpu, res) -> None:
 
 
 def step_us(call, cluster) -> dict:
-    """What a pinned and a free pod step of the pins-first kernel cost,
-    on the first scenario of a recorded launch, alone (one cluster at
-    the rule's size, so no waves), by CUDA events: the scenario with its
-    free pods inactive (its pinned pass, and a second pass that skips
-    every pod) over its pinned steps, and the scenario with every pin
-    cleared (a pass that skips every pod, then every pod free) over its
-    pods. Also the waves of the launch, which ran on clusters of
-    `cluster` blocks."""
+    """What the pinned pass and a free pod step of the pins-first kernel
+    cost, on the first scenario of a recorded launch, alone (one cluster
+    at the rule's size, so no waves), by CUDA events: the scenario with
+    its free pods inactive (its pinned pass, and a free pass with no pod
+    to step), in ms and over its pinned pods, and the scenario with every
+    pin cleared (no pin to commit, then every pod free) over its pods,
+    each the kernel alone (kernel_ms). Also the waves of the launch,
+    which ran on clusters of `cluster` blocks."""
     import numpy as np
 
     from open_simulator_tpu_torch.ops import fused_scan
@@ -2332,8 +2382,8 @@ def step_us(call, cluster) -> dict:
         return fused_scan.run_fused_scan_batch(plan, cls, scen, pins_first=True)
 
     run(pinned_only)  # warm
-    _, pin_ms = cuda_ms(lambda: run(pinned_only))
-    _, free_ms = cuda_ms(lambda: run(all_free))
+    _, pin_ms = kernel_ms(lambda: run(pinned_only))
+    _, free_ms = kernel_ms(lambda: run(all_free))
     n_pin, n_free = int((a & (q >= 0)).sum()), int(a.sum())
     s_n = len(scenarios)
     one_c = fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME]
@@ -2384,7 +2434,8 @@ def phase17(gpu, root) -> dict:
     cluster = fused_scan.CLUSTERS[fused_scan.PINS_FIRST_KERNEL_NAME]
     out["cut"] = hold_rows("phase 17b", gpu, call, [0, s_n // 2, s_n - 1])
     st = step_us(call, cluster)
-    out["cut"].update(pin_us=st["pin_us"], free_us=st["free_us"], cluster=cluster)
+    out["cut"].update(pin_ms=st["pin_ms"], pin_us=st["pin_us"], free_us=st["free_us"],
+                      cluster=cluster)
     workspace_check("phase 17b", gpu, call[0], call[1], call[2], batch=True, pins_first=True)
     out["lie"] = chaos_lie(gpu, cfgs["cut"], b)
     engine = b["engines"][0]
@@ -2401,8 +2452,9 @@ def phase17(gpu, root) -> dict:
           f"[{gpu}]", flush=True)
     print(f"phase 17b: the launch {st['launch_ms']:.1f} ms for {s_n} scenarios on clusters of "
           f"{cluster}, {st['resident']} resident at once ({st['waves']} waves); its first "
-          f"scenario alone on {st['one_cluster']} blocks: its {st['n_pin']} pinned pods "
-          f"{st['pin_ms']:.3f} ms = {st['pin_us']:.3f} us a pinned pod step; all "
+          f"scenario alone on {st['one_cluster']} blocks: the pinned pass over its "
+          f"{st['n_pin']} pinned pods {st['pin_ms']:.3f} ms = {st['pin_us']:.3f} us a "
+          f"pinned pod; all "
           f"{st['n_free']} pods free {st['free_ms']:.3f} ms = {st['free_us']:.3f} us a free "
           f"pod step [{gpu}]", flush=True)
 
@@ -4475,7 +4527,7 @@ def phase28(gpu, root) -> dict:
     print("phase 28: simon top --fleet --once:\n" + two["top"].rstrip(), flush=True)
     return {"base_launches": int(sum(c["b1"] for c in counts.values())),
             "batch_launches": int(sum(c["b6"] for c in counts.values())),
-            "qps": {1: one["qps"], 2: two["qps"]}, "first_200_s": fo["first_200_s"],
+            "qps": {"1": one["qps"], "2": two["qps"]}, "first_200_s": fo["first_200_s"],
             "failover_s": fo["failover_s"]}
 
 
@@ -4958,11 +5010,12 @@ def main(argv=None) -> int:
               f"[{gpu}]", flush=True)
         return 0
 
-    # the host-only inputs of phases 23, 26 and 27, beside what follows
+    # the host-only inputs of phases 23 and 27, beside what follows
+    # (lane c writes phase 26's config itself)
     import tempfile
 
     tmp = tempfile.TemporaryDirectory()
-    start_prep(tmp.name)
+    start_prep(tmp.name, ("shadow-full", "shadow-cut", "twin-feed"))
 
     # ---- phase 2: B1 kernel vs plain on the card
     t0 = time.perf_counter()
@@ -5076,42 +5129,48 @@ def main(argv=None) -> int:
     # ---- phase 10: every block in one plan, single and batch
     mixed = phase10(gpu)
 
-    # ---- phase 11: the slice's path through the CLI
-    plan_launches = phase11(gpu)
-
     # ---- phase 12: B7, the streaming probe through its entry point
     stream = phase12(gpu)
+    print(f"phases 10 and 12: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
 
-    # ---- phase 13: A2, the torch scan under simulate()
-    phase13(gpu)
-    print(f"phases 10-13: {time.perf_counter() - t_start:.1f} s [{gpu}]", flush=True)
-
-    # ---- phases 14-28: the planner's other paths, the timeline, shadow,
-    # serve, the store, failover, the twin and the fleet; LANE_B's phases
-    # in a second process, phase 25's processes beside phases 20-24
+    # ---- phases 11, 13 and 14-29: the slice's path through the CLI, A2
+    # (the torch scan under simulate()), the planner's other paths, the
+    # timeline, shadow, serve, the store, failover, the twin, the fleet
+    # and the mesh; LANES' phases in two more processes, phase 25's
+    # processes beside 20-24
     torch.cuda.empty_cache()
     with tmp as root:
-        lane_b = start_child(root, "lane-b", "lane", Path(root) / "lane-b", ",".join(LANE_B))
+        t_lanes = time.perf_counter()
+        lanes = {tag: start_child(root, f"lane-{tag}", "lane", Path(root) / f"lane-{tag}",
+                                  ",".join(names), tag) for tag, names in LANES.items()}
         chain = Background(store_chain, root)
         walls = {}
         for name, run in (("20", lambda: phase20(gpu, root, cap)),
+                          ("19", lambda: phase19(gpu, root)),
                           ("23", lambda: phase23(gpu, root)),
                           ("24", lambda: phase24(gpu, root)),
                           ("25", lambda: phase25(gpu, root, chain)),
-                          ("26", lambda: phase26(gpu, root)),
-                          ("27", lambda: phase27(gpu, root)),
-                          ("28", lambda: phase28(gpu, root))):
+                          ("27", lambda: phase27(gpu, root))):
             t0 = time.perf_counter()
             walls[name] = run()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall [{gpu}]", flush=True)
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        other = wait_child(lane_b, echo=True)[0]
-        print(f"phases {', '.join(LANE_B)} (lane b): waited {time.perf_counter() - t0:.1f} s "
-              f"for them after phase 28 [{gpu}]", flush=True)
-        walls.update(other["walls"])
-        WORKSPACE.extend(other["workspace"])
+        main_s = time.perf_counter() - t_lanes
+        lane_s = {}
+        for tag, proc in lanes.items():
+            t0 = time.perf_counter()
+            other = wait_child(proc, echo=True)[0]
+            print(f"phases {', '.join(LANES[tag])} (lane {tag}): waited "
+                  f"{time.perf_counter() - t0:.1f} s for them after phase 27 [{gpu}]",
+                  flush=True)
+            walls.update(other["walls"])
+            WORKSPACE.extend(other["workspace"])
+            lane_s[tag] = other["seconds"]
+        print(f"lanes after phase 12: main {main_s:.1f} s, "
+              + ", ".join(f"lane {t} {v:.1f} s" for t, v in lane_s.items())
+              + f" [{gpu}]", flush=True)
     whatif, defrag, outage = walls["14"], walls["16"], walls["17"]
+    plan_launches = walls["11"]
     print(f"phases 14-18: B6 launches on the new paths: {whatif['launches']} in the 8-spec "
           f"what-if's {whatif['rounds']} rounds, {defrag['launches']} for two defrag plans, "
           f"{outage['launches']} pins-first in phase 17's three runs [{gpu}]", flush=True)
@@ -5140,7 +5199,7 @@ def main(argv=None) -> int:
           f"pins-first {mesh['pins_launches']} in the sharded runs [{gpu}]", flush=True)
     print(f"phase 28: {fused_scan.KERNEL_NAME} launches {fleet['base_launches']} and "
           f"{fused_scan.BATCH_KERNEL_NAME} {fleet['batch_launches']} in the fleets' replicas; "
-          f"qps {fleet['qps'][1]:.2f} at 1 replica, {fleet['qps'][2]:.2f} at 2; "
+          f"qps {fleet['qps']['1']:.2f} at 1 replica, {fleet['qps']['2']:.2f} at 2; "
           f"failover_first_200_s {fleet['first_200_s']:.3f}, failover_seconds "
           f"{fleet['failover_s']:.3f} [{gpu}]", flush=True)
     print("workspace estimate against the measured peak rise, a launch of each "
@@ -5199,8 +5258,9 @@ def main(argv=None) -> int:
                    "open_simulator_tpu/ops/pallas_scan.py:2974",
                    outage["launches"] + timeline["launches"] + twin["pins_launches"]
                    + mesh["pins_launches"], outage["cut"]),
-             cluster=outage["cut"]["cluster"],
-             pinned_step_us=outage["cut"]["pin_us"], free_step_us=outage["cut"]["free_us"],
+             kernel_ms=outage["cut"]["kernel_ms"], cluster=outage["cut"]["cluster"],
+             pinned_pass_ms=outage["cut"]["pin_ms"], us_a_pin=outage["cut"]["pin_us"],
+             free_step_us=outage["cut"]["free_us"],
              launches_by_phase={"17": outage["launches"], "22": timeline["launches"],
                                 "27": twin["pins_launches"], "29": mesh["pins_launches"]}),
         dict(entry(stream_bench.KERNEL_NAME, "tools/stream_bench.py:31", stream["launches"],

@@ -57,17 +57,47 @@
 // probes run in one launch at about the wall time of one.
 //
 // pins_first (a runtime argument of every instantiation, one value per
-// launch) runs the pod loop twice over the same pod order: the first pass
-// takes only the pods whose pin is >= 0 (each committed at its pin, or
-// INACTIVE when the pin is masked out or the pod inactive), the second
-// only the pods whose pin is < 0, through the full filter, score and
-// commit cycle from the first pass's state. That is the outage model of
-// the JAX package's _scenario_pinned_impl (parallel/sweep.py: two chained
-// masked scans), in one launch. The pod step is unchanged; a pod skipped
-// by a pass runs nothing in it, in every block alike, since the pass and
-// the pin are the same in every block of the cluster. The per-node
-// commit steps and the soft-spread stamps count steps across both passes
-// (pass * P + p), so they only grow.
+// launch) is the outage model of the JAX package's _scenario_pinned_impl
+// (parallel/sweep.py: two chained masked scans), in one launch: first
+// every pod whose pin is >= 0 is committed at its pin (INACTIVE when the
+// pin is masked out or the pod inactive), then every active pod whose pin
+// is < 0 runs the full filter, score and commit cycle from that state, in
+// pod order. A pinned pod's node is known before the launch, so the
+// pinned pass is no chain: each block walks the scenario's pin row
+// blockDim pods at a time, one pod a thread, writes the placements of
+// every pod the free pass does not step (the pinned ones and the inactive
+// ones) and commits each placed pin in parallel. The commits that
+// commute go in as atomics into the slice of the block that owns the
+// node (shared memory when resident, else global): the six state rows and
+// the scalar kinds as 64-bit atomicAdd, which wraps as add_w does, the
+// port words as atomicOr. With kTerms every block adds every placed pin's
+// term, group and soft-row counts into its own replica, and the block
+// that owns the node the node-owned rows, all as atomicAdd. Sums and ORs
+// do not depend on the order they are taken in, so the state after the
+// pass is the serial pass's, whatever order the atomics land in. Two
+// commits read the node's state and so keep pod order within their node:
+// GPU-share (gpu_commit takes the tightest or the greedy devices from the
+// node's current usage) and open-local (store_eval<true> bins each volume
+// into the least-free VG). Every warp then walks the pin row 32 pods at a
+// time, ballots the pods pinned into its block's slice that want a GPU or
+// storage (a compacted list of them, in pod order) and hands each to the
+// node's owner thread, which commits them one after another in pod order.
+// No block reads another's commits of the pass: the state rows, the
+// storage and GPU rows and the node-owned counts of a node are read only
+// by the block that owns it, the replicas only by their own block, and
+// the pass writes no stamps. So one block barrier, not a cluster barrier,
+// separates the pass's commits from the free pass's reads (and one before
+// it, the initial state's copies from the atomics). The free pass then
+// steps only its own pods: at the head of each step every warp reads the
+// pin and active rows 64 pods a round from the pod after the last step's
+// and ballots the next active pod with pin < 0. Every warp of every block
+// of the cluster reads the same rows, so all of them step the same pods and
+// meet the same barriers. Its steps keep the number P + p (the serial
+// two-pass numbering), so the soft-spread stamps and the per-node commit
+// steps only grow. The pinned pass stamps no node's commit step: every
+// class's cached pass 1 is still at step -1 when it ends, so each class's
+// first free step recomputes every node of the slice, after every pinned
+// commit. The one-pass mode (pins_first 0) steps every pod, as it did.
 //
 // What bounds it on an H100: the scan is a serial chain of P pod steps.
 // Every step depends on the previous step's commit, so the steps cannot
@@ -81,7 +111,16 @@
 // nodes. The storage block adds its VG and device rows and about 10
 // operations per VG a volume and 8 per device a node; the term block adds
 // the class's term rows (a topology value and four counts each) and up to
-// three more cross-block folds a step.
+// three more cross-block folds a step. With pins_first the chain is the
+// free pods' steps only, each one round of loads of the pin and active
+// rows longer (finding its pod); the pinned pass has no chain and is
+// bounded by the pin row's bytes (pin, active flag and class, 9 bytes a
+// pod, read by each block of the cluster, and 4 written), about
+// P / blockDim rounds of dependent loads, and by its atomics: one a
+// non-zero request a placed pin, serialised only where pins meet on one
+// address (a node's state, or a zone's count in a replica). The
+// GPU-share and storage pins of a node follow each other on its owner
+// thread.
 //
 // What the design does about it. Every instantiation runs one scenario on
 // one cluster of C blocks (C in 1, 2, 4, 8, 16, chosen by the wrapper; 16
@@ -163,9 +202,10 @@
 // first copy keeps block 0's final copy from overtaking another block's
 // read of the value space. With C = 1 the same code runs on one block, a
 // cluster barrier being a block barrier. pins_first keeps all of this:
-// whether a pod runs in a pass depends only on the launch's flag and the
-// scenario's pin row, which every block of the cluster reads alike, so
-// every block skips or runs the same steps and meets the same barriers.
+// which pods the free pass steps depends only on the scenario's pin and
+// active rows, which every block of the cluster reads alike, so every
+// block runs the same steps and meets the same barriers; the pinned pass
+// has no exchange.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -668,6 +708,35 @@ __device__ __forceinline__ T* at_rank(const cg::cluster_group& cluster, int64_t 
   return csize > 1 ? cluster.map_shared_rank(p, static_cast<unsigned>(q)) : p;
 }
 
+// *at += v as one atomic (shared or global memory), wrapping like add_w;
+// nothing for v == 0
+__device__ __forceinline__ void atomic_add_w(int64_t* at, int64_t v) {
+  if (v != 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(at), static_cast<unsigned long long>(v));
+  }
+}
+
+// pins_first: the first pod at or after `from` that the free pass steps
+// (active, pin < 0), or p_n. The warp reads 64 pods' flags a round, two
+// coalesced loads of each row, and ballots them, so every lane of every
+// warp that reads the same rows gets the same pod.
+__device__ __forceinline__ int64_t free_pod(const uint8_t* active, const int32_t* pinned,
+                                            int64_t p_n, int64_t from, int lane) {
+  for (int64_t b = from; b < p_n; b += 64) {
+    const int64_t a0 = b + lane, a1 = a0 + 32;
+    const bool in0 = a0 < p_n, in1 = a1 < p_n;
+    const uint8_t act0 = in0 ? __ldg(active + a0) : 0;
+    const uint8_t act1 = in1 ? __ldg(active + a1) : 0;
+    const int32_t pin0 = in0 ? __ldg(pinned + a0) : 0;
+    const int32_t pin1 = in1 ? __ldg(pinned + a1) : 0;
+    const unsigned m0 = __ballot_sync(0xffffffffu, act0 != 0 && pin0 < 0);
+    const unsigned m1 = __ballot_sync(0xffffffffu, act1 != 0 && pin1 < 0);
+    if (m0 != 0) return b + __ffs(m0) - 1;
+    if (m1 != 0) return b + 32 + __ffs(m1) - 1;
+  }
+  return p_n;
+}
+
 template <bool kBatch, bool kScal, bool kGpu, bool kPorts, bool kStore, bool kTerms>
 __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
     const int64_t* __restrict__ alloc, const int64_t* __restrict__ init,
@@ -960,13 +1029,115 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
     cluster_barrier(cluster, csize);
   }
 
-  // one pass over the pods, or two with pins_first: the pinned pods, then
-  // the free ones; `step` numbers the pod steps across both
-  const int passes = pins_first ? 2 : 1;
-  for (int pass = 0; pass < passes; ++pass) {
+  if (pins_first) {
+    // ---- the pinned pass (see the header): the placements of every pod
+    // the free pass does not step, and the pins' commits that commute, as
+    // atomics, one pod a thread
+    __syncthreads();  // the slice's state rows hold their initial values
+    for (int64_t p = tid; p < p_n; p += nthr) {
+      const int32_t pin = pinned[p];
+      const bool act = active[p] != 0;
+      if (act && pin < 0) continue;  // a free pod: the free pass steps it
+      // a pin overrides feasibility; outside the node mask it is INACTIVE
+      const int64_t place = (act && valid[pin]) ? pin : kInactive;
+      if (crank == 0) placements[p] = (int32_t)place;
+      if (place < 0) continue;
+      const int64_t j = place - lo;
+      const bool mine = j >= 0 && j < cnt;  // this block owns the node
+      if (!kTerms && !mine) continue;
+      const int64_t u = class_of_pod[p];
+      if (mine) {
+        const int64_t* req = cls_req + u * 6;
+        atomic_add_w(used_c + j, req[kReqCpu]);
+        atomic_add_w(used_m + j, req[kReqMem]);
+        atomic_add_w(used_e + j, req[kReqEph]);
+        atomic_add_w(nz_c + j, req[kReqNzCpu]);
+        atomic_add_w(nz_m + j, req[kReqNzMem]);
+        atomic_add_w(pods + j, 1);
+        if (kScal) {
+          for (int64_t k = 0; k < k_n; ++k) {
+            atomic_add_w(l_scal + k * ls + j, scal_req[u * k_n + k]);
+          }
+        }
+        if (kPorts) {
+          for (int64_t v = 0; v < w_n; ++v) {
+            const int32_t want = port_cls[u * w_n + v];
+            if (want != 0) atomicOr(l_ports + v * ls + j, want);
+          }
+        }
+      }
+      if constexpr (kTerms) {
+        // AddPod at the pin's values: a shared row's adds into this
+        // block's replica, a node-owned row's by the block owning the node
+        for (int64_t r = 0; r < tm.t_n; ++r) {
+          const int32_t v = tm.topo[r * n + place];
+          if (v < 0 || (tm.t_rep[r] < 0 && !mine)) continue;
+          for (int k = 0; k < 4; ++k) {
+            atomic_add_w(t_counts(tm, rep, k, r) + v, tm.t_cls[(k * u_n + u) * tm.t_n + r]);
+          }
+        }
+        int64_t* gt = g_totals(tm, rep);
+        for (int64_t a = 0; a < tm.a_n; ++a) {
+          const int32_t v = tm.g_topo[a * n + place];
+          if (v < 0 || !tm.g_match[u * tm.a_n + a]) continue;
+          atomic_add_w(gt + a, 1);
+          if (tm.g_rep[a] < 0 && !mine) continue;
+          atomic_add_w(g_counts(tm, rep, a) + v, 1);
+        }
+        for (int64_t c = 0; c < tm.cs_n; ++c) {
+          const int64_t r = tm.s_row[c];
+          const int32_t v = tm.topo[r * n + place];
+          if (v < 0 || !tm.s_q[c * n + place] || tm.t_cls[(kTMatch * u_n + u) * tm.t_n + r] == 0) {
+            continue;
+          }
+          if (tm.s_rep[c] < 0 && !mine) continue;
+          atomic_add_w(s_counts(tm, rep, c) + v, 1);
+        }
+      }
+    }
+    // the GPU-share and storage commits read the node's state, so they
+    // keep pod order within a node: every warp ballots the pods pinned
+    // into this block's slice that want either, 32 a round, and the owner
+    // thread of each one's node commits it, in pod order
+    if ((kGpu && g_n > 0) || kStore) {
+      for (int64_t b = 0; b < p_n; b += 32) {
+        const int64_t p = b + lane;
+        int64_t j = -1, u = 0;
+        if (p < p_n) {
+          const int32_t pin = pinned[p];
+          if (pin >= lo && pin < lo + cnt && active[p] && valid[pin]) {
+            u = class_of_pod[p];
+            bool ordered = kGpu && g_n > 0 && gpu_cls[u * 2] > 0;
+            if constexpr (kStore) ordered = ordered || st.wants[u] != 0;
+            if (ordered) j = pin - lo;
+          }
+        }
+        for (unsigned m = __ballot_sync(0xffffffffu, j >= 0); m != 0; m &= m - 1) {
+          const int x = __ffs(m) - 1;
+          const int64_t jx = __shfl_sync(0xffffffffu, j, x);
+          const int64_t ux = __shfl_sync(0xffffffffu, u, x);
+          if (jx % nthr != tid) continue;
+          if (kGpu && g_n > 0 && gpu_cls[ux * 2] > 0) {
+            gpu_commit(l_gpu, ls, jx, g_n, l_gpu_node[kGpuPerDev * ls + jx],
+                       l_gpu_node[kGpuCount * ls + jx], gpu_cls[ux * 2], gpu_cls[ux * 2 + 1]);
+          }
+          if constexpr (kStore) {
+            if (st.wants[ux]) {
+              int64_t unused = 0;
+              store_eval<true>(st, sv, ux, jx, unused);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every commit of the pass is visible to the block
+  }
+
+  // the pod loop: every pod, or with pins_first only the free pass's own
+  // pods; `step` numbers them as the two serial passes would (P + p)
   for (int64_t p = 0; p < p_n; ++p) {
-    if (pins_first && (pinned[p] >= 0) != (pass == 0)) continue;
-    const int64_t step = pass * p_n + p;
+    if (pins_first && (p = free_pod(active, pinned, p_n, p, lane)) >= p_n) break;
+    const int64_t step = pins_first ? p_n + p : p;
     const int64_t u = class_of_pod[p];
     const int64_t* req = cls_req + u * 6;
     const int64_t rc = req[kReqCpu], rm = req[kReqMem], re = req[kReqEph];
@@ -1550,7 +1721,6 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
       }
     }
     if (tid == 0 && crank == 0) placements[p] = (int32_t)place;
-  }
   }
 
   if (in_smem) {

@@ -690,35 +690,41 @@ def _scenario_inputs(plan: FusedPlan, class_of_pod, scenarios):
     """Per-call inputs as contiguous tensors on the plan's device —
     class_of_pod [P] int32, active [S, P] uint8, valid [S, N] uint8,
     pinned [S, P] int32 — with their ranges checked on the host (the
-    kernel indexes with them)."""
+    kernel indexes with them). Each pin row is checked by its bounds
+    and copied once, into the [S, P] int32 block the card reads, so
+    that thousands of outage rows cost one pass over their pins."""
     cls = np.asarray(class_of_pod, dtype=np.int64).reshape(-1)
     p = cls.shape[0]
     if not scenarios:
         raise ValueError("no scenarios")
     if p and (cls.min() < 0 or cls.max() >= plan.u):
         raise ValueError(f"class_of_pod outside [0, {plan.u})")
-    acts, vals, pins = [], [], []
-    for active, valid, pinned in scenarios:
+    acts, vals = [], []
+    pins = np.full((len(scenarios), p), -1, dtype=np.int32)
+    for s, (active, valid, pinned) in enumerate(scenarios):
         act = np.asarray(active, dtype=bool).reshape(-1)
         val = np.asarray(valid, dtype=bool).reshape(-1)
-        pin = (np.full(p, -1, dtype=np.int64) if pinned is None
-               else np.asarray(pinned, dtype=np.int64).reshape(-1))
-        if act.shape != (p,) or pin.shape != (p,) or val.shape != (plan.n,):
+        pin = None if pinned is None else np.asarray(pinned).reshape(-1)
+        if act.shape != (p,) or val.shape != (plan.n,) or (
+                pin is not None and pin.shape != (p,)):
             raise ValueError(
                 f"shape mismatch: class_of_pod {cls.shape}, active {act.shape}, "
-                f"pinned {pin.shape}, valid {val.shape} for {plan.n} nodes"
+                f"pinned {(p,) if pin is None else pin.shape}, valid {val.shape} "
+                f"for {plan.n} nodes"
             )
-        if p and pin.max() >= plan.n:
-            raise ValueError(f"pinned node outside [0, {plan.n})")
-        pin = np.where(pin >= 0, pin, -1)
-        if (pin >= 0).any() and not plan.has_pins:
-            raise ValueError("pinned pods but the plan was built without pins")
+        if pin is not None and p:
+            pin = pin.astype(np.int64, copy=False)
+            hi = pin.max()
+            if hi >= plan.n:
+                raise ValueError(f"pinned node outside [0, {plan.n})")
+            if hi >= 0 and not plan.has_pins:
+                raise ValueError("pinned pods but the plan was built without pins")
+            pins[s] = pin if pin.min() >= -1 else np.maximum(pin, -1)
         acts.append(act)
         vals.append(val)
-        pins.append(pin)
     dev = plan.device
-    host = (cls.astype(np.int32), np.stack(acts).astype(np.uint8),
-            np.stack(vals).astype(np.uint8), np.stack(pins).astype(np.int32))
+    host = (cls.astype(np.int32), np.stack(acts).view(np.uint8),
+            np.stack(vals).view(np.uint8), pins)
     if dev.type == "cuda":
         profile.record_h2d(sum(a.nbytes for a in host))
     return tuple(torch.from_numpy(a).to(dev) for a in host)

@@ -1025,9 +1025,42 @@ def _outage_scenarios(n_nodes, n_pods, seed, count):
     return scen
 
 
-# every B6 instantiation: base, B2, storage, terms, storage + terms
+def _pin_rows(plan, n_pods, seed):
+    """Outage rows, then the shapes the kernel's parallel pinned pass
+    relies on: a third of the pods pinned to one node (the node with the
+    most GPUs, else a storage node: their GPU-share and storage commits
+    keep pod order there), every pin on a masked node, every pinned pod
+    inactive, every pod pinned (no free pass) and no pin (no pinned
+    pass)."""
+    n = plan.n
+    rng = np.random.RandomState(seed)
+    scen = _outage_scenarios(n, n_pods, seed, 5)
+    hub = 0
+    if plan.has_gpu:
+        hub = int(plan.gpu_node[1].cpu().argmax())
+    elif plan.has_store:
+        hub = int(plan.has_storage.cpu().numpy().argmax())
+    pin = np.where(rng.rand(n_pods) < 0.3, rng.randint(n, size=n_pods), -1)
+    pin[::3] = hub
+    scen.append((rng.rand(n_pods) > 0.05, np.ones(n, bool), pin))
+    valid = rng.rand(n) > 0.5
+    valid[hub] = True
+    off = np.flatnonzero(~valid)
+    scen.append((np.ones(n_pods, bool), valid,
+                 np.where(rng.rand(n_pods) < 0.6, rng.choice(off, size=n_pods), -1)))
+    pin = np.where(rng.rand(n_pods) < 0.6, rng.randint(n, size=n_pods), -1)
+    scen.append((pin < 0, rng.rand(n) > 0.1, pin))
+    scen.append((rng.rand(n_pods) > 0.05, rng.rand(n) > 0.1, rng.randint(n, size=n_pods)))
+    scen.append((rng.rand(n_pods) > 0.05, rng.rand(n) > 0.1, np.full(n_pods, -1)))
+    return scen
+
+
+# every B6 instantiation: base, B2, storage, terms, storage + terms; the
+# base at 3,000 nodes keeps its slices in global memory on 1 and 2
+# blocks and in shared memory on 8 and 16
 PINS_FIRST_CASES = {
     "base": lambda: _scenario(1200, 500, 51, True),
+    "base-wide": lambda: _scenario(3000, 600, 56, True),
     "b2": lambda: _b2_scenario(1100, 500, 52),
     "b3": lambda: _b3_scenario(1500, 400, 53, 6),
     "b4": lambda: _b4_scenario(1500, 16, 20, 8, 54),
@@ -1036,12 +1069,14 @@ PINS_FIRST_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [None, 1, 2, 16])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 8, 16])
 @pytest.mark.parametrize("name", sorted(PINS_FIRST_CASES))
 def test_cuda_pins_first_batch_equals_plain(name, cluster):
-    """The pins-first kernel (pinned pods' pass, then the free pods')
-    equals its plain version row for row at every cluster size, and
-    counts its launch under its own name."""
+    """The pins-first kernel (the pinned pass, then the free pods')
+    equals its plain version row for row at every cluster size, with the
+    slices in shared and in global memory, on outage rows, pins crowding
+    one node, masked and inactive pins, all-pinned and pin-free rows,
+    and counts its launch under its own name."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import dataclasses
@@ -1049,7 +1084,9 @@ def test_cuda_pins_first_batch_equals_plain(name, cluster):
     plan, batch = _built(("pf", name), lambda: _plan(*PINS_FIRST_CASES[name]()))
     plan = _built(("pf", name, "cuda"), lambda: dataclasses.replace(
         plan.to("cuda"), has_pins=True))
-    scen = _outage_scenarios(plan.n, len(batch.class_of_pod), 61, 5)
+    if name == "base-wide" and cluster in (1, 16):
+        assert fused_scan.launch_shape(plan, cluster).resident == (cluster == 16)
+    scen = _pin_rows(plan, len(batch.class_of_pod), 61)
     ref = _plain_once(("pf", name), lambda: fused_scan.fused_scan_batch_reference(
         plan, batch.class_of_pod, scen, pins_first=True))
     name_k = fused_scan.PINS_FIRST_KERNEL_NAME
@@ -1069,20 +1106,78 @@ def test_cuda_pins_first_batch_equals_plain(name, cluster):
 
 @pytest.mark.cuda
 def test_cuda_pins_first_thousands_of_scenarios_in_waves():
-    """2,000 outage scenarios in one launch: far more clusters than the
-    card holds at once, so they run in waves at the rule's size."""
+    """2,000 outage scenarios in one launch, the pinned pass's shapes
+    (`_pin_rows`) among them: far more clusters than the card holds at
+    once, so they run in waves at the rule's size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import dataclasses
 
     plan, batch = _plan(*_scenario(64, 150, 62, False))
     plan = dataclasses.replace(plan.to("cuda"), has_pins=True)
-    scen = _outage_scenarios(plan.n, len(batch.class_of_pod), 63, 2000)
+    extra = _pin_rows(plan, len(batch.class_of_pod), 64)
+    scen = _outage_scenarios(plan.n, len(batch.class_of_pod), 63, 2000 - len(extra))
+    scen = scen[:1000] + extra + scen[1000:]  # the pinned pass's shapes mid-wave
     c = fused_scan.choose_cluster(plan, len(scen), True)
     assert fused_scan.max_active_clusters(plan, len(scen), True, c) < len(scen)
     ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen,
                                                 pins_first=True)
     got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    for g, r in zip(got, ref):
+        _same(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 8, 16])
+@pytest.mark.parametrize("p", [383, 385, 511, 513, 1025])
+def test_cuda_pins_first_across_chunk_edges(p, cluster):
+    """Pod counts either side of the pinned pass's rounds (384 or 512
+    pods a block, 32 a warp's GPU-share walk) and the free pass's 64-pod
+    windows, on a B2 plan of 36 nodes: equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    plan, batch = _built(("pf-edge", p), lambda: _plan(*_b2_scenario(36, p, 70 + p)))
+    plan = _built(("pf-edge", p, "cuda"), lambda: dataclasses.replace(
+        plan.to("cuda"), has_pins=True))
+    assert plan.has_gpu
+    scen = _pin_rows(plan, p, 71)
+    ref = _plain_once(("pf-edge", p), lambda: fused_scan.fused_scan_batch_reference(
+        plan, batch.class_of_pod, scen, pins_first=True))
+    if cluster is None:
+        got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    else:
+        got = fused_scan._run_with_cluster(plan, batch.class_of_pod, scen, True, cluster,
+                                           pins_first=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _same(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_pins_first_timeline_like_row():
+    """A timeline window's shape: 20,000 pods that ever exist, under 10%
+    of them active (most of those pinned where they run, pins on some
+    inactive ones too), at 1,000 nodes: equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    n_pods = 20_000
+    plan, batch = _plan(*_scenario(1000, n_pods, 65, False))
+    plan = dataclasses.replace(plan.to("cuda"), has_pins=True)
+    rng = np.random.RandomState(66)
+    scen = []
+    for _ in range(3):
+        active = rng.rand(n_pods) < 0.08
+        pin = np.where(rng.rand(n_pods) < 0.7, rng.randint(plan.n, size=n_pods), -1)
+        scen.append((active, rng.rand(plan.n) > 0.02, pin))
+    assert all(a.mean() < 0.1 for a, _, _ in scen)
+    ref = fused_scan.fused_scan_batch_reference(plan, batch.class_of_pod, scen,
+                                                pins_first=True)
+    got = fused_scan.run_fused_scan_batch(plan, batch.class_of_pod, scen, pins_first=True)
+    torch.cuda.synchronize()
     for g, r in zip(got, ref):
         _same(g, r)
 
