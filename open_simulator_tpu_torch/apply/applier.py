@@ -398,6 +398,17 @@ def probe_plan(
             chaos_trials, budget, journal, device,
         )
     finally:
+        _release_plan(gc_was_enabled)
+
+
+def _release_plan(gc_was_enabled: bool) -> None:
+    """The plan's closing work: drop the identity memos' references and
+    run the one cyclic collection the plan held off."""
+    import gc
+
+    from ..utils.trace import phase
+
+    with phase("apply/gc"):
         clear_all_memos()
         if gc_was_enabled:
             gc.enable()
@@ -442,7 +453,8 @@ def _finish_plan(
     with phase("apply/replay"):
         result, replay_oracle = replay_scenario(sweep, best.count, best.placements)
     # authoritative host-side check of the caps on real state
-    ok, reason = satisfy_resource_setting(result.node_status, oracle=replay_oracle)
+    with phase("apply/check"):
+        ok, reason = satisfy_resource_setting(result.node_status, oracle=replay_oracle)
     if result.unscheduled_pods or not ok:
         raise ConformanceError(
             "probe replay disagreed with scan: "
@@ -580,10 +592,7 @@ def probe_plan_multi(
             for (sweep, _, _), best in zip(jobs, bests)
         ]
     finally:
-        clear_all_memos()
-        if gc_was_enabled:
-            gc.enable()
-            gc.collect()
+        _release_plan(gc_was_enabled)
 
 
 class Applier:
@@ -711,18 +720,22 @@ class Applier:
         return Journal.open(self.journal_path, fp)
 
     def run(self, select_apps=None, budget=None) -> ApplyResult:
+        """Plan the config's apps. The phase totals (utils/trace.py
+        GLOBAL) add up from where the caller last reset them: `simon
+        apply` resets them at its start (cli.main)."""
+        from ..utils.trace import phase
+
         # release the identity memos' strong refs to this run's object
         # graph at exit (the serial guesses inside rely on them warm)
         try:
             return self._run_inner(select_apps, budget=budget)
         finally:
-            clear_all_memos()
+            with phase("apply/gc"):
+                clear_all_memos()
 
     def _run_inner(self, select_apps=None, budget=None) -> ApplyResult:
         from ..utils.trace import GLOBAL, phase
 
-        # per-run phase times, not cumulative across runs in one process
-        GLOBAL.reset()
         with phase("apply/load"):
             cluster = self.load_cluster()
             apps = self.load_apps()
@@ -793,7 +806,8 @@ class Applier:
                 )
             if result.unscheduled_pods:
                 continue
-            ok, reason = satisfy_resource_setting(result.node_status)
+            with phase("apply/check"):
+                ok, reason = satisfy_resource_setting(result.node_status)
             if not ok:
                 continue
             with phase("apply/report"):

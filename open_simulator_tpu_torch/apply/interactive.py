@@ -178,10 +178,13 @@ def run_interactive(applier, shell: Optional[Shell] = None, max_iterations: int 
         )
     shell = shell or Shell()
 
-    cluster = applier.load_cluster()
-    applier.last_cluster = cluster
-    apps = applier.load_apps()
-    new_node = applier.load_new_node()
+    from ..utils.trace import phase
+
+    with phase("apply/load"):
+        cluster = applier.load_cluster()
+        applier.last_cluster = cluster
+        apps = applier.load_apps()
+        new_node = applier.load_new_node()
 
     # app multi-select (apply.go:157-173)
     if apps:

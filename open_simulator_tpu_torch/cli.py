@@ -105,6 +105,7 @@ first N; a count beyond the cards there are exits 2.
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 import sys
@@ -242,32 +243,33 @@ def cmd_apply(args) -> int:
         Interrupted,
         sigint_to_budget,
     )
-    from .utils.trace import ProfileCaptureError
+    from .utils.trace import GLOBAL, ProfileCaptureError, phase
 
     try:
-        _configure_mesh(args)
-        if args.interactive and args.deadline is not None:
-            raise InputError(
-                "--deadline is not available in interactive mode (the "
-                "shell blocks on user input; press ^C to leave it)"
+        with phase("cli/config"):
+            _configure_mesh(args)
+            if args.interactive and args.deadline is not None:
+                raise InputError(
+                    "--deadline is not available in interactive mode (the "
+                    "shell blocks on user input; press ^C to leave it)"
+                )
+            config = SimonConfig.from_file(args.simon_config)
+            applier = Applier(
+                config,
+                interactive=args.interactive,
+                extended_resources=args.extended_resources,
+                engine=args.engine,
+                use_sweep=not args.no_sweep,
+                use_greed=args.use_greed,
+                scheduler_config=args.default_scheduler_config,
+                tolerate_node_failures=args.tolerate_node_failures,
+                chaos_seed=args.chaos_seed,
+                chaos_trials=args.chaos_trials,
+                journal_path=args.journal,
+                resume_path=args.resume,
+                device=args.device,
             )
-        config = SimonConfig.from_file(args.simon_config)
-        applier = Applier(
-            config,
-            interactive=args.interactive,
-            extended_resources=args.extended_resources,
-            engine=args.engine,
-            use_sweep=not args.no_sweep,
-            use_greed=args.use_greed,
-            scheduler_config=args.default_scheduler_config,
-            tolerate_node_failures=args.tolerate_node_failures,
-            chaos_seed=args.chaos_seed,
-            chaos_trials=args.chaos_trials,
-            journal_path=args.journal,
-            resume_path=args.resume,
-            device=args.device,
-        )
-        budget = Budget(args.deadline)
+            budget = Budget(args.deadline)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -300,10 +302,19 @@ def cmd_apply(args) -> int:
         # (a kernel launch, a conformance check) stay loud
         print(f"error: {e}", file=sys.stderr)
         return 2
+    with phase("cli/print"):
+        rc = _print_apply(args, applier, result)
+    with phase("cli/release"):
+        # the request's objects (the pods, the cluster, the report) are
+        # freed here by their reference counts, inside the command
+        del applier, result
     if args.trace:
-        from .utils.trace import GLOBAL
-
         print(GLOBAL.as_json(), file=sys.stderr)
+    return rc
+
+
+def _print_apply(args, applier, result) -> int:
+    """Write `simon apply`'s answer (and its --snapshot); the exit code."""
     if args.snapshot and result.result is not None:
         from .scheduler.snapshot import save_snapshot
 
@@ -2832,18 +2843,34 @@ def _add_guard_flags(p: argparse.ArgumentParser):
     )
 
 
+_COMMANDS = itertools.count(1)
+
+
 def main(argv=None) -> int:
-    _setup_logging()
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if not getattr(args, "func", None):
-        parser.print_help()
-        return 0
-    try:
-        _arm_injection(args)
-    except ValueError as e:  # InputError: a typo'd --inject is exit 2
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    from .obs.telemetry import request_scope
+
+    # one request id for every span of the command (obs/telemetry.py)
+    with request_scope(f"simon-{os.getpid()}-{next(_COMMANDS)}"):
+        return _main(argv)
+
+
+def _main(argv) -> int:
+    from .utils.trace import GLOBAL, phase
+
+    # the phase totals are the command's, from here to its return
+    GLOBAL.reset()
+    with phase("cli/args"):
+        _setup_logging()
+        parser = build_parser()
+        args = parser.parse_args(argv)
+        if not getattr(args, "func", None):
+            parser.print_help()
+            return 0
+        try:
+            _arm_injection(args)
+        except ValueError as e:  # InputError: a typo'd --inject is exit 2
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     return args.func(args)
 
 

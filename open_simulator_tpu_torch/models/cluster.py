@@ -18,21 +18,24 @@ from .workloads import ANNO_NODE_LOCAL_STORAGE
 
 
 def match_and_set_local_storage(nodes: list, dir_path: str):
-    storage = {}
-    for p in list_files(dir_path):
-        if not p.endswith(".json"):
-            continue
-        name = os.path.splitext(os.path.basename(p))[0]
-        with open(p) as f:
-            try:
-                storage[name] = json.dumps(json.load(f))
-            except json.JSONDecodeError:
+    from ..utils.trace import phase
+
+    with phase("load/decode"):
+        storage = {}
+        for p in list_files(dir_path):
+            if not p.endswith(".json"):
                 continue
-    for node in nodes:
-        meta = node.setdefault("metadata", {})
-        name = meta.get("name", "")
-        if name in storage:
-            meta.setdefault("annotations", {})[ANNO_NODE_LOCAL_STORAGE] = storage[name]
+            name = os.path.splitext(os.path.basename(p))[0]
+            with open(p) as f:
+                try:
+                    storage[name] = json.dumps(json.load(f))
+                except json.JSONDecodeError:
+                    continue
+        for node in nodes:
+            meta = node.setdefault("metadata", {})
+            name = meta.get("name", "")
+            if name in storage:
+                meta.setdefault("annotations", {})[ANNO_NODE_LOCAL_STORAGE] = storage[name]
 
 
 def cluster_from_config_dir(path: str) -> ResourceTypes:

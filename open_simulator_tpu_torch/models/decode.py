@@ -4,6 +4,11 @@ Mirrors pkg/utils/utils.go:44-131 (ParseFilePath / ReadYamlFile /
 GetYamlContentFromDirectory) and pkg/simulator/utils.go:139-183
 (GetObjectFromYamlContent). Objects are kept as plain dicts (the parsed
 YAML); typed behavior lives in accessor modules.
+
+A load is timed in three phases (utils/trace.py), each entered once a
+loader call and never once a file: `load/read` (the file reads),
+`load/parse` (libyaml) and `load/decode` (the demux by kind, and the
+node-local storage that models/cluster.py matches to the nodes).
 """
 
 from __future__ import annotations
@@ -97,36 +102,49 @@ def safe_load_all(text: str) -> List:
 
 
 def read_yaml_documents(path: str) -> List[dict]:
+    from ..utils.trace import phase
+
     if not path.endswith(_YAML_EXT):
         return []
-    with open(path) as f:
-        docs = safe_load_all(f.read())
+    with phase("load/read"):
+        with open(path) as f:
+            text = f.read()
+    with phase("load/parse"):
+        docs = safe_load_all(text)
     return [d for d in docs if isinstance(d, dict)]
 
 
 def yaml_content_from_directory(dir_path: str) -> List[str]:
     """Raw YAML strings from every .yaml/.yml under dir (recursively)."""
+    from ..utils.trace import phase
+
     out = []
-    for p in list_files(dir_path):
-        if p.endswith(_YAML_EXT):
-            with open(p) as f:
-                out.append(f.read())
+    with phase("load/read"):
+        for p in list_files(dir_path):
+            if p.endswith(_YAML_EXT):
+                with open(p) as f:
+                    out.append(f.read())
     return out
 
 
 def decode_yaml_content(yaml_strings: List[str]) -> ResourceTypes:
     """GetObjectFromYamlContent: demux documents by kind; unknown kinds
-    are silently skipped (pkg/simulator/utils.go:175-177)."""
+    are silently skipped (pkg/simulator/utils.go:175-177). Every string
+    is parsed before any document is sorted."""
+    from ..utils.trace import phase
+
+    with phase("load/parse"):
+        parsed = [safe_load_all(s) for s in yaml_strings]
     res = ResourceTypes()
-    for s in yaml_strings:
-        for doc in safe_load_all(s):
-            if not isinstance(doc, dict):
-                continue
-            kind = doc.get("kind")
-            f = _KIND_FIELD.get(kind)
-            if f is None:
-                continue
-            getattr(res, f).append(doc)
+    with phase("load/decode"):
+        for docs in parsed:
+            for doc in docs:
+                if not isinstance(doc, dict):
+                    continue
+                f = _KIND_FIELD.get(doc.get("kind"))
+                if f is None:
+                    continue
+                getattr(res, f).append(doc)
     return res
 
 

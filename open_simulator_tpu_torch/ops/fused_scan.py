@@ -1695,26 +1695,38 @@ def _cost(ln, plan: FusedPlan, class_of_pod, scenarios, name: str) -> None:
         ln.site, name, plan, class_of_pod, scenarios, cluster))
 
 
+def scenario_inputs(plan: FusedPlan, class_of_pod, scenarios):
+    """The inputs of a launch over `scenarios` on the plan's card, made
+    ahead of `run_fused_scan[_batch](..., inputs=)` so that a caller can
+    time their copy apart from the launch; None for a CPU plan, whose
+    plain version reads the host arrays itself."""
+    if _device_of(plan) == "cpu":
+        return None
+    return _scenario_inputs(plan, class_of_pod, scenarios)
+
+
 def run_fused_scan(plan: FusedPlan, class_of_pod, active, valid, pinned=None,
-                   site: str = "scan"):
+                   site: str = "scan", inputs=None):
     """Run one scan. Returns (placements[P] int32, final state dict of
     [N] int64 rows keyed by STATE_FIELDS, plus the rows of the blocks
     the plan has), on the plan's device. A plan on the CPU takes the
     plain version; a plan on a CUDA device takes the kernel or raises.
-    The launch is instrumented at `site` (obs/profile.py)."""
+    `inputs` are scenario_inputs' of this scenario, made here when not
+    given. The launch is instrumented at `site` (obs/profile.py)."""
     scenarios = [(active, valid, pinned)]
     with profile.launch(site, plan.device) as ln:
         if _device_of(plan) == "cpu":
             out = fused_scan_reference(plan, class_of_pod, active, valid, pinned)
         else:
-            inputs = _scenario_inputs(plan, class_of_pod, scenarios)
+            if inputs is None:
+                inputs = _scenario_inputs(plan, class_of_pod, scenarios)
             out = _launch(plan, *inputs, batch=False)[0]
         _cost(ln, plan, class_of_pod, scenarios, kernel_name(plan))
     return out
 
 
 def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=False,
-                         site: str = "scan"):
+                         site: str = "scan", inputs=None):
     """Several independent scans of one plan: `scenarios` is a list of
     (active[P], valid[N], pinned[P] or None). Returns [(placements,
     final), ...] in scenario order — the contract of the JAX package's
@@ -1722,14 +1734,16 @@ def run_fused_scan_batch(plan: FusedPlan, class_of_pod, scenarios, pins_first=Fa
     pinned pods before any free pod schedules (two passes over the pod
     order in the one launch: the JAX package's _scenario_pinned_impl).
     On a CUDA plan all scenarios go in one launch on one stream (one
-    cluster each); a CPU plan takes the plain version. The launch is
-    instrumented at `site` (obs/profile.py)."""
+    cluster each); a CPU plan takes the plain version. `inputs` as in
+    run_fused_scan. The launch is instrumented at `site`
+    (obs/profile.py)."""
     with profile.launch(site, plan.device) as ln:
         if _device_of(plan) == "cpu":
             out = fused_scan_batch_reference(plan, class_of_pod, scenarios,
                                              pins_first=pins_first)
         else:
-            inputs = _scenario_inputs(plan, class_of_pod, scenarios)
+            if inputs is None:
+                inputs = _scenario_inputs(plan, class_of_pod, scenarios)
             out = _launch(plan, *inputs, batch=True, pins_first=pins_first)
         _cost(ln, plan, class_of_pod, scenarios,
               PINS_FIRST_KERNEL_NAME if pins_first else BATCH_KERNEL_NAME)
@@ -1806,6 +1820,7 @@ __all__ = [
     "resolve_device",
     "run_fused_scan",
     "run_fused_scan_batch",
+    "scenario_inputs",
     "scratch_bytes",
     "slice_bytes",
     "slices",

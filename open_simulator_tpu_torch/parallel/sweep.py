@@ -52,7 +52,7 @@ from ..models import workloads as wl
 from ..models.decode import ResourceTypes
 from ..models.validation import InputError
 from ..obs.costs import COSTS
-from ..obs.profile import to_host
+from ..obs.profile import resolve_pending, to_host
 from ..ops import fused_scan
 from ..ops.fused_scan import INACTIVE
 from ..runtime.guard import run_chunked
@@ -180,8 +180,9 @@ class CapacitySweep:
 
         self.device = fused_scan.resolve_device(device)
         self.max_count = max_count if new_node_spec is not None else 0
-        padded = cluster.copy()
-        padded.nodes = list(padded.nodes) + _new_nodes(new_node_spec, self.max_count)
+        with phase("sweep/pad"):
+            padded = cluster.copy()
+            padded.nodes = list(padded.nodes) + _new_nodes(new_node_spec, self.max_count)
 
         # Build oracle at full padding; generate the full pod sequence
         # the serial path would see (cluster pods, then apps in order).
@@ -249,27 +250,28 @@ class CapacitySweep:
         # appends every fresh result (attach_journal)
         self.journal = None
 
-        # which pods arrived with spec.nodeName, recorded BEFORE any
-        # replay binds pods (replay_scenario writes nodeName into these
-        # shared pod dicts; a later replay must not mistake a previous
-        # replay's binding for an original pin)
-        self.had_node_name = np.array(
-            [bool((p.get("spec") or {}).get("nodeName")) for p in pods], dtype=bool
-        )
-        # daemonset pods of disabled candidate nodes are inactive in
-        # that scenario (the reference regenerates them per run)
-        self._ds_target = np.full(len(pods), -1, dtype=np.int64)
-        name_to_idx = self.oracle.node_index
-        for p_i, pod in enumerate(pods):
-            target = _daemonset_target(pod)
-            if target is not None and target in name_to_idx:
-                self._ds_target[p_i] = name_to_idx[target]
-        GLOBAL.note(
-            "sweep-kernel",
-            fused_scan.kernel_label(self.plan)
-            if self.plan is not None
-            else f"torch-scan ({self.scan_reason})",
-        )
+        with phase("sweep/index"):
+            # which pods arrived with spec.nodeName, recorded BEFORE any
+            # replay binds pods (replay_scenario writes nodeName into
+            # these shared pod dicts; a later replay must not mistake a
+            # previous replay's binding for an original pin)
+            self.had_node_name = np.array(
+                [bool((p.get("spec") or {}).get("nodeName")) for p in pods], dtype=bool
+            )
+            # daemonset pods of disabled candidate nodes are inactive in
+            # that scenario (the reference regenerates them per run)
+            self._ds_target = np.full(len(pods), -1, dtype=np.int64)
+            name_to_idx = self.oracle.node_index
+            for p_i, pod in enumerate(pods):
+                target = _daemonset_target(pod)
+                if target is not None and target in name_to_idx:
+                    self._ds_target[p_i] = name_to_idx[target]
+            GLOBAL.note(
+                "sweep-kernel",
+                fused_scan.kernel_label(self.plan)
+                if self.plan is not None
+                else f"torch-scan ({self.scan_reason})",
+            )
 
     def _expand(self, cluster, padded, apps, use_greed) -> List[dict]:
         """The full pod sequence the serial path would see, with the
@@ -450,14 +452,17 @@ class CapacitySweep:
                            mem_util=mem, vg_util=vg, placements=pl)
 
     def _probe_kernel(self, count: int) -> ProbeResult:
-        from ..utils.trace import profiled
+        from ..utils.trace import phase, profiled
 
-        active, valid, pinned = self._scenario(count)
         with profiled("sweep/probe"):
+            with phase("probe/inputs"):
+                active, valid, pinned = self._scenario(count)
+                inputs = fused_scan.scenario_inputs(
+                    self.plan, self.batch.class_of_pod, [(active, valid, pinned)])
             placements, final = fused_scan.run_fused_scan(
                 self.plan, self.batch.class_of_pod, active, valid, pinned=pinned,
-                site="sweep_probe")
-            return self._result(count, valid, placements, final)
+                site="sweep_probe", inputs=inputs)
+            return self.results_of([count], [(placements, final)])[0]
 
     def _probe_torch_scan(self, count: int, valid) -> ProbeResult:
         from ..utils.trace import profiled
@@ -486,9 +491,13 @@ class CapacitySweep:
         """Launch several counts in ONE batch-kernel launch (one cluster
         of blocks a count) without waiting for it: the device rows, for
         results_of. Needs a kernel plan."""
-        scenarios = [self._scenario(c) for c in counts]
+        from ..utils.trace import phase
+
+        with phase("probe/inputs"):
+            scenarios = [self._scenario(c) for c in counts]
+            inputs = fused_scan.scenario_inputs(self.plan, self.batch.class_of_pod, scenarios)
         return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios,
-                                               site="sweep_many")
+                                               site="sweep_many", inputs=inputs)
 
     def launch_counts_on(self, mesh, counts: List[int]):
         """launch_counts split over `mesh`: one batch-kernel launch a
@@ -500,10 +509,16 @@ class CapacitySweep:
             site="sweep_many", plans=self._mesh_plans) for row in outs]
 
     def results_of(self, counts: List[int], rows) -> List[ProbeResult]:
-        """ProbeResults of launch_counts' rows (the first read waits for
-        the launch)."""
-        return [self._result(c, self.node_valid(c), placements, final)
-                for c, (placements, final) in zip(counts, rows)]
+        """ProbeResults of launch_counts' rows: the host first waits on
+        the end events of this thread's launches (obs/profile.Launch;
+        nothing to wait for off the card), then reads the rows back."""
+        from ..utils.trace import phase
+
+        with phase("probe/wait"):
+            resolve_pending(wait=True)
+        with phase("probe/readback"):
+            return [self._result(c, self.node_valid(c), placements, final)
+                    for c, (placements, final) in zip(counts, rows)]
 
     def probe_counts(self, counts: List[int], mesh=None) -> List[ProbeResult]:
         """Evaluate several counts: in ONE launch of the scenario-batch
