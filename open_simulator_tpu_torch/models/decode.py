@@ -7,8 +7,19 @@ YAML); typed behavior lives in accessor modules.
 
 A load is timed in three phases (utils/trace.py), each entered once a
 loader call and never once a file: `load/read` (the file reads),
-`load/parse` (libyaml) and `load/decode` (the demux by kind, and the
-node-local storage that models/cluster.py matches to the nodes).
+`load/parse` (`safe_load_all`) and `load/decode` (the demux by kind, and
+the node-local storage that models/cluster.py matches to the nodes).
+
+`safe_load_all` gives every text to models/yaml_block.py first, a
+loader of the block YAML that Kubernetes manifests are written in: for
+a text inside its subset it returns the documents `yaml.safe_load_all`
+returns, several times faster than libyaml through PyYAML. It refuses
+any other text (flow style, JSON, block scalars, anchors, tags, ...) at
+the first construct outside the subset, and the text goes to libyaml,
+then to PyYAML's pure loader, as before. Two counters of
+utils/trace.py `COUNTERS` show which loader parsed what:
+`yaml_block_docs_total` (the documents the block loader returned) and
+`yaml_block_refused_total` (the texts it refused).
 """
 
 from __future__ import annotations
@@ -85,13 +96,25 @@ def list_files(path: str) -> List[str]:
 
 
 def safe_load_all(text: str) -> List:
-    """`yaml.safe_load_all(text)` as a list. Parsed by libyaml where
-    PyYAML has it (the same constructor and resolver, so the same
-    documents, several times faster on a cluster of thousands of
-    objects); text libyaml refuses is parsed again by the pure loader,
-    so an error is PyYAML's own."""
+    """`yaml.safe_load_all(text)` as a list. Parsed by the block loader
+    (models/yaml_block.py) when the text is inside its subset, counted
+    in `yaml_block_docs_total`; a text it refuses, counted in
+    `yaml_block_refused_total`, is parsed by libyaml where PyYAML has it
+    (the same constructor and resolver, so the same documents), and a
+    text libyaml refuses is parsed again by the pure loader, so an error
+    is PyYAML's own."""
     import yaml  # only YAML ingestion needs PyYAML
 
+    from ..utils.trace import COUNTERS
+    from .yaml_block import Refused, load_all
+
+    try:
+        docs = load_all(text)
+    except Refused:
+        COUNTERS.inc("yaml_block_refused_total")
+    else:
+        COUNTERS.inc("yaml_block_docs_total", len(docs))
+        return docs
     loader = getattr(yaml, "CSafeLoader", None)
     if loader is not None:
         try:

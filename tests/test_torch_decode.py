@@ -1,5 +1,6 @@
 """The GPU port's YAML ingestion (models/decode.py) against the JAX
-package's: libyaml parses where PyYAML has it, and the documents, the
+package's: the block loader (models/yaml_block.py) or, for a text it
+refuses, libyaml where PyYAML has it parses, and the documents, the
 demux by kind and the errors are the pure loader's."""
 
 import dataclasses
