@@ -1594,11 +1594,13 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_scan_kernel(
           }
         }
         if constexpr (kTerms) {
-          // InterPodAffinity NormalizeScore: bounds include 0, f64 divide
+          // InterPodAffinity NormalizeScore: bounds include 0,
+          // 100 * ((s - min) / diff) in f64 as scoring.go orders it
           if (w.ipa && ipa_diff > 0) {
-            const int64_t s = __double2ll_rz(__ddiv_rn(
-                __ll2double_rn(mul_w(kMaxScore, sub_w(l_aux[kAuxIpa * ls + i], ipa_mn))),
-                __ll2double_rn(ipa_diff)));
+            const int64_t s = __double2ll_rz(__dmul_rn(
+                static_cast<double>(kMaxScore),
+                __ddiv_rn(__ll2double_rn(sub_w(l_aux[kAuxIpa * ls + i], ipa_mn)),
+                          __ll2double_rn(ipa_diff))));
             total = add_w(total, mul_w(s, w.ipa));
           }
           // PodTopologySpread: eligible nodes by (max + min - raw) / max
@@ -1858,7 +1860,10 @@ int run(const ScanArgs& a, const Shape& sh, cudaStream_t stream, Ask ask, int64_
   if (sh.cluster > 8) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  if (err == cudaSuccess && sh.smem > 48 * 1024) {
+  // the opt-in raises the dynamic limit from 48 KB less the static
+  // arrays: a launch needs it once the two pass 48 KB together, even
+  // with less than 48 KB dynamic, so every launch that takes any sets it
+  if (err == cudaSuccess && sh.smem > 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(sh.smem));
   }

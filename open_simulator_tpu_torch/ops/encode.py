@@ -35,6 +35,7 @@ from ..models import labels as lbl
 from ..models import requests as req
 from ..models import storage as stor
 from ..utils.memo import IdentityMemo, register_cache
+from ..utils.trace import phase
 from .profiles import freeze as _freeze
 from .profiles import node_profiles_cached as _shared_node_profiles
 from .profiles import uses_match_fields as _uses_match_fields
@@ -752,7 +753,8 @@ def encode_batch(
                 else:
                     custom_raw[k_i, u_i, n_i] = int(plugin.score(pod, ns.node))
 
-    terms = build_term_tables(oracle, class_pods, profiles=(node_class_of, rep_idx))
+    with phase("encode/terms"):
+        terms = build_term_tables(oracle, class_pods, profiles=(node_class_of, rep_idx))
 
     return PodBatch(
         p=len(pods),

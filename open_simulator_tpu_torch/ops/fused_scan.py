@@ -72,6 +72,7 @@ import torch
 
 from ..obs import profile
 from ..utils import nvcc
+from ..utils.trace import phase
 
 MAX_SCORE = 100
 INACTIVE = -2
@@ -548,7 +549,8 @@ def build_plan(cluster, batch, dyn, features, device="cpu") -> FusedPlan:
     check_in_kernel(features)
     arrays = _base_arrays(cluster, batch, dyn, features)
     if features.terms:
-        arrays.update(_terms_from_tables(batch.terms))
+        with phase("encode/terms"):
+            arrays.update(_terms_from_tables(batch.terms))
     return _make_plan(arrays, int(cluster.n), int(np.asarray(batch.req_mcpu).shape[0]),
                       _weights(_score_weights(features)), bool(features.pins), device)
 
@@ -1145,14 +1147,14 @@ def fused_scan_batch_reference(plan: FusedPlan, class_of_pod, scenarios,
                 if terms is not None:
                     if w_ipa:
                         # InterPodAffinity NormalizeScore: bounds include 0,
-                        # f64 divide, int64 truncation
+                        # 100 * ((s - min) / diff) in f64, int64 truncation
                         masked = torch.where(feas, ipa_raw, zero)
                         mx = masked.amax(dim=1, keepdim=True).clamp(min=0)
                         mn = masked.amin(dim=1, keepdim=True).clamp(max=0)
                         diff = (mx - mn).double()
                         total += torch.where(
                             diff > 0,
-                            ((MAX_SCORE * (ipa_raw - mn)).double() / diff.clamp(min=1.0)).long(),
+                            (MAX_SCORE * ((ipa_raw - mn).double() / diff.clamp(min=1.0))).long(),
                             zero) * w_ipa
                     soft = terms.soft(u, feas) if w_spread else None
                     if soft is not None:

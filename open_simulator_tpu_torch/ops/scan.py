@@ -747,13 +747,13 @@ def _score(static: ScanStatic, state: ScanState, u: int, feasible, features, w,
         total = total + static.avoid_score[u] * w.avoid
     if features.ipa and w.ipa:
         # InterPodAffinity NormalizeScore (scoring.go:246-270): bounds
-        # include 0, float divide, int64 truncation
+        # include 0, 100 * ((s - min) / diff) in float64, int64 truncation
         ipa_mx = ctx.combine_max(torch.where(feasible, ipa_raw, 0).max()).clamp(min=0)
         ipa_mn = ctx.combine_min(torch.where(feasible, ipa_raw, 0).min()).clamp(max=0)
         ipa_diff = (ipa_mx - ipa_mn).double()
         ipa = torch.where(
             ipa_diff > 0,
-            ((MAX_SCORE * (ipa_raw - ipa_mn)).double() / ipa_diff.clamp(min=1.0)).to(
+            (MAX_SCORE * ((ipa_raw - ipa_mn).double() / ipa_diff.clamp(min=1.0))).to(
                 torch.int64),
             0,
         )

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..models import labels as lbl
+from ..utils.trace import COUNTERS
 
 HOSTNAME_KEY = "kubernetes.io/hostname"
 HARD_POD_AFFINITY_WEIGHT = 1
@@ -181,6 +182,28 @@ def _spread_constraints(pod: dict, mode: str) -> list:
             }
         )
     return out
+
+
+def _count_rows(term_rows, spreads, match, preferred, carried) -> None:
+    """One request's term rows by the kind of term that names them (a
+    row two kinds name counts under both) and its classes with a
+    non-empty InterPodAffinity score: those with preferred terms (a
+    [T, U] weight of `preferred` set), and those a row matches on which
+    some pod carries a required affinity or a preferred term (a [T, *]
+    entry of `carried` set) (utils/trace.py COUNTERS)."""
+    kinds = [set(), set(), set()]  # required affinity, required anti, preferred
+    for aff, anti, paff, panti in term_rows:
+        kinds[0].update(aff)
+        kinds[1].update(anti)
+        kinds[2].update(paff + panti)
+    spread = {c["row"] for cs in spreads for c in cs}
+    scoring_rows = np.any([(x != 0).any(axis=1) for x in carried], axis=0)
+    scored = (np.any([(x != 0).any(axis=0) for x in preferred], axis=0)
+              | (match & scoring_rows[:, None]).any(axis=0))
+    for name, n in (("affinity", len(kinds[0])), ("anti", len(kinds[1])),
+                    ("preferred", len(kinds[2])), ("spread", len(spread))):
+        COUNTERS.inc(f"terms_rows_{name}_total", n)
+    COUNTERS.inc("terms_scored_classes_total", int(scored.sum()))
 
 
 def build_term_tables(oracle, class_pods: List[dict], profiles=None) -> TermTables:
@@ -478,6 +501,10 @@ def build_term_tables(oracle, class_pods: List[dict], profiles=None) -> TermTabl
                     if val >= 0:
                         init_soft_counts[c_i, val] += 1
 
+    _count_rows(cls_term_rows + ex_term_rows, cls_hard + cls_soft, match,
+                preferred=(carry_aff_pref_w, carry_anti_pref_w),
+                carried=(carry_aff_req, carry_aff_pref_w, carry_anti_pref_w,
+                         init_own_aff_req, init_own_aff_pref_w, init_own_anti_pref_w))
     return TermTables(
         t=t,
         v=v,

@@ -1459,7 +1459,9 @@ class Oracle:
         out = []
         for s in raw:
             if diff > 0:
-                out.append(int(MAX_NODE_SCORE * (s - min_c) / diff))
+                # float64(100) * (float64(s-min) / float64(diff)), as
+                # scoring.go NormalizeScore orders it
+                out.append(int(MAX_NODE_SCORE * ((s - min_c) / diff)))
             else:
                 out.append(0)
         return out

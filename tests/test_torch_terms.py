@@ -358,3 +358,39 @@ def test_value_space_is_ragged_per_row():
     widths = set(np.diff(plan.t_off.numpy()).tolist())
     assert widths == {40, 4}
     assert plan.t_init.shape[1] == int(plan.t_off[-1]) + 1
+
+
+def test_normalize_score_divides_before_it_scales_unlike_the_jax_package():
+    """InterPodAffinity's NormalizeScore (kube-scheduler v1.20.5,
+    pkg/scheduler/framework/plugins/interpodaffinity/scoring.go) computes
+    int64(float64(MaxNodeScore) * (float64(s - min) / float64(diff))).
+    The port orders it so; the JAX package takes the product first. Raw
+    scores 50, 29 and 0 (two placed pods the incoming pod prefers, with
+    weights 50 and 29, on their hostnames) are where they part: 29 / 50
+    scales to 57 in the port, 58 in the JAX package."""
+    nodes = [make_node(i, "a") for i in range(3)]
+
+    def pod(name, labels, node=None, pref=()):
+        spec = {"containers": [{"name": "c", "image": "i",
+                                "resources": {"requests": {"cpu": "100m"}}}]}
+        if node is not None:
+            spec["nodeName"] = node
+        if pref:
+            spec["affinity"] = {"podAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [
+                    {"weight": w, "podAffinityTerm": {
+                        "labelSelector": {"matchLabels": {"tier": tier}},
+                        "topologyKey": "kubernetes.io/hostname"}} for w, tier in pref]}}
+        return {"metadata": {"name": name, "namespace": "d", "labels": labels},
+                "spec": spec, "status": {"phase": "Running"}}
+
+    placed = [pod("a", {"tier": "a"}, "n000"), pod("b", {"tier": "b"}, "n001")]
+    seeker = pod("seeker", {}, pref=((50, "a"), (29, "b")))
+    scores = {}
+    for pkg in (JAX_PKG, PORT_PKG):
+        oracle = importlib.import_module(f"{pkg}.scheduler.oracle").Oracle(copy.deepcopy(nodes))
+        for p in placed:
+            oracle.place_existing_pod(copy.deepcopy(p))
+        scores[pkg] = oracle._score_interpod_affinity(copy.deepcopy(seeker), oracle.nodes)
+    assert scores[PORT_PKG] == [100, 57, 0]
+    assert scores[JAX_PKG] == [100, 58, 0]
