@@ -34,6 +34,7 @@ The interactive shell (`simon apply -i`) is apply/interactive.py.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -50,6 +51,7 @@ from ..models.decode import (
 from ..models.validation import InputError
 from ..runtime.errors import ConformanceError
 from ..scheduler.core import AppResource, SimulateResult, simulate
+from ..utils.gcscope import collection_scope
 from ..utils.memo import clear_all_memos
 from .report import report
 
@@ -382,37 +384,33 @@ def probe_plan(
     halts the search at safe boundaries with a partial payload
     (runtime/budget); `journal` makes probes and scenario verdicts
     resumable. The scans run on `device` (None = the card)."""
-    import gc
-
     # the plan allocates millions of short-lived dicts (pod expansion,
-    # replay, report rows) but frees almost nothing mid-run — cyclic-GC
-    # passes are pure overhead and wall-clock jitter at 100k pods.
-    # Pause collection for the duration; one collect at the end.
-    gc_was_enabled = gc.isenabled()
-    if gc_was_enabled:
-        gc.disable()
-    try:
+    # replay, report rows) but frees almost nothing mid-run, so it runs
+    # in a collection scope (utils/gcscope.py): inside `simon apply`'s
+    # own scope it collects nothing, and the command collects the
+    # request's cycles once, after its answer is released; a library
+    # caller's plan closes with one young collection of its own
+    with _plan_scope():
         return _probe_plan_inner(
             cluster, apps, new_node, use_greed, extended_resources,
             max_count, score_weights, tolerate_failures, chaos_seed,
             chaos_trials, budget, journal, device,
         )
-    finally:
-        _release_plan(gc_was_enabled)
 
 
-def _release_plan(gc_was_enabled: bool) -> None:
-    """The plan's closing work: drop the identity memos' references and
-    run the one cyclic collection the plan held off."""
-    import gc
-
+@contextmanager
+def _plan_scope():
+    """A plan's collection scope; its closing work drops the identity
+    memos' references to the plan's object graph before the scope
+    collects."""
     from ..utils.trace import phase
 
-    with phase("apply/gc"):
-        clear_all_memos()
-        if gc_was_enabled:
-            gc.enable()
-            gc.collect()
+    with collection_scope():
+        try:
+            yield
+        finally:
+            with phase("apply/gc"):
+                clear_all_memos()
 
 
 def _capacity_feasible():
@@ -538,12 +536,7 @@ def probe_plan_multi(
     once (parallel/sweep.py find_min_count_multi). Returns one
     ApplyResult per spec, identical to what probe_plan would produce
     for it."""
-    import gc
-
-    gc_was_enabled = gc.isenabled()
-    if gc_was_enabled:
-        gc.disable()
-    try:
+    with _plan_scope():
         from ..parallel.sweep import CapacitySweep, find_min_count_multi
         from ..utils.trace import phase
 
@@ -591,8 +584,6 @@ def probe_plan_multi(
             _finish_plan(sweep, best, max_count, extended_resources)
             for (sweep, _, _), best in zip(jobs, bests)
         ]
-    finally:
-        _release_plan(gc_was_enabled)
 
 
 class Applier:

@@ -233,6 +233,22 @@ def _emit_partial(e, args, journal_path: str) -> int:
 
 @_with_obs("apply")
 def cmd_apply(args) -> int:
+    from .utils.gcscope import collection_scope
+    from .utils.trace import GLOBAL
+
+    # the request's one collection scope (utils/gcscope.py): no cyclic
+    # collection from here until its answer is released; then one of
+    # the young generations, which hold all the request allocated
+    with collection_scope():
+        rc = _apply_request(args)
+    if args.trace:
+        print(GLOBAL.as_json(), file=sys.stderr)
+    return rc
+
+
+def _apply_request(args) -> int:
+    """`simon apply`'s request, from its configuration to the release
+    of its answer; the exit code."""
     from .apply.applier import Applier, SimonConfig
     from .models.validation import InputError
     from .ops.fused_scan import NoCardError, OutOfSliceError
@@ -243,7 +259,7 @@ def cmd_apply(args) -> int:
         Interrupted,
         sigint_to_budget,
     )
-    from .utils.trace import GLOBAL, ProfileCaptureError, phase
+    from .utils.trace import ProfileCaptureError, phase
 
     try:
         with phase("cli/config"):
@@ -308,8 +324,6 @@ def cmd_apply(args) -> int:
         # the request's objects (the pods, the cluster, the report) are
         # freed here by their reference counts, inside the command
         del applier, result
-    if args.trace:
-        print(GLOBAL.as_json(), file=sys.stderr)
     return rc
 
 

@@ -837,11 +837,12 @@ def simulate(
     # a run allocates hundreds of thousands of short-lived dicts (pod
     # expansion, clones, result rows) but frees almost nothing mid-run
     # — cyclic-GC passes are pure overhead and wall-clock jitter at
-    # bench scale (the same pause probe_plan applies, applier.py).
-    # Unlike probe_plan there is NO trailing gc.collect(): the run's
-    # object graphs are acyclic (dict/list trees), so refcounting
-    # frees them without the cyclic collector, and a full collect here
-    # would cost more than the pauses it saves on a sub-second run
+    # bench scale. Unlike a collection scope (utils/gcscope.py, which
+    # `simon apply` and probe_plan run in) there is NO closing
+    # collection here: the run's object graphs are acyclic (dict/list
+    # trees), so refcounting frees them without the cyclic collector;
+    # inside a scope the collector is already off and this pause is a
+    # no-op, and the scope collects the young generations once at its end
     gc_was_enabled = gc.isenabled()
     if gc_was_enabled:
         gc.disable()
