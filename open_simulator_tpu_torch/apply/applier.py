@@ -34,7 +34,6 @@ The interactive shell (`simon apply -i`) is apply/interactive.py.
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -52,7 +51,6 @@ from ..models.validation import InputError
 from ..runtime.errors import ConformanceError
 from ..scheduler.core import AppResource, SimulateResult, simulate
 from ..utils.gcscope import collection_scope
-from ..utils.memo import clear_all_memos
 from .report import report
 
 MAX_NUM_NEW_NODE = wl.MAX_NUM_NEW_NODE
@@ -387,30 +385,16 @@ def probe_plan(
     # the plan allocates millions of short-lived dicts (pod expansion,
     # replay, report rows) but frees almost nothing mid-run, so it runs
     # in a collection scope (utils/gcscope.py): inside `simon apply`'s
-    # own scope it collects nothing, and the command collects the
-    # request's cycles once, after its answer is released; a library
-    # caller's plan closes with one young collection of its own
-    with _plan_scope():
+    # own scope it does nothing, and the command clears the memos and
+    # collects the request's cycles once, after its answer is released;
+    # a library caller's plan closes with a clear and one young
+    # collection of its own
+    with collection_scope():
         return _probe_plan_inner(
             cluster, apps, new_node, use_greed, extended_resources,
             max_count, score_weights, tolerate_failures, chaos_seed,
             chaos_trials, budget, journal, device,
         )
-
-
-@contextmanager
-def _plan_scope():
-    """A plan's collection scope; its closing work drops the identity
-    memos' references to the plan's object graph before the scope
-    collects."""
-    from ..utils.trace import phase
-
-    with collection_scope():
-        try:
-            yield
-        finally:
-            with phase("apply/gc"):
-                clear_all_memos()
 
 
 def _capacity_feasible():
@@ -536,7 +520,7 @@ def probe_plan_multi(
     once (parallel/sweep.py find_min_count_multi). Returns one
     ApplyResult per spec, identical to what probe_plan would produce
     for it."""
-    with _plan_scope():
+    with collection_scope():
         from ..parallel.sweep import CapacitySweep, find_min_count_multi
         from ..utils.trace import phase
 
@@ -714,15 +698,11 @@ class Applier:
         """Plan the config's apps. The phase totals (utils/trace.py
         GLOBAL) add up from where the caller last reset them: `simon
         apply` resets them at its start (cli.main)."""
-        from ..utils.trace import phase
-
-        # release the identity memos' strong refs to this run's object
-        # graph at exit (the serial guesses inside rely on them warm)
-        try:
+        # the run's collection scope releases the identity memos' strong
+        # refs to its object graph at exit (the serial guesses inside
+        # rely on them warm): here, or in the command's scope around it
+        with collection_scope():
             return self._run_inner(select_apps, budget=budget)
-        finally:
-            with phase("apply/gc"):
-                clear_all_memos()
 
     def _run_inner(self, select_apps=None, budget=None) -> ApplyResult:
         from ..utils.trace import GLOBAL, phase

@@ -251,7 +251,7 @@ def _apply_request(args) -> int:
     of its answer; the exit code."""
     from .apply.applier import Applier, SimonConfig
     from .models.validation import InputError
-    from .ops.fused_scan import NoCardError, OutOfSliceError
+    from .ops.fused_scan import NoCardError
     from .runtime import (
         Budget,
         ExecutionHalted,
@@ -309,13 +309,11 @@ def _apply_request(args) -> int:
         # during load): still a clean partial exit, nothing to report
         return _emit_partial(
             Interrupted("interrupted before any safe boundary"), args, journal_path)
-    except (OSError, InputError, ExternalIOError, OutOfSliceError, NoCardError,
-            ProfileCaptureError) as e:
+    except (OSError, InputError, ExternalIOError, NoCardError, ProfileCaptureError) as e:
         # malformed input, a failed external dependency (apiserver,
-        # credential plugin, extender), a feature the port does not
-        # carry yet, no card for the default device, or a profiler
-        # that cannot trace the card: a clean exit 2; internal errors
-        # (a kernel launch, a conformance check) stay loud
+        # credential plugin, extender), no card for the default device,
+        # or a profiler that cannot trace the card: a clean exit 2;
+        # internal errors (a kernel launch, a conformance check) stay loud
         print(f"error: {e}", file=sys.stderr)
         return 2
     with phase("cli/print"):
@@ -391,7 +389,7 @@ def cmd_chaos(args) -> int:
     )
     from .models.validation import InputError
     from .models.workloads import reset_name_counter
-    from .ops.fused_scan import NoCardError, OutOfSliceError
+    from .ops.fused_scan import NoCardError
     from .parallel.sweep import CapacitySweep, PrioritySignalError
     from .resilience.chaos import ChaosEngine, perturbed_scenario_sweep
     from .runtime import (
@@ -415,7 +413,7 @@ def cmd_chaos(args) -> int:
         degrade = _parse_degrade(args.degrade) if args.degrade else None
         cordon = [n for n in (args.cordon or "").split(",") if n]
         budget = Budget(args.deadline)
-    except (OSError, ValueError, ExternalIOError, OutOfSliceError) as e:
+    except (OSError, ValueError, ExternalIOError) as e:
         # ExternalIOError: a live-cluster import (kubeConfig) whose
         # apiserver or credential plugin failed after retries
         print(f"error: {e}", file=sys.stderr)

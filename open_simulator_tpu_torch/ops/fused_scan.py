@@ -107,18 +107,6 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-class OutOfSliceError(NotImplementedError):
-    """The input uses a feature the GPU port does not carry yet. Names
-    the feature and the ROADMAP.md item that ports it."""
-
-    def __init__(self, feature: str, item: str):
-        self.feature = feature
-        self.item = item
-        super().__init__(
-            f"{feature} is not in the GPU port yet (ROADMAP.md {item})"
-        )
-
-
 class NoCardError(RuntimeError):
     """An entry point was asked for the card and there is none."""
 
@@ -1793,7 +1781,6 @@ __all__ = [
     "LaunchShape",
     "NoCardError",
     "NotInKernelError",
-    "OutOfSliceError",
     "PINS_FIRST_KERNEL_NAME",
     "STORE_KERNEL_NAME",
     "STORE_TERMS_KERNEL_NAME",

@@ -13,8 +13,8 @@ the capacity sweep (sweep.py):
   non-daemonset pods are released for rescheduling, their daemonset
   pods cease to exist, and the nodes are masked out of the candidate
   set; every pod still on a kept node is a forced (pinned) placement
-- one launch of the scenario-batch kernel (ops/fused_scan.py
-  run_fused_scan_batch, `fused_scan_batch`) evaluates every drain depth
+- one launch of the scenario-batch kernel (`fused_scan_batch`,
+  through the scan layer parallel/scans.py) evaluates every drain depth
   at once, one cluster of blocks a depth, with the per-scenario pins
   and one pass over the pods; the largest depth with zero
   unschedulable pods wins. A batch the kernel does not carry (custom
@@ -35,7 +35,6 @@ with one shared pod order across scenarios (one batch launch).
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -130,14 +129,11 @@ def plan_defrag(
     """Find the deepest feasible drain and its migration plan. The depth
     scans run on `device` (None = the card), or with `mesh` one batch
     launch a mesh device over its share of the depths."""
-    import torch
-
-    from ..obs.costs import COSTS
-    from ..obs.profile import to_host
     from ..ops import fused_scan
     from ..ops.encode import encode_batch, encode_cluster, encode_dynamic, features_of_batch
     from ..scheduler.oracle import Oracle
     from ..utils.trace import GLOBAL, phase, profiled
+    from .scans import Scans
 
     statuses = snapshot.node_status
     nodes = [ns.node for ns in statuses]
@@ -209,60 +205,17 @@ def plan_defrag(
         pinned[s_i] = np.where(evicted, -1, home)
         pod_active[s_i] = ~(evicted & is_ds)
 
-    reason = fused_scan.torch_scan_reason(features)
-    if reason is None:
-        plan = dataclasses.replace(
-            fused_scan.build_plan(cluster_enc, batch, dyn, features, device=dev),
-            has_pins=True,
-        )
-        GLOBAL.note("defrag-kernel", f"{fused_scan.BATCH_KERNEL_NAME} ({dev.type})")
-
-        def evaluate(lo, hi):
-            # one batch launch for the chunk's depths (one a mesh
-            # device); one read back a launch
-            scenarios = list(zip(pod_active[lo:hi], node_valid[lo:hi], pinned[lo:hi]))
-            if mesh is not None:
-                from .mesh import launch_rows
-
-                shares = [outs for _p, _lo, _hi, outs in launch_rows(
-                    mesh, plan, batch.class_of_pod, scenarios, site="defrag_sweep")]
-            else:
-                shares = [fused_scan.run_fused_scan_batch(
-                    plan, batch.class_of_pod, scenarios, site="defrag_sweep")]
-            return [row for rows in shares
-                    for row in to_host(torch.stack([r[0] for r in rows])).astype(np.int64)]
-
-        shards = mesh.size if mesh is not None else 1
-        estimate = COSTS.chunk_estimator("defrag_sweep", plan, len(batch.class_of_pod),
-                                         shards=shards)
-    else:
-        from ..ops import scan as scan_ops
-        from ..ops.encode import to_scan_state, to_scan_static
-
-        static = to_scan_static(cluster_enc, batch, device=dev)
-        init = to_scan_state(dyn, batch, device=dev)
-        GLOBAL.note("defrag-kernel", f"torch-scan ({reason})")
-
-        def evaluate(lo, hi):
-            return [
-                to_host(scan_ops.run_scan_masked(
-                    static, init, batch.class_of_pod, pinned[s_i], node_valid[s_i],
-                    pod_active[s_i], features=features, site="defrag_sweep",
-                )[0]).astype(np.int64)
-                for s_i in range(lo, hi)
-            ]
-
-        estimate = None
-        shards = 1
-
-    # the chunked executor (runtime/guard.py): a depth batch that
-    # exhausts device memory is halved and launched again
-    from ..runtime.guard import run_chunked
-
+    # the scan layer (parallel/scans.py): every depth one batch-kernel
+    # row (a chunk one launch, or one a mesh device), or on the torch
+    # scan one row after another; a chunk that exhausts device memory
+    # is halved and launched again
+    scans = Scans(cluster_enc, batch, features, dev, dyn=dyn)
+    scans.prepare()
+    GLOBAL.note("defrag-kernel", scans.label(batch=True))
     with profiled("defrag/scan"):
-        place_by_depth = run_chunked(evaluate, sc, label="defrag", estimate=estimate,
-                                     shards=shards)
-    unsched = np.array([int((pl == -1).sum()) for pl in place_by_depth], dtype=np.int64)
+        place_by_depth, unsched, *_util = scans.run_rows(
+            sc, lambda i: (pod_active[i], node_valid[i], pinned[i]), site="defrag_sweep",
+            label="defrag", mesh=mesh)
     with phase("defrag/validate"):
         return _pick_depth(
             snapshot, ranked, ranked_names, depths, unsched, entries,

@@ -643,7 +643,8 @@ def _run_shards(devices, work, timeout):
 
 def _valid_sums(static, valid, final):
     """(used cpu, alloc cpu, used mem, alloc mem, used VG, VG capacity)
-    over one shard's valid nodes, as Python ints."""
+    over one shard's valid nodes, as Python ints: parallel/scans.py's
+    sums."""
     v = valid
     return [int(torch.where(v, x, 0).sum()) for x in (
         final.used_mcpu, static.alloc_mcpu, final.used_mem, static.alloc_mem)] + [
@@ -680,10 +681,10 @@ class NodeShardPlan:
         ]
 
     def run(self, node_valid, pod_active, site: str = "mesh_scan"):
-        """One masked scan, sharded: (placements [P] int64 numpy,
-        unscheduled, cpu_util, mem_util, vg_util), equal to
-        ops.scan.run_scan_masked's placements and the sweep's
-        utilisation arithmetic. One instrumented launch at `site`."""
+        """One masked scan, sharded: (placements [P] int64 numpy, its
+        sums over the valid nodes as parallel/scans.py `utilisation`
+        takes them), the placements equal to ops.scan.run_scan_masked's.
+        One instrumented launch at `site`."""
         from ..obs import profile
         from ..ops import scan as scan_ops
 
@@ -705,29 +706,23 @@ class NodeShardPlan:
         with profile.launch(site, self.mesh.devices[0]):
             out = _run_shards(self.mesh.devices, work, self.timeout)
         placements = profile.to_host(out[0][0]).astype(np.int64)
-        uc, ac, um, am, uv, av = (sum(s[1][k] for s in out) for k in range(6))
-        return (
-            placements,
-            int((placements == -1).sum()),
-            100.0 * float(uc) / max(ac, 1),
-            100.0 * float(um) / max(am, 1),
-            100.0 * float(uv) / max(av, 1),
-        )
+        return placements, tuple(sum(s[1][k] for s in out) for k in range(6))
 
 
 def run_node_sharded(
     mesh, static, init, class_of_pod, pinned, node_valid, pod_active,
     features, timeout: Optional[float] = EXCHANGE_TIMEOUT_S,
 ):
-    """ONE masked scan with the node axis split across the mesh: pads
-    the node axis to a shard multiple (padded nodes are inert and masked
-    invalid), runs one thread a shard through the ``mesh_scan``
-    instrumented launch, and returns host-side (placements [P],
+    """ONE masked scan with the node axis split across the mesh
+    (``NodeShardPlan``, made for this scan): host-side (placements [P],
     unscheduled, cpu_util, mem_util, vg_util), placements equal to
     ``ops.scan.run_scan_masked``'s. A sample-mode batch raises (the
     planner never sends one here)."""
+    from .scans import utilisation
+
     plan = NodeShardPlan(mesh, static, init, class_of_pod, pinned, features, timeout=timeout)
-    return plan.run(node_valid, pod_active)
+    placements, sums = plan.run(node_valid, pod_active)
+    return (placements, *utilisation(placements, *sums))
 
 
 __all__ = [

@@ -10,13 +10,13 @@ every candidate count is one scenario of one encoded cluster:
 - scenario s enables the first s new nodes via a node-validity mask and
   drops daemonset pods that belong to disabled nodes via a pod-activity
   mask (the reference regenerates them per run)
-- a probe is one masked fused scan (ops/fused_scan.py run_fused_scan);
+- a probe is one masked scan through the scan layer
+  (parallel/scans.py, which picks the route): one fused-kernel scan;
   two counts (`probe_pair`) or many (`probe_many`) go in ONE launch of
   the scenario-batch kernel, one cluster of blocks per scenario
-- a batch the kernel does not carry (custom score plugins;
-  fused_scan.torch_scan_reason names it) runs every probe on the eager
-  torch scan (ops/scan.py run_scan_masked), one scenario at a time, as
-  the JAX package's sweep runs it on its XLA scan (_probe_xla)
+- a batch the kernel does not carry (custom score plugins) runs every
+  probe on the eager torch scan, one scenario at a time, as the JAX
+  package's sweep runs it on its XLA scan (_probe_xla)
 
 Ported from the JAX package's parallel/sweep.py with the same search
 shape, plus its resumable journal (attach_journal), its multi-spec
@@ -32,12 +32,11 @@ transfer for its relay: each plan here is built on the card by its own
 sweep, with no relay between.
 
 The device mesh (parallel/mesh.py; `CapacitySweep.mesh`, from
-`current_mesh`): the layout planner splits probe_many's counts and
-probe_scenarios' rows into one batch-kernel launch a mesh device
-(`mesh_<site>_sweep` for the outage rows), the chunked executor told
-the shard count; and a probe of a torch-scan batch takes the
-node-sharded torch scan (site `mesh_scan`) when the planner picks the
-node axis.
+`current_mesh`): the scan layer asks the layout planner whether to
+split probe_many's counts and probe_scenarios' rows into one
+batch-kernel launch a mesh device (`mesh_<site>_sweep` for the outage
+rows), or a probe of a torch-scan batch across the node axis (site
+`mesh_scan`).
 """
 
 from __future__ import annotations
@@ -51,13 +50,12 @@ import numpy as np
 from ..models import workloads as wl
 from ..models.decode import ResourceTypes
 from ..models.validation import InputError
-from ..obs.costs import COSTS
-from ..obs.profile import resolve_pending, to_host
+from ..obs.profile import resolve_pending
 from ..ops import fused_scan
 from ..ops.fused_scan import INACTIVE
-from ..runtime.guard import run_chunked
 from ..scheduler.core import AppResource, _sort_app_pods
 from ..scheduler.oracle import Oracle
+from .scans import Scans, utilisation
 
 __all__ = [
     "CapacitySweep",
@@ -220,22 +218,9 @@ class CapacitySweep:
             self.cluster_enc = encode_cluster(self.oracle)
             self.batch = encode_batch(self.oracle, self.cluster_enc, pods)
             self.dyn = encode_dynamic(self.oracle, self.cluster_enc)
-            self.features = features_of_batch(
-                self.cluster_enc, self.batch, weights=score_weights
-            )
-            # a batch the kernel does not carry (custom score plugins)
-            # runs every probe on the torch scan; else one kernel plan
-            self.scan_reason = fused_scan.torch_scan_reason(self.features)
-            self.plan = (
-                None
-                if self.scan_reason is not None
-                else fused_scan.build_plan(
-                    self.cluster_enc, self.batch, self.dyn, self.features,
-                    device=self.device,
-                )
-            )
-        self._scan_inputs = None  # the torch scan's (static, init), lazily
-        self._pins_plan = None  # the plan with pins on, lazily
+            features = features_of_batch(self.cluster_enc, self.batch, weights=score_weights)
+            self.scans = Scans(self.cluster_enc, self.batch, features, self.device, dyn=self.dyn)
+            self.scans.prepare()
         # the process-wide mesh (parallel/mesh.py): the layout planner
         # decides per request whether to split the scenario axis
         # (probe_many, probe_scenarios) or the node axis (a torch-scan
@@ -243,8 +228,6 @@ class CapacitySweep:
         from . import mesh as mesh_mod
 
         self.mesh = mesh_mod.current_mesh(self.device)
-        self._node_plan = None  # the node-sharded scan's state, lazily
-        self._mesh_plans: dict = {}  # device -> (plan, its copy there)
         # optional resumable journal (runtime/journal.py): probe()
         # serves journaled counts without touching the device and
         # appends every fresh result (attach_journal)
@@ -266,12 +249,7 @@ class CapacitySweep:
                 target = _daemonset_target(pod)
                 if target is not None and target in name_to_idx:
                     self._ds_target[p_i] = name_to_idx[target]
-            GLOBAL.note(
-                "sweep-kernel",
-                fused_scan.kernel_label(self.plan)
-                if self.plan is not None
-                else f"torch-scan ({self.scan_reason})",
-            )
+            GLOBAL.note("sweep-kernel", self.scans.label())
 
     def _expand(self, cluster, padded, apps, use_greed) -> List[dict]:
         """The full pod sequence the serial path would see, with the
@@ -329,187 +307,65 @@ class CapacitySweep:
         ones (runtime/journal.py, `--journal` / `--resume`)."""
         self.journal = journal
 
+    @property
+    def plan(self) -> "Optional[fused_scan.FusedPlan]":
+        """The kernel plan; None for a batch on the torch scan."""
+        return self.scans.plan
+
+    @property
+    def features(self):
+        return self.scans.features
+
     def _scenario(self, count: int):
         valid = self.node_valid(count)
         return self.pod_active(valid), valid, self.batch.pinned_node
 
-    def _stats(self, valid, placements, used_c, used_m, vg_used):
-        """Unscheduled count and utilization of one scan, on the host
-        (the JAX package's _pallas_result arithmetic). `vg_used` is
-        [N, V]."""
-        v = np.asarray(valid)[: self.n]
-        denom_c = max(int(np.asarray(self.cluster_enc.alloc_mcpu)[v].sum()), 1)
-        denom_m = max(int(np.asarray(self.cluster_enc.alloc_mem)[v].sum()), 1)
-        denom_vg = max(int(np.asarray(self.cluster_enc.vg_cap)[v].sum()), 1)
-        return (
-            int((placements == -1).sum()),
-            100.0 * float(used_c[v].sum()) / denom_c,
-            100.0 * float(used_m[v].sum()) / denom_m,
-            100.0 * float(vg_used[v].sum()) / denom_vg,
-        )
-
-    def _result(self, count, valid, placements, final) -> ProbeResult:
-        """ProbeResult of one kernel scan."""
-        placements = to_host(placements).astype(np.int64)
-        # the scan's final VG usage ([V, N]); a plan without the storage
-        # block never grows it, so there the init is final
-        vg_used = (to_host(final["vg_used"]).T if "vg_used" in final
-                   else np.asarray(self.dyn.vg_used))
-        unsched, cpu, mem, vg = self._stats(
-            valid, placements, to_host(final["used_mcpu"]), to_host(final["used_mem"]),
-            vg_used)
-        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
-                           mem_util=mem, vg_util=vg, placements=placements)
-
-    def _scan_static_state(self):
-        """The torch scan's (ScanStatic, ScanState) on the sweep's
-        device, built once."""
-        if self._scan_inputs is None:
-            from ..ops.encode import to_scan_state, to_scan_static
-
-            self._scan_inputs = (
-                to_scan_static(self.cluster_enc, self.batch, device=self.device),
-                to_scan_state(self.dyn, self.batch, device=self.device),
-            )
-        return self._scan_inputs
-
-    def _torch_scan(self, valid, active, pinned, pins_first: bool = False,
-                    site: str = "sweep_probe"):
-        """One scenario on the torch scan (ops/scan.py run_scan_masked):
-        the capacity probe's single pass, or with `pins_first` the
-        reference's two chained passes (_scenario_pinned_impl): every
-        pinned pod commits, then every free pod schedules; each pass one
-        dispatch at `site`. Returns (placements [P] int64 numpy,
-        unscheduled, cpu, mem, vg)."""
-        from ..ops import scan as scan_ops
-
-        static, init = self._scan_static_state()
-        cls = self.batch.class_of_pod
-        valid = np.asarray(valid, dtype=bool)
-        active = np.asarray(active, dtype=bool)
-        pinned = np.asarray(pinned, dtype=np.int64)
-        if pins_first:
-            features = self.features._replace(pins=True)
-            p1, state1 = scan_ops.run_scan_masked(
-                static, init, cls, pinned, valid, active & (pinned >= 0), features=features,
-                site=site)
-            p2, final = scan_ops.run_scan_masked(
-                static, state1, cls, pinned, valid, active & (pinned < 0), features=features,
-                site=site)
-            placements = np.where(pinned >= 0, to_host(p1), to_host(p2))
-        else:
-            placements, final = scan_ops.run_scan_masked(
-                static, init, cls, pinned, valid, active, features=self.features, site=site)
-            placements = to_host(placements)
-        placements = placements.astype(np.int64)
-        return (placements, *self._stats(
-            valid, placements, to_host(final.used_mcpu), to_host(final.used_mem),
-            to_host(final.vg_used)))
-
     def probe(self, count: int) -> ProbeResult:
         """Evaluate one candidate count: one masked scan (the
         `fused_scan_base` / `fused_scan_ext` kernel on a CUDA plan, the
-        torch scan for a batch the kernel does not carry); any error,
-        a device OOM too, propagates. Counts already in the attached
-        journal never touch the device."""
+        torch scan for a batch the kernel does not carry, split by node
+        when the layout planner says so); any error, a device OOM too,
+        propagates. Counts already in the attached journal never touch
+        the device."""
+        from ..utils.trace import profiled
+
         if self.journal is not None:
             cached = self.journal.get_probe(count)
             if cached is not None:
                 return _probe_from_record(cached)
-        if self.plan is not None:
-            res = self._probe_kernel(count)
+        if self.scans.kernel:
+            with profiled("sweep/probe"):
+                res = self._results([count], self._launch([count], batch=False))[0]
         else:
-            from . import mesh as mesh_mod
-
             valid = self.node_valid(count)
-            # the node axis: ONE scenario over a cluster the planner
-            # says is too big (or predicted not to fit) on one device
-            layout = mesh_mod.plan_layout(
-                "sweep_probe", mesh=self.mesh, n_scenarios=1, n_nodes=self.n,
-                sample=bool(getattr(self.features, "sample", False)))
-            if layout.axis == "node":
-                res = self._probe_mesh(count, valid)
-            else:
-                res = self._probe_torch_scan(count, valid)
+            active = self.pod_active(valid)
+            node = self.scans.node_route("sweep_probe", self.mesh)
+            with profiled("sweep/probe"):
+                pl, sums = (self.scans.node_sharded(active, valid, self.mesh) if node else
+                            self.scans.torch_row(active, valid, self.batch.pinned_node,
+                                                 site="sweep_probe"))
+            res = ProbeResult(count, *utilisation(pl, *sums), placements=pl)
         if self.journal is not None:
             self.journal.record_probe(_probe_to_record(res))
         return res
 
-    def _probe_mesh(self, count: int, valid) -> ProbeResult:
-        """One capacity probe on the node-sharded torch scan: the padded,
-        split state is built once a sweep (NodeShardPlan)."""
-        from ..utils.trace import profiled
-        from . import mesh as mesh_mod
-
-        if self._node_plan is None:
-            static, init = self._scan_static_state()
-            self._node_plan = mesh_mod.NodeShardPlan(
-                self.mesh, static, init, self.batch.class_of_pod, self.batch.pinned_node,
-                self.features)
-        with profiled("sweep/probe"):
-            pl, unsched, cpu, mem, vg = self._node_plan.run(valid, self.pod_active(valid))
-        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
-                           mem_util=mem, vg_util=vg, placements=pl)
-
-    def _probe_kernel(self, count: int) -> ProbeResult:
-        from ..utils.trace import phase, profiled
-
-        with profiled("sweep/probe"):
-            with phase("probe/inputs"):
-                active, valid, pinned = self._scenario(count)
-                inputs = fused_scan.scenario_inputs(
-                    self.plan, self.batch.class_of_pod, [(active, valid, pinned)])
-            placements, final = fused_scan.run_fused_scan(
-                self.plan, self.batch.class_of_pod, active, valid, pinned=pinned,
-                site="sweep_probe", inputs=inputs)
-            return self.results_of([count], [(placements, final)])[0]
-
-    def _probe_torch_scan(self, count: int, valid) -> ProbeResult:
-        from ..utils.trace import profiled
-
-        with profiled("sweep/probe"):
-            pl, unsched, cpu, mem, vg = self._torch_scan(
-                valid, self.pod_active(valid), self.batch.pinned_node)
-        return ProbeResult(count=count, unscheduled=unsched, cpu_util=cpu,
-                           mem_util=mem, vg_util=vg, placements=pl)
-
-    def _serial_floor(self, fn):
-        """`fn`, the chunked executor's serial floor, where the sweep's
-        work is on the CPU; None on the card, where a single scenario
-        that still runs out of device memory raises DeviceOOM rather
-        than move to the host."""
-        return fn if self.device.type == "cpu" else None
-
-    def _probe_serial(self, count: int, valid) -> ProbeResult:
-        """The serial floor: the deterministic host oracle, no device."""
-        placements, _reasons = self.serial_scenario(valid, self.pod_active(valid))
-        pl, unsched, cpu, mem, vg = self._host_scenario_stats(valid, placements)
-        return ProbeResult(count=count, unscheduled=int(unsched), cpu_util=float(cpu),
-                           mem_util=float(mem), vg_util=float(vg), placements=pl)
-
-    def launch_counts(self, counts: List[int]):
-        """Launch several counts in ONE batch-kernel launch (one cluster
-        of blocks a count) without waiting for it: the device rows, for
-        results_of. Needs a kernel plan."""
+    def _launch(self, counts: List[int], mesh=None, batch: bool = True):
+        """Launch counts without waiting (a kernel plan): one scenario on
+        the single-scan kernel, else ONE batch-kernel launch (one cluster
+        of blocks a count), or with `mesh` one a mesh device; for
+        _results."""
         from ..utils.trace import phase
 
+        if mesh is not None:
+            return self.scans.launch([self._scenario(c) for c in counts], "sweep_many", mesh=mesh)
         with phase("probe/inputs"):
-            scenarios = [self._scenario(c) for c in counts]
-            inputs = fused_scan.scenario_inputs(self.plan, self.batch.class_of_pod, scenarios)
-        return fused_scan.run_fused_scan_batch(self.plan, self.batch.class_of_pod, scenarios,
-                                               site="sweep_many", inputs=inputs)
+            rows = [self._scenario(c) for c in counts]
+            inputs = self.scans.inputs(rows)
+        return self.scans.launch(rows, "sweep_many" if batch else "sweep_probe", batch=batch,
+                                 inputs=inputs)
 
-    def launch_counts_on(self, mesh, counts: List[int]):
-        """launch_counts split over `mesh`: one batch-kernel launch a
-        mesh device over its share of the counts, rows in count order."""
-        from . import mesh as mesh_mod
-
-        return [row for _p, _lo, _hi, outs in mesh_mod.launch_rows(
-            mesh, self.plan, self.batch.class_of_pod, [self._scenario(c) for c in counts],
-            site="sweep_many", plans=self._mesh_plans) for row in outs]
-
-    def results_of(self, counts: List[int], rows) -> List[ProbeResult]:
-        """ProbeResults of launch_counts' rows: the host first waits on
+    def _results(self, counts: List[int], shares) -> List[ProbeResult]:
+        """ProbeResults of _launch's launches: the host first waits on
         the end events of this thread's launches (obs/profile.Launch;
         nothing to wait for off the card), then reads the rows back."""
         from ..utils.trace import phase
@@ -517,8 +373,16 @@ class CapacitySweep:
         with phase("probe/wait"):
             resolve_pending(wait=True)
         with phase("probe/readback"):
-            return [self._result(c, self.node_valid(c), placements, final)
-                    for c, (placements, final) in zip(counts, rows)]
+            rows = self.scans.read(shares, [self.node_valid(c) for c in counts])
+            return [ProbeResult(c, *utilisation(pl, *sums), placements=pl)
+                    for c, (pl, sums) in zip(counts, rows)]
+
+    def _probe_serial(self, count: int) -> ProbeResult:
+        """The serial floor: the deterministic host oracle, no device."""
+        valid = self.node_valid(count)
+        pl, _reasons = self.serial_scenario(valid, self.pod_active(valid))
+        return ProbeResult(count, *utilisation(pl, *self.scans.host_sums(valid, pl)),
+                           placements=pl)
 
     def probe_counts(self, counts: List[int], mesh=None) -> List[ProbeResult]:
         """Evaluate several counts: in ONE launch of the scenario-batch
@@ -531,7 +395,7 @@ class CapacitySweep:
         from ..utils.trace import profiled
 
         counts = list(counts)
-        if self.plan is None or (
+        if not self.scans.kernel or (
             self.journal is not None
             and any(self.journal.get_probe(c) is not None for c in counts)
         ):
@@ -540,20 +404,11 @@ class CapacitySweep:
             return [self.probe(c) for c in counts]
 
         def evaluate(lo, hi):
-            rows = (self.launch_counts(counts[lo:hi]) if mesh is None
-                    else self.launch_counts_on(mesh, counts[lo:hi]))
-            return self.results_of(counts[lo:hi], rows)
+            return self._results(counts[lo:hi], self._launch(counts[lo:hi], mesh))
 
-        shards = mesh.size if mesh is not None else 1
         with profiled("sweep/probe"):
-            out = run_chunked(
-                evaluate, len(counts), label="sweep",
-                serial_fallback=self._serial_floor(lambda i: self._probe_serial(
-                    counts[i], self.node_valid(counts[i]))),
-                estimate=COSTS.chunk_estimator("sweep_many", self.plan, len(self.pods),
-                                               shards=shards),
-                shards=shards,
-            )
+            out = self.scans.chunked(evaluate, len(counts), site="sweep_many", label="sweep",
+                                     mesh=mesh, serial=lambda i: self._probe_serial(counts[i]))
         if self.journal is not None:
             for r in out:
                 self.journal.record_probe(_probe_to_record(r))
@@ -569,14 +424,8 @@ class CapacitySweep:
         mesh: an explicit `mesh` wins (sweep_node_counts(mesh=));
         otherwise the sweep's mesh when the layout planner picks the
         scenario axis."""
-        if mesh is None and self.plan is not None:
-            from . import mesh as mesh_mod
-
-            layout = mesh_mod.plan_layout(
-                "sweep_many", mesh=self.mesh, n_scenarios=len(counts), n_nodes=self.n,
-                sample=bool(getattr(self.features, "sample", False)))
-            if layout.axis == "scenario":
-                mesh = self.mesh
+        if mesh is None and self.scans.kernel:
+            mesh = self.scans.scenario_mesh("sweep_many", len(counts), self.mesh)
         res = self.probe_counts(list(counts), mesh=mesh)
         return SweepResult(
             counts=list(counts),
@@ -666,99 +515,6 @@ class CapacitySweep:
                 handle(p_i, pod, pins_only=None)
         return placements, reasons
 
-    def _host_scenario_stats(self, valid, placements):
-        """The (placements, unscheduled, cpu/mem/vg utilization) tuple
-        of a scan, recomputed on the host from serial placements — same
-        arithmetic, aggregate form (committed requests add onto the
-        encoded base usage; placements only land on valid nodes)."""
-        b, d, c_enc = self.batch, self.dyn, self.cluster_enc
-        v = np.asarray(valid)
-        placed = np.asarray(placements) >= 0
-        cls = np.asarray(b.class_of_pod)[placed]
-        used_c = int(d.used_mcpu[v].sum()) + int(b.req_mcpu[cls].sum())
-        used_m = int(d.used_mem[v].sum()) + int(b.req_mem[cls].sum())
-        used_v = int(d.vg_used[v].sum()) + int(b.lvm_sizes[cls].sum())
-        denom_c = max(int(c_enc.alloc_mcpu[v].sum()), 1)
-        denom_m = max(int(c_enc.alloc_mem[v].sum()), 1)
-        denom_v = max(int(c_enc.vg_cap[v].sum()), 1)
-        return (
-            np.asarray(placements),
-            np.int64((np.asarray(placements) == -1).sum()),
-            np.float64(100.0 * used_c / denom_c),
-            np.float64(100.0 * used_m / denom_m),
-            np.float64(100.0 * used_v / denom_v),
-        )
-
-    def _plan_with_pins(self) -> "fused_scan.FusedPlan":
-        """The kernel plan with pins on (the same tensors): the outage
-        rows pin survivors even when the batch itself carries no pin."""
-        if self._pins_plan is None:
-            import dataclasses
-
-            self._pins_plan = dataclasses.replace(self.plan, has_pins=True)
-        return self._pins_plan
-
-    def _kernel_rows(self, pod_active, node_valid, pinned, pins_first: bool, site: str,
-                     mesh=None):
-        """One batch launch over the rows at `site`, or with `mesh` one
-        launch a mesh device over its share; their (placements,
-        unscheduled, cpu, mem, vg) tuples, reduced on each launch's
-        device and read back once a launch."""
-        scenarios = list(zip(pod_active, node_valid, pinned))
-        if mesh is None:
-            shares = [(self._plan_with_pins(), 0, len(scenarios), fused_scan.run_fused_scan_batch(
-                self._plan_with_pins(), self.batch.class_of_pod, scenarios,
-                pins_first=pins_first, site=site))]
-        else:
-            from . import mesh as mesh_mod
-
-            shares = mesh_mod.launch_rows(mesh, self._plan_with_pins(), self.batch.class_of_pod,
-                                          scenarios, site=site, pins_first=pins_first,
-                                          plans=self._mesh_plans)
-        out = []
-        for plan, lo, hi, rows in shares:
-            out.extend(self._row_stats(plan, rows, node_valid[lo:hi]))
-        return out
-
-    def _row_stats(self, plan, rows, node_valid):
-        """The (placements, unscheduled, cpu, mem, vg) tuples of one
-        launch's rows, reduced on its plan's device."""
-        import torch
-
-        dev = plan.device
-        valid_t = torch.from_numpy(np.ascontiguousarray(node_valid)).to(dev)
-        alloc = plan.alloc
-        placements = torch.stack([r[0] for r in rows]).long()
-        used_c = torch.stack([r[1]["used_mcpu"] for r in rows])
-        used_m = torch.stack([r[1]["used_mem"] for r in rows])
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        sums = [torch.where(valid_t, used_c, zero).sum(1),
-                torch.where(valid_t, used_m, zero).sum(1),
-                torch.where(valid_t, alloc[0], zero).sum(1),
-                torch.where(valid_t, alloc[1], zero).sum(1),
-                (placements == -1).sum(1)]
-        if "vg_used" in rows[0][1]:
-            vg_used = torch.stack([r[1]["vg_used"].sum(0) for r in rows])
-            sums.append(torch.where(valid_t, vg_used, zero).sum(1))
-        host = [to_host(t) for t in [placements] + sums]
-        placements, uc, um, ac, am, unsched = host[:6]
-        if len(host) > 6:
-            uv = host[6]
-        else:
-            base = np.asarray(self.dyn.vg_used).sum(axis=1)
-            uv = np.array([int(base[v].sum()) for v in node_valid], dtype=np.int64)
-        vg_cap = np.asarray(self.cluster_enc.vg_cap).sum(axis=1)
-        out = []
-        for k, v in enumerate(node_valid):
-            out.append((
-                placements[k],
-                int(unsched[k]),
-                100.0 * float(uc[k]) / max(int(ac[k]), 1),
-                100.0 * float(um[k]) / max(int(am[k]), 1),
-                100.0 * float(uv[k]) / max(int(vg_cap[v].sum()), 1),
-            ))
-        return out
-
     def probe_scenarios(self, node_valid, pod_active, pinned, budget=None,
                         site: str = "chaos"):
         """Batched masked scans with PER-SCENARIO pin vectors: the
@@ -767,10 +523,11 @@ class CapacitySweep:
         is one scenario, evaluated pins first: every pinned pod commits,
         then every free pod schedules (the reference's two chained
         scans, _scenario_pinned_impl). On a kernel plan a chunk of rows
-        is ONE launch of the batch kernel's pins-first mode, through the
-        chunked executor (a device OOM halves the chunk; a single row
-        that still runs out raises on the card and goes to the serial
-        oracle on the CPU); a batch the
+        is ONE launch of the batch kernel's pins-first mode (one a mesh
+        device when the layout planner splits them, at
+        `mesh_<site>_sweep`), through the chunked executor (a device OOM
+        halves the chunk; a single row that still runs out raises on
+        the card and goes to the serial oracle on the CPU); a batch the
         kernel does not carry runs the two passes on the torch scan, row
         by row, trace-noted `<site>-kernel`. Returns (placements
         [Sc, P], unscheduled [Sc], cpu_util [Sc], mem_util [Sc],
@@ -782,50 +539,14 @@ class CapacitySweep:
         pinned = np.asarray(pinned, dtype=np.int64)
         sc = node_valid.shape[0]
         launch_site = f"{site}_sweep"
-        estimate = None
-        shards = 1
-        if self.plan is not None:
-            from . import mesh as mesh_mod
-
-            # the scenario axis: outage rows are independent, so a mesh
-            # splits them into one launch a device at mesh_<site>_sweep
-            layout = mesh_mod.plan_layout(launch_site, mesh=self.mesh, n_scenarios=sc,
-                                          n_nodes=self.n)
-            mesh = self.mesh if layout.axis == "scenario" else None
-            shards = mesh.size if mesh is not None else 1
-            GLOBAL.note(f"{site}-kernel", f"{fused_scan.PINS_FIRST_KERNEL_NAME} "
-                        f"({self.plan.device.type})")
-            estimate = COSTS.chunk_estimator(launch_site, self._plan_with_pins(),
-                                             len(self.pods), shards=shards)
-
-            def evaluate(lo, hi):
-                return self._kernel_rows(pod_active[lo:hi], node_valid[lo:hi],
-                                         pinned[lo:hi], pins_first=True,
-                                         site=f"mesh_{launch_site}" if mesh else launch_site,
-                                         mesh=mesh)
-        else:
-            GLOBAL.note(f"{site}-kernel", f"torch-scan ({self.scan_reason})")
-
-            def evaluate(lo, hi):
-                return [self._torch_scan(node_valid[i], pod_active[i], pinned[i],
-                                         pins_first=True, site=launch_site)
-                        for i in range(lo, hi)]
-
-        def serial_fallback(i):
-            placements, _ = self.serial_scenario(
-                node_valid[i], pod_active[i], pinned[i], pins_first=True
-            )
-            return self._host_scenario_stats(node_valid[i], placements)
-
-        rows = run_chunked(evaluate, sc, label=site,
-                           serial_fallback=self._serial_floor(serial_fallback), budget=budget,
-                           estimate=estimate, shards=shards)
-        placements = np.stack([np.asarray(r[0]) for r in rows])
-        unsched = np.array([int(r[1]) for r in rows], dtype=np.int64)
-        cpu = np.array([float(r[2]) for r in rows])
-        mem = np.array([float(r[3]) for r in rows])
-        vg = np.array([float(r[4]) for r in rows])
-        return placements, unsched, cpu, mem, vg
+        # the scenario axis: outage rows are independent
+        mesh = (self.scans.scenario_mesh(launch_site, sc, self.mesh) if self.scans.kernel
+                else None)
+        GLOBAL.note(f"{site}-kernel", self.scans.label(batch=True, pins_first=True))
+        return self.scans.run_rows(
+            sc, lambda i: (pod_active[i], node_valid[i], pinned[i]), site=launch_site,
+            label=site, pins_first=True, mesh=mesh, mesh_site=f"mesh_{launch_site}",
+            serial=self.serial_scenario, budget=budget)
 
     # -- resource lower bound ----------------------------------------------
 
@@ -939,7 +660,7 @@ class CapacitySweep:
                 hi - lo > 1
                 and hi not in probes
                 and hi - 1 not in probes
-                and self.plan is not None
+                and self.scans.kernel
             ):
                 # hi-1 is usually the bisection's very next question:
                 # ask for both in one round
@@ -956,7 +677,7 @@ class CapacitySweep:
         # bisect (lo infeasible, hi feasible]
         best = res
         lo_b, hi_b = lo, best.count
-        if widen and 2 < hi_b - lo_b <= 16 and self.plan is not None:
+        if widen and 2 < hi_b - lo_b <= 16 and self.scans.kernel:
             need = [c for c in range(lo_b + 1, hi_b) if c not in probes]
             if need:
                 probes.update((yield need))
@@ -987,7 +708,7 @@ class CapacitySweep:
     def _fulfill(self, req: List[int], on_probe=None) -> dict:
         """Probe the requested counts — two in one batch launch on a
         kernel plan."""
-        if len(req) == 2 and self.plan is not None:
+        if len(req) == 2 and self.scans.kernel:
             r1, r2 = self.probe_pair(req[0], req[1])
             out = {r1.count: r1, r2.count: r2}
         else:
@@ -1095,14 +816,14 @@ def find_min_count_multi(jobs, on_probe=None, budget=None) -> List[Optional[Prob
             launched = []
             for i in live:
                 sweep = jobs[i][0]
-                if sweep.plan is None:
+                if not sweep.scans.kernel:
                     answers[i].update((c, sweep.probe(c)) for c in pending[i])
                     continue
-                launched.append((i, sweep.launch_counts(pending[i])))
+                launched.append((i, sweep._launch(pending[i])))
                 launches += 1
             # the round's one wait: the first read of a result
-            for i, rows in launched:
-                for r in jobs[i][0].results_of(pending[i], rows):
+            for i, shares in launched:
+                for r in jobs[i][0]._results(pending[i], shares):
                     answers[i][r.count] = r
         nxt = []
         for i in live:

@@ -14,10 +14,11 @@ state. A priority round that escapes re-runs the same encoding with
 the committed prefix masked off instead of re-encoding the shrinking
 remainder.
 
-On a CUDA device the scan is the hand-written kernel; on the CPU it is
-the kernel's plain PyTorch version. A batch the kernel does not carry
-(custom score plugins, select_host="sample") is routed by its features,
-before anything runs, to the eager torch scan (ops/scan.py) on the same
+The scan layer (parallel/scans.py) runs every scan. On a CUDA device
+the scan is the hand-written kernel; on the CPU it is the kernel's
+plain PyTorch version. A batch the kernel does not carry (custom score
+plugins, select_host="sample") is routed by its features, before
+anything runs, to the eager torch scan (ops/scan.py) on the same
 device, as the JAX engine routes it to its XLA scan; the trace notes
 `torch-scan (<reason>)`. That is routing by input, not a fallback: a
 kernel that fails raises. Storage classes replay through the oracle's
@@ -29,12 +30,13 @@ encoding, all rows in ONE launch of the batch kernel (B6) at the site
 `scenario_scan`.
 
 The device mesh (parallel/mesh.py; `engine.mesh`, else the process-wide
-`current_mesh`): the layout planner splits scan_scenarios' rows into one
-B6 launch a mesh device when it picks the scenario axis, and sends a
-torch-scan batch of scan_active to the node-sharded torch scan (site
-`mesh_scan`) when it picks the node axis. A batch the kernel carries
-never takes the node route: the mesh serves only what the kernel does
-not, as the JAX engine's mesh serves only what its Pallas plan does not.
+`current_mesh`): the scan layer's layout planner splits scan_scenarios'
+rows into one B6 launch a mesh device when it picks the scenario axis,
+and sends a torch-scan batch of scan_active to the node-sharded torch
+scan (site `mesh_scan`) when it picks the node axis. A batch the kernel
+carries never takes the node route: the mesh serves only what the
+kernel does not, as the JAX engine's mesh serves only what its Pallas
+plan does not.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from ..ops.encode import (
 )
 from ..obs.profile import to_host
 from ..ops.fused_scan import resolve_device
+from ..parallel.scans import Scans
 from ..runtime.errors import GuardError
 from .oracle import Oracle
 
@@ -88,15 +91,13 @@ class TorchEngine:
         self._last_class_of = None
         self._last_simple = None
         self._class_commit_info = None
-        # batch encoding reused across masked rounds (begin_batch)
+        # batch encoding reused across masked rounds (begin_batch), and
+        # its scan layer (parallel/scans.py)
         self._batch = None
         self._batch_pods: Optional[List[dict]] = None
         self._features = None
         self._bulk_tbl = None
-        # the torch scan's static tensors, reused across masked rounds
-        # until a ClusterStatic rebuild (GPU alloc epoch)
-        self._scan_static = None
-        self._scan_static_cluster = None
+        self._scans: Optional[Scans] = None
         # sample mode: (pre-round rng history, per-pod consumed-word
         # cumsum) of the last scan; rewind_sample_rng uses it when a
         # priority-scan escape discards the scanned tail
@@ -140,13 +141,23 @@ class TorchEngine:
             self._last_simple = simple_commit_mask(batch, bool(oracle.extenders))
             self._class_commit_info = ClassCommitCache()
             self._bulk_tbl = None
-            self._scan_static = None
             sample = getattr(oracle, "select_host", "first-max") == "sample"
             self._features = features_of_batch(
                 cluster, batch,
                 weights=getattr(oracle, "score_weights", None),
                 sample=sample,
             )
+            self._scans = Scans(cluster, batch, self._features, self.device)
+
+    def _scans_now(self) -> Scans:
+        """The scan layer over the begin_batch encoding against the
+        oracle's CURRENT state (a ClusterStatic rebuild makes a new one;
+        the torch scan's static tensors live as long as it does)."""
+        cluster = self.cluster_static()
+        if self._scans.cluster is not cluster:
+            self._scans = Scans(cluster, self._batch, self._features, self.device)
+        self._scans.set_dynamic(encode_dynamic(self.oracle, cluster))
+        return self._scans
 
     def scan_active(
         self, active: np.ndarray, valid: Optional[np.ndarray] = None
@@ -156,33 +167,21 @@ class TorchEngine:
         node index, -1 (active but unschedulable), or -2 (inactive —
         positions masked off by `active`). `valid` gates candidate nodes
         (default: all)."""
-        from ..ops import fused_scan
         from ..utils.trace import GLOBAL, phase, profiled
 
-        batch = self._batch
-        reason = fused_scan.torch_scan_reason(self._features)
         with phase("engine/encode"):
-            cluster = self.cluster_static()
+            scans = self._scans_now()
             node_valid = (
-                np.ones(cluster.n, bool) if valid is None else np.asarray(valid, bool)
+                np.ones(scans.n, bool) if valid is None else np.asarray(valid, bool)
             )
-            dyn = encode_dynamic(self.oracle, cluster)
-            if reason is None:
-                plan = fused_scan.build_plan(
-                    cluster, batch, dyn, self._features, device=self.device
-                )
-        if reason is not None:
-            return self._torch_scan(cluster, dyn, active, node_valid, reason, node_route=True)
-        GLOBAL.note("batch-kernel", fused_scan.kernel_label(plan))
+            scans.prepare()
+        if not scans.kernel:
+            return self._torch_scan(scans, active, node_valid, node_route=True)
+        GLOBAL.note("batch-kernel", scans.label())
         with profiled("engine/scan"):
-            out, _final = fused_scan.run_fused_scan(
-                plan,
-                batch.class_of_pod,
-                np.asarray(active, bool),
-                node_valid,
-                pinned=batch.pinned_node,
-            )
-            return to_host(out)  # waits for the device
+            shares = scans.launch([(np.asarray(active, bool), node_valid,
+                                    self._batch.pinned_node)], "scan", batch=False)
+            return scans.read(shares)[0]  # waits for the device
 
     def schedule(self, pods: List[dict]) -> np.ndarray:
         """Returns placements[P]: node index or -1 (unschedulable)."""
@@ -194,17 +193,12 @@ class TorchEngine:
         oracle's CURRENT state, for scan_scenarios (and the chunked
         executor's workspace estimate); None for a batch the kernel does
         not carry, which runs on the torch scan."""
-        from ..ops import fused_scan
         from ..utils.trace import phase
 
-        if fused_scan.torch_scan_reason(self._features) is not None:
+        if not self._scans.kernel:
             return None
         with phase("engine/encode"):
-            cluster = self.cluster_static()
-            dyn = encode_dynamic(self.oracle, cluster)
-            return fused_scan.build_plan(
-                cluster, self._batch, dyn, self._features, device=self.device
-            )
+            return self._scans_now().plan
 
     def scan_scenarios(self, actives: np.ndarray, plan=None) -> np.ndarray:
         """Batch-of-requests entry point (serve/session.py): every row
@@ -223,7 +217,6 @@ class TorchEngine:
         Returns placements [Sc, P]: node index, -1 (active but
         unschedulable), or -2 (masked off in that scenario)."""
         from ..obs import profile
-        from ..ops import fused_scan
         from ..utils.trace import GLOBAL, phase, profiled
 
         if bool(getattr(self._features, "sample", False)):
@@ -232,102 +225,62 @@ class TorchEngine:
             raise ValueError(
                 "sample-mode batches cannot ride the scenario scan"
             )
-        batch = self._batch
         actives_arr = np.asarray(actives, bool)
         if not len(actives_arr):
-            return np.zeros((0, len(batch.class_of_pod)), np.int32)
-        reason = fused_scan.torch_scan_reason(self._features)
-        if reason is not None:
+            return np.zeros((0, len(self._batch.class_of_pod)), np.int32)
+        if not self._scans.kernel:
             with phase("engine/encode"):
-                cluster = self.cluster_static()
-                dyn = encode_dynamic(self.oracle, cluster)
-            valid = np.ones(cluster.n, bool)
-            GLOBAL.note("scenario-kernel", f"torch-scan ({reason})")
-            rows = [self._torch_scan(cluster, dyn, row, valid, reason,
-                                     site="scenario_scan")
-                    for row in actives_arr]
-            return np.stack(rows)
+                scans = self._scans_now()
+            valid = np.ones(scans.n, bool)
+            GLOBAL.note("scenario-kernel", scans.label())
+            return np.stack([self._torch_scan(scans, row, valid, site="scenario_scan")
+                             for row in actives_arr])
         if plan is None:
-            plan = self.scenario_plan()
-        valid = np.ones(plan.n, bool)
-        scenarios = [(row, valid, batch.pinned_node) for row in actives_arr]
+            self.scenario_plan()
+        scans = self._scans
+        valid = np.ones(scans.n, bool)
+        rows = [(row, valid, self._batch.pinned_node) for row in actives_arr]
         # the scenario axis: coalesced request rows are independent, so
         # a mesh splits them into one launch a device
-        from ..parallel import mesh as mesh_mod
-
         m = self._mesh()
         if m is not None:
-            layout = mesh_mod.plan_layout("scenario_scan", mesh=m,
-                                          n_scenarios=len(actives_arr), n_nodes=plan.n)
-            if layout.axis != "scenario":
-                m = None
-        GLOBAL.note("batch-kernel", f"{fused_scan.BATCH_KERNEL_NAME} ({self.device.type})")
+            m = scans.scenario_mesh("scenario_scan", len(actives_arr), m)
+        GLOBAL.note("batch-kernel", scans.label(batch=True))
         profile.record_h2d(actives_arr.nbytes)
         with profiled("engine/scan"):
-            if m is not None:
-                shares = mesh_mod.launch_rows(m, plan, batch.class_of_pod, scenarios,
-                                              site="scenario_scan")
-                return np.concatenate([
-                    to_host(torch.stack([placements for placements, _final in outs]))
-                    for _p, _lo, _hi, outs in shares])
-            out = fused_scan.run_fused_scan_batch(
-                plan,
-                batch.class_of_pod,
-                scenarios,
-                pins_first=False,
-                site="scenario_scan",
-            )
-            return to_host(torch.stack([placements for placements, _final in out]))
+            return scans.read(scans.launch(rows, "scenario_scan", mesh=m))
 
-    def _torch_scan(self, cluster, dyn, active, node_valid, reason,
-                    site: str = "scan", node_route: bool = False) -> np.ndarray:
+    def _torch_scan(self, scans, active, node_valid, site: str = "scan",
+                    node_route: bool = False) -> np.ndarray:
         """scan_active for a batch the kernel does not carry: the eager
         torch scan (ops/scan.py) on the engine's device. Under sample
         the oracle's Go RNG history goes in and the advanced history is
         written back, so the serial path continues the exact stream.
         With `node_route` the layout planner may send the scan to the
         node-sharded torch scan over the mesh (never under sample)."""
-        from ..obs.costs import COSTS, scan_bytes
-        from ..ops import scan as scan_ops
-        from ..ops.encode import to_scan_static, to_scan_state
         from ..utils.trace import GLOBAL, phase, profiled
 
         oracle = self.oracle
-        batch = self._batch
         sample = bool(self._features.sample)
         with phase("engine/encode"):
-            if self._scan_static is None or self._scan_static_cluster is not cluster:
-                self._scan_static = to_scan_static(cluster, batch, device=self.device)
-                self._scan_static_cluster = cluster
-            init = to_scan_state(dyn, batch, device=self.device)
+            _static, init = scans.torch_inputs()
             if sample:
                 hist0 = oracle._rng.history()
                 init = init._replace(rng_hist=torch.as_tensor(
                     np.array(hist0, dtype=np.uint64).view(np.int64), device=self.device))
         m = self._mesh() if node_route and not sample else None
-        if m is not None:
-            from ..parallel import mesh as mesh_mod
-
-            # site "scan": the single-device torch scan whose workspace
-            # says whether one device holds it
-            COSTS.declare_bytes("scan", scan_bytes(self._scan_static, init))
-            layout = mesh_mod.plan_layout("scan", mesh=m, n_scenarios=1, n_nodes=cluster.n)
-            if layout.axis == "node":
-                GLOBAL.note("batch-kernel", f"mesh-scan ({reason})")
-                GLOBAL.note("scan-device", self.device.type)
-                with profiled("engine/scan"):
-                    out, *_stats = mesh_mod.run_node_sharded(
-                        m, self._scan_static, init, batch.class_of_pod, batch.pinned_node,
-                        node_valid, np.asarray(active, bool), self._features)
-                return out
-        GLOBAL.note("batch-kernel", f"torch-scan ({reason})")
+        # site "scan": the single-device torch scan whose workspace
+        # says whether one device holds it
+        if m is not None and scans.node_route("scan", m, declare=True):
+            GLOBAL.note("batch-kernel", f"mesh-scan ({scans.reason})")
+            GLOBAL.note("scan-device", self.device.type)
+            with profiled("engine/scan"):
+                return scans.node_sharded(active, node_valid, m)[0]
+        GLOBAL.note("batch-kernel", scans.label())
         GLOBAL.note("scan-device", self.device.type)
         with profiled("engine/scan"):
-            placements, final = scan_ops.run_scan_masked(
-                self._scan_static, init, batch.class_of_pod, batch.pinned_node,
-                node_valid, np.asarray(active, bool), features=self._features,
-                site=site,
-            )
+            placements, final = scans.torch_scan(active, node_valid, self._batch.pinned_node,
+                                                 site, state=init)
             if sample:
                 placements, consumed = placements
             out = to_host(placements)  # waits for the device

@@ -52,6 +52,7 @@ import numpy as np
 
 from ..models.validation import InputError
 from ..models import workloads as wl
+from ..parallel.scans import utilisation
 from ..parallel.sweep import CapacitySweep, ProbeResult
 from ..resilience.chaos import displaced_free_mask
 from ..runtime.errors import ExecutionHalted
@@ -243,8 +244,9 @@ class TimelineStepper:
 
     def _usage(self, st: _PolicyState, accounted: np.ndarray) -> tuple:
         """(used_mcpu, used_mem, denom_mcpu, denom_mem) over up nodes —
-        the same arithmetic as CapacitySweep._host_scenario_stats, in
-        cumulative form for intra-window samples."""
+        the same arithmetic as the scan layer's host_sums
+        (parallel/scans.py), in cumulative form for intra-window
+        samples."""
         v = st.node_up
         d, c_enc = self.sweep.dyn, self.sweep.cluster_enc
         used_c = int(d.used_mcpu[v].sum()) + int(self._req_c[accounted].sum())
@@ -702,13 +704,13 @@ class TimelineStepper:
                     for r in range(len(counts))
                 ]
                 stats = [
-                    self.sweep._host_scenario_stats(valids[r], rows[r])
+                    utilisation(rows[r], *self.sweep.scans.host_sums(valids[r], rows[r]))
                     for r in range(len(counts))
                 ]
-                unsched = [s[1] for s in stats]
-                cpu = [s[2] for s in stats]
-                mem = [s[3] for s in stats]
-                vg = [s[4] for s in stats]
+                unsched = [s[0] for s in stats]
+                cpu = [s[1] for s in stats]
+                mem = [s[2] for s in stats]
+                vg = [s[3] for s in stats]
         self.dispatches += 1
         out = [
             ProbeResult(

@@ -11,17 +11,22 @@ object of the answer too.
 `collection_scope()` holds the collector off for the scope, so all the
 scope allocates stays in the youngest generation, and closes with one
 collection of the young generations only: every cycle the scope made,
-and nothing of the old heap. A scope entered while the collector is
-already off (an outer scope, or a caller that paused it) neither
-collects nor turns the collector back on, so the outermost scope
-collects once, after what it encloses has released what it can.
+and nothing of the old heap. Only a thread's outermost scope closes: it
+first drops the identity memos' strong references to the request's
+object graph (utils/memo.py `clear_all_memos`), then collects, once,
+after what it encloses has released what it can. A scope nested in
+another does neither, and a scope entered while the collector is
+already off (a caller that paused it) clears the memos but neither
+collects nor turns the collector back on.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from contextlib import contextmanager
 
+from .memo import clear_all_memos
 from .trace import COUNTERS, phase
 
 # gc.collect(1) collects generations 0 and 1: what the scope allocated
@@ -29,26 +34,36 @@ from .trace import COUNTERS, phase
 # from before it; survivors move to the old generation
 YOUNG = 1
 
+# how deep each thread is in collection scopes
+_DEPTH = threading.local()
+
 
 @contextmanager
 def collection_scope():
-    """Hold the cyclic collector off for the block; on leaving it, if
-    this scope turned the collector off, collect the young generations
-    once (the phase `apply/gc`) and turn the collector back on.
+    """Hold the cyclic collector off for the block; on leaving the
+    thread's outermost scope, clear the memos and, if this scope turned
+    the collector off, collect the young generations once (together the
+    phase `apply/gc`) and turn the collector back on.
 
     Counts `gc_request_collections_total:<generation>` and what those
     collections found unreachable, `gc_request_unreachable_total`."""
-    if not gc.isenabled():
-        yield
-        return
-    gc.disable()
+    depth = getattr(_DEPTH, "n", 0)
+    own = depth == 0 and gc.isenabled()
+    if own:
+        gc.disable()
+    _DEPTH.n = depth + 1
     try:
         yield
     finally:
-        try:
-            with phase("apply/gc"):
-                found = gc.collect(YOUNG)
-            COUNTERS.inc(f"gc_request_collections_total:{YOUNG}")
-            COUNTERS.inc("gc_request_unreachable_total", found)
-        finally:
-            gc.enable()
+        _DEPTH.n = depth
+        if depth == 0:
+            try:
+                with phase("apply/gc"):
+                    clear_all_memos()
+                    found = gc.collect(YOUNG) if own else 0
+                if own:
+                    COUNTERS.inc(f"gc_request_collections_total:{YOUNG}")
+                    COUNTERS.inc("gc_request_unreachable_total", found)
+            finally:
+                if own:
+                    gc.enable()

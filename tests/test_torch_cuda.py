@@ -1489,8 +1489,8 @@ def test_cuda_twin_queries_equal_the_cpu_twin():
     out, calls = {}, []
     real = fused_scan.run_fused_scan
 
-    def record(plan, cls, active, valid, pinned=None, site="scan"):
-        outs = real(plan, cls, active, valid, pinned, site=site)
+    def record(plan, cls, active, valid, pinned=None, **kw):
+        outs = real(plan, cls, active, valid, pinned, **kw)
         calls.append((plan, cls, active, valid, pinned, outs))
         return outs
 

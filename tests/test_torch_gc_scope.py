@@ -1,10 +1,12 @@
 """The scope of a `simon apply` request's cyclic garbage collection
 (`utils/gcscope.py` `collection_scope`): the command holds the collector
-off from its start until its answer is released, then collects the young
-generations once; a plan inside it collects nothing of its own, a plan
-outside any scope closes with one young collection. On the CPU, over
-one capacity plan and one spread rollout of the benchmark's cells at
-their test sizes (benchmark/tests/tiny.py), through `cli.main`."""
+off from its start until its answer is released, then clears the
+identity memos and collects the young generations once, the request's
+one `apply/gc`; a plan inside it does neither of its own, a plan
+outside any scope closes with one clear and one young collection. On
+the CPU, over one capacity plan and one spread rollout of the
+benchmark's cells at their test sizes (benchmark/tests/tiny.py), through
+`cli.main`."""
 
 import contextlib
 import gc
@@ -16,8 +18,9 @@ import pytest
 from benchmark.tests import tiny
 from open_simulator_tpu_torch import cli
 from open_simulator_tpu_torch.apply import applier as applier_mod
+from open_simulator_tpu_torch.utils import gcscope
 from open_simulator_tpu_torch.utils.gcscope import YOUNG, collection_scope
-from open_simulator_tpu_torch.utils.trace import COUNTERS
+from open_simulator_tpu_torch.utils.trace import COUNTERS, GLOBAL
 
 CELLS = {
     "plan": ("k8s-5k-basic", "capacity-plan"),
@@ -90,6 +93,20 @@ def collections(monkeypatch):
         gc.callbacks.remove(rec)
 
 
+@pytest.fixture
+def clears(monkeypatch):
+    """How many times the scopes have cleared the identity memos."""
+    seen = []
+    real = gcscope.clear_all_memos
+
+    def clear():
+        seen.append(1)
+        real()
+
+    monkeypatch.setattr(gcscope, "clear_all_memos", clear)
+    return seen
+
+
 @contextlib.contextmanager
 def collector(enabled: bool):
     """The collector set as asked, after a full collection: no automatic
@@ -104,12 +121,15 @@ def collector(enabled: bool):
 
 
 @pytest.mark.parametrize("kind", sorted(CELLS))
-def test_the_command_runs_no_full_collection(requests, collections, kind):
+def test_the_command_runs_no_full_collection(requests, collections, clears, kind):
     with collector(True):
         _apply(requests[kind])
     assert 2 not in collections.generations, collections.seen
     # its one collection: the young generations, after the release
     assert [g for g in collections.generations if g >= 1] == [YOUNG], collections.seen
+    # one `apply/gc` a request, the last phase: one clear, then the collection
+    assert len(clears) == 1
+    assert GLOBAL.phases["apply/gc"].count == 1 and GLOBAL.order[-1] == "apply/gc"
 
 
 @pytest.mark.parametrize("enabled", [True, False], ids=["enabled", "disabled"])
@@ -164,7 +184,7 @@ def _inputs(path):
     return app.load_cluster(), app.load_apps(), app.load_new_node()
 
 
-def test_a_plan_inside_a_scope_collects_nothing_of_its_own(requests, collections):
+def test_a_plan_inside_a_scope_collects_nothing_of_its_own(requests, collections, clears):
     cluster, apps, new_node = _inputs(requests["plan"])
     with collector(True):
         with collection_scope():
@@ -172,11 +192,14 @@ def test_a_plan_inside_a_scope_collects_nothing_of_its_own(requests, collections
             result = applier_mod.probe_plan(cluster, apps, new_node, device="cpu")
             collections.inside = False
             assert not gc.isenabled()
+            # nor clears the memos: the outer scope does, once
+            assert clears == []
         assert collections.seen == [] and result.success
-        assert gc.isenabled()
+        assert gc.isenabled() and len(clears) == 1
 
 
-def test_a_plan_outside_any_scope_closes_with_one_young_collection(requests, collections):
+def test_a_plan_outside_any_scope_closes_with_one_young_collection(requests, collections,
+                                                                  clears):
     cluster, apps, new_node = _inputs(requests["plan"])
     with collector(True):
         collections.inside = True
@@ -184,7 +207,7 @@ def test_a_plan_outside_any_scope_closes_with_one_young_collection(requests, col
         collections.inside = False
         assert gc.isenabled()
     assert 2 not in collections.generations and YOUNG in collections.generations
-    assert result.success
+    assert result.success and len(clears) == 1
 
 
 def test_the_counters_count_the_commands_collection(requests, collections):

@@ -107,14 +107,16 @@ def _small_sweep():
 
 
 def _launch_oom_above(sweep, limit, monkeypatch):
-    real = sweep.launch_counts
+    """The sweep's kernel launches (its scan layer's) run out of device
+    memory above `limit` rows."""
+    real = sweep.scans.launch
 
-    def launch(counts):
-        if len(counts) > limit:
+    def launch(rows, site, **kw):
+        if len(rows) > limit:
             raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
-        return real(counts)
+        return real(rows, site, **kw)
 
-    monkeypatch.setattr(sweep, "launch_counts", launch)
+    monkeypatch.setattr(sweep.scans, "launch", launch)
 
 
 def test_sweep_under_oom_equals_a_clean_run(monkeypatch):
@@ -140,7 +142,7 @@ def test_sweep_under_oom_equals_a_clean_run(monkeypatch):
     def oom(*_a, **_k):
         raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
 
-    monkeypatch.setattr(sweep, "_probe_kernel", oom)
+    monkeypatch.setattr(sweep.scans, "launch", oom)
     GLOBAL.reset()
     with pytest.raises(torch.cuda.OutOfMemoryError):
         sweep.probe(3)
@@ -154,7 +156,7 @@ def test_sweep_on_the_card_never_reaches_the_serial_floor(monkeypatch):
     sweep = _small_sweep()
     counts = list(range(6))
     clean = sweep.probe_many(counts)
-    monkeypatch.setattr(sweep, "device", torch.device("cuda"))
+    monkeypatch.setattr(sweep.scans, "device", torch.device("cuda"))
 
     def unreachable(*_a, **_k):
         raise AssertionError("the serial oracle ran for work on the card")

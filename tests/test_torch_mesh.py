@@ -153,6 +153,15 @@ def _sweeps(build, **kw):
     return js, ps
 
 
+def _torch_row(sweep, valid, active, pinned):
+    """One row on the sweep's unsharded torch scan: (placements,
+    unscheduled, cpu, mem, vg)."""
+    from open_simulator_tpu_torch.parallel.scans import utilisation
+
+    placements, sums = sweep.scans.torch_row(active, valid, pinned, site="sweep_probe")
+    return (placements, *utilisation(placements, *sums))
+
+
 def _node_case(case):
     """(JAX sweep, port sweep, [(valid, active, pinned, features of both)])."""
     if case == "feature-rich":
@@ -279,7 +288,7 @@ def test_axis_tables_cover_every_scan_field_and_equal_the_jax_tables():
     cluster, apps, tpl, _ = _feature_rich(PORT)
     cluster.nodes = cluster.nodes + [_node(f"x{i}") for i in range(3)]
     ps = _mod(PORT, "parallel.sweep").CapacitySweep(cluster, apps, tpl, 0, device="cpu")
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     assert ps.n == 13
     for tup, table in ((static, pmesh._STATIC_NODE_AXIS), (init, pmesh._STATE_NODE_AXIS)):
         for name in tup._fields:
@@ -292,7 +301,7 @@ def test_axis_tables_cover_every_scan_field_and_equal_the_jax_tables():
 
 def test_padding_equals_the_jax_padding():
     js, ps, _runs = _node_case("feature-rich")
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     for pad, jpad, tup, jtup, table in (
             (pmesh.pad_static, jmesh.pad_static, static, js.static, pmesh._STATIC_NODE_AXIS),
             (pmesh.pad_state, jmesh.pad_state, init, js.init, pmesh._STATE_NODE_AXIS)):
@@ -311,7 +320,7 @@ def test_padding_equals_the_jax_padding():
 @pytest.mark.parametrize("case", ["basic", "feature-rich", "pinned"])
 def test_node_sharded_scan_equals_unsharded_and_the_jax_mesh(case):
     js, ps, runs = _node_case(case)
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     mesh, jm = _port_mesh(), _jax_mesh()
     for valid, active, pinned, jf, pf in runs:
         launches = COUNTERS.get("launches_mesh_scan")
@@ -320,11 +329,11 @@ def test_node_sharded_scan_equals_unsharded_and_the_jax_mesh(case):
         assert COUNTERS.get("launches_mesh_scan") == launches + 1
         want = jmesh.run_node_sharded(jm, js.static, js.init, js.batch.class_of_pod, pinned,
                                       valid, active, jf)
-        ps.features, saved = pf, ps.features
+        ps.scans.features, saved = pf, ps.scans.features
         try:
-            plain = ps._torch_scan(valid, active, pinned)
+            plain = _torch_row(ps, valid, active, pinned)
         finally:
-            ps.features = saved
+            ps.scans.features = saved
         assert (got[0] == plain[0]).all() and (got[0] == np.asarray(want[0])).all()
         assert got[1:] == tuple(plain[1:]) == tuple(want[1:])
         if case == "pinned":
@@ -384,13 +393,13 @@ def test_100k_node_capacity_probe_on_the_8_shard_mesh():
     port_reset()
     sweep = _mod(PORT, "parallel.sweep").CapacitySweep(
         cluster, [_mod(PORT, "scheduler.core").AppResource("d", res)], None, 0, device="cpu")
-    static, init = sweep._scan_static_state()
+    static, init = sweep.scans.torch_inputs()
     valid = sweep.node_valid(0)
     active = sweep.pod_active(valid)
     got = pmesh.run_node_sharded(_port_mesh(), static, init, sweep.batch.class_of_pod,
                                  sweep.batch.pinned_node, valid, active, sweep.features,
                                  timeout=TIMEOUT)
-    want = sweep._torch_scan(valid, active, sweep.batch.pinned_node)
+    want = _torch_row(sweep, valid, active, sweep.batch.pinned_node)
     assert (got[0] == want[0]).all() and got[1:] == tuple(want[1:])
     assert got[1] == 0
 
@@ -420,6 +429,191 @@ def test_sweep_probe_takes_the_node_route_for_a_torch_scan_batch(monkeypatch):
         assert (g.placements == w.placements).all()
         assert (g.unscheduled, g.cpu_util, g.mem_util, g.vg_util) == (
             w.unscheduled, w.cpu_util, w.mem_util, w.vg_util)
+
+
+# ------------------------------------------------------------ route table
+
+_KERNEL_NOTE = {"batch-kernel": "torch-plain-fused_scan_base (cpu)"}
+_BATCH_NOTE = {"batch-kernel": "fused_scan_batch (cpu)"}
+_CUSTOM = "torch-scan (custom score plugins)"
+_SAMPLE = 'torch-scan (select_host="sample")'
+
+# (batch kind, mesh shards, rows) -> (route, launches by site, trace notes)
+# as the engine takes them: one row is scan_active, several scan_scenarios
+ROUTES = {
+    ("kernel", 1, 1): ("kernel", {"scan": 1}, _KERNEL_NOTE),
+    ("kernel", 2, 1): ("kernel", {"scan": 1}, _KERNEL_NOTE),
+    ("kernel", 1, 4): ("batch kernel", {"scenario_scan": 1}, _BATCH_NOTE),
+    ("kernel", 2, 4): ("batch kernel a shard", {"scenario_scan": 2}, {
+        "mesh-layout": "scenario_scan: scenario x2 (4 independent scenario rows over 2 devices)",
+        **_BATCH_NOTE}),
+    ("custom", 1, 1): ("torch scan", {"scan": 1}, {"batch-kernel": _CUSTOM, "scan-device": "cpu"}),
+    ("custom", 2, 1): ("node-sharded torch scan", {"mesh_scan": 1}, {
+        "mesh-layout": "scan: node x2 (6 nodes past the single-device threshold (4))",
+        "batch-kernel": "mesh-scan (custom score plugins)", "scan-device": "cpu"}),
+    ("custom", 1, 4): ("torch scan a row", {"scenario_scan": 4}, {
+        "scenario-kernel": _CUSTOM, "batch-kernel": _CUSTOM, "scan-device": "cpu"}),
+    ("custom", 2, 4): ("torch scan a row", {"scenario_scan": 4}, {
+        "scenario-kernel": _CUSTOM, "batch-kernel": _CUSTOM, "scan-device": "cpu"}),
+    ("sample", 1, 1): ("torch scan", {"scan": 1}, {"batch-kernel": _SAMPLE, "scan-device": "cpu"}),
+    ("sample", 2, 1): ("torch scan", {"scan": 1}, {"batch-kernel": _SAMPLE, "scan-device": "cpu"}),
+    ("sample", 1, 4): ("refused", {}, {}),
+    ("sample", 2, 4): ("refused", {}, {}),
+}
+
+
+def _route_of(scans, rows: int, mesh) -> str:
+    """The route the scan layer takes for `rows` rows, by its own
+    decisions (no scan runs)."""
+    if rows == 1:
+        if scans.kernel:
+            return "kernel"
+        if mesh is not None and not scans.features.sample and scans.node_route("scan", mesh):
+            return "node-sharded torch scan"
+        return "torch scan"
+    if scans.features.sample:
+        return "refused"
+    if not scans.kernel:
+        return "torch scan a row"
+    if mesh is not None and scans.scenario_mesh("scenario_scan", rows, mesh) is not None:
+        return "batch kernel a shard"
+    return "batch kernel"
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("kind", ["kernel", "custom", "sample"])
+def test_route_table(kind, shards, rows, monkeypatch):
+    """The scan layer's route (parallel/scans.py) for a batch the kernel
+    carries, one with a custom score plugin and one under sample, with
+    no mesh or the 2-shard CPU mesh, over one row or several: the route,
+    the launches a site and the trace notes the engine gave before the
+    layer was one module, and the placements of the run without a mesh."""
+    from test_torch_apply import _name_plugin
+
+    from open_simulator_tpu_torch.utils.trace import GLOBAL
+
+    monkeypatch.setenv("SIMON_MESH_NODE_THRESHOLD", "4")
+    reg = _mod(PORT, "scheduler.plugins").default_registry
+    reg.clear()
+    if kind == "custom":
+        reg.register(_name_plugin(PORT, 3))
+    nodes = [T.make_fake_node(f"n{i}", "8", "16Gi") for i in range(6)]
+    pods = [T.make_fake_pod(f"p{i}", "d", "500m", "512Mi") for i in range(18)]
+    actives = np.zeros((rows, len(pods)), bool)
+    for i in range(rows):
+        actives[i, : 4 * (i + 1)] = True
+
+    def run(mesh):
+        eng = _mod(PORT, "scheduler.engine").TorchEngine(
+            _mod(PORT, "scheduler.oracle").Oracle(
+                [dict(n) for n in nodes], select_host="sample" if kind == "sample" else "first-max"),
+            device="cpu")
+        eng.mesh = mesh
+        eng.begin_batch([json.loads(json.dumps(p)) for p in pods])
+        if rows == 1:
+            return eng, eng.scan_active(actives[0])
+        try:
+            return eng, eng.scan_scenarios(actives)
+        except ValueError as e:
+            assert "sample-mode" in str(e)
+            return eng, None
+
+    try:
+        mesh = _port_mesh(2) if shards == 2 else None
+        route, launches, notes = ROUTES[kind, shards, rows]
+        counts0 = dict(COUNTERS.snapshot()["counts"])
+        GLOBAL.reset()
+        eng, got = run(mesh)
+        seen_notes = dict(GLOBAL.notes)
+        counts = COUNTERS.snapshot()["counts"]
+        _plain_eng, plain = run(None)
+    finally:
+        reg.clear()
+    moved = {k[len("launches_"):]: v - counts0.get(k, 0) for k, v in counts.items()
+             if k.startswith("launches_") and k != "launches_total" and v != counts0.get(k, 0)}
+    assert moved == launches
+    assert seen_notes == notes
+    assert _route_of(eng._scans, rows, mesh) == route
+    assert (got is None and plain is None) or (np.asarray(got) == np.asarray(plain)).all()
+
+
+def test_utilisation_equals_the_four_old_readings():
+    """parallel/scans.py `utilisation` against the four copies of the
+    arithmetic it replaced, each written out here as it was, on one CPU
+    sweep with open-local storage (so VG usage moves): a probe's host
+    reading (CapacitySweep._stats), the batch rows' device sums
+    (CapacitySweep._row_stats), the serial floor's host sums
+    (CapacitySweep._host_scenario_stats) and the node-sharded scan's
+    (NodeShardPlan.run); every float equal."""
+    import torch
+
+    from open_simulator_tpu_torch.parallel.scans import utilisation
+
+    port_reset()
+    ps = _mod(PORT, "parallel.sweep").CapacitySweep(*_feature_rich(PORT), device="cpu")
+    c_enc, dyn, b = ps.cluster_enc, ps.dyn, ps.batch
+    assert ps.plan.vg_cap is not None
+    rows = [ps._scenario(c) for c in (0, 3, 5)]
+
+    def denom(x, v):
+        return max(int(np.asarray(x)[v].sum()), 1)
+
+    # _stats: one kernel scan, every row read back and summed on the host
+    for count, (active, valid, pinned) in zip((0, 3, 5), rows):
+        (_p, _lo, _hi, [(pl, final)]), = ps.scans.launch([(active, valid, pinned)],
+                                                         "sweep_probe", batch=False)
+        pl, v = pl.numpy().astype(np.int64), np.asarray(valid)
+        old = (int((pl == -1).sum()),
+               100.0 * float(final["used_mcpu"].numpy()[v].sum()) / denom(c_enc.alloc_mcpu, v),
+               100.0 * float(final["used_mem"].numpy()[v].sum()) / denom(c_enc.alloc_mem, v),
+               100.0 * float(final["vg_used"].numpy().T[v].sum()) / denom(c_enc.vg_cap, v))
+        res = ps.probe(count)
+        assert (res.unscheduled, res.cpu_util, res.mem_util, res.vg_util) == old
+
+    # _row_stats: one pins-first batch launch, reduced on its device
+    valids = np.stack([r[1] for r in rows])
+    valids[1, 0] = False
+    actives = np.stack([ps.pod_active(v) for v in valids])
+    pins = np.tile(np.asarray(b.pinned_node), (len(rows), 1))
+    (_p, _lo, _hi, outs), = ps.scans.launch(list(zip(actives, valids, pins)), "chaos_sweep",
+                                            pins_first=True)
+    valid_t = torch.from_numpy(valids)
+    zero = torch.zeros((), dtype=torch.int64)
+    placements = torch.stack([r[0] for r in outs]).long()
+    uc, um, uv = (torch.where(valid_t, torch.stack([f(r[1]) for r in outs]), zero).sum(1)
+                  for f in (lambda s: s["used_mcpu"], lambda s: s["used_mem"],
+                            lambda s: s["vg_used"].sum(0)))
+    ac, am = (torch.where(valid_t, ps.plan.alloc[k], zero).sum(1) for k in (0, 1))
+    vg_cap = np.asarray(c_enc.vg_cap).sum(axis=1)
+    old = [(int((placements[k] == -1).sum()), 100.0 * float(uc[k]) / max(int(ac[k]), 1),
+            100.0 * float(um[k]) / max(int(am[k]), 1),
+            100.0 * float(uv[k]) / max(int(vg_cap[valids[k]].sum()), 1)) for k in range(len(rows))]
+    _pl, *new = ps.probe_scenarios(valids, actives, pins)
+    assert [tuple(x) for x in zip(new[0].tolist(), *(a.tolist() for a in new[1:]))] == old
+
+    # _host_scenario_stats: serial placements onto the encoded base usage
+    for valid, active, pinned in zip(valids, actives, pins):
+        pl, _reasons = ps.serial_scenario(valid, active, pinned, pins_first=True)
+        cls = np.asarray(b.class_of_pod)[pl >= 0]
+        old = (int((pl == -1).sum()),
+               100.0 * (int(dyn.used_mcpu[valid].sum()) + int(b.req_mcpu[cls].sum()))
+               / denom(c_enc.alloc_mcpu, valid),
+               100.0 * (int(dyn.used_mem[valid].sum()) + int(b.req_mem[cls].sum()))
+               / denom(c_enc.alloc_mem, valid),
+               100.0 * (int(dyn.vg_used[valid].sum()) + int(b.lvm_sizes[cls].sum()))
+               / denom(c_enc.vg_cap, valid))
+        assert utilisation(pl, *ps.scans.host_sums(valid, pl)) == old
+
+    # NodeShardPlan.run: the shards' sums added, then divided
+    mesh = _port_mesh(2)
+    for count, (active, valid, _pinned) in zip((0, 3, 5), rows):
+        pl, (uc, ac, um, am, uv, av) = ps.scans.node_sharded(active, valid, mesh)
+        old = (int((pl == -1).sum()), 100.0 * float(uc) / max(ac, 1),
+               100.0 * float(um) / max(am, 1), 100.0 * float(uv) / max(av, 1))
+        assert utilisation(pl, uc, ac, um, am, uv, av) == old
+        res = ps.probe(count)
+        assert (res.unscheduled, res.cpu_util, res.mem_util, res.vg_util) == old
 
 
 # --------------------------------------------------------- scenario axis
@@ -637,7 +831,7 @@ def test_a_fault_on_the_mesh_propagates(site, fault):
     js, ps, runs = _node_case("basic")
     inject.INJECT.configure(f"jit.{site}={fault}@1")
     if site == "mesh_scan":
-        static, init = ps._scan_static_state()
+        static, init = ps.scans.torch_inputs()
         valid, active, pinned, _jf, pf = runs[0]
         with pytest.raises((RuntimeError, torch.cuda.OutOfMemoryError)):
             pmesh.run_node_sharded(_port_mesh(2), static, init, ps.batch.class_of_pod, pinned,
@@ -658,7 +852,7 @@ def test_a_shard_that_raises_ends_every_shard(monkeypatch):
     from open_simulator_tpu_torch.ops import scan as scan_ops
 
     js, ps, runs = _node_case("basic")
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     valid, active, pinned, _jf, pf = runs[0]
     real = scan_ops._minmax_normalize
 
@@ -679,7 +873,7 @@ def test_shards_that_make_different_exchanges_fail_without_a_hang(monkeypatch):
     the shards' exchanges differ: the scan raises ShardMismatch, at
     once, and no thread is left."""
     js, ps, runs = _node_case("basic")
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     valid, active, pinned, _jf, pf = runs[0]
     real = pmesh._ShardCtx.combine_any
     made = []
@@ -698,7 +892,7 @@ def test_shards_that_make_different_exchanges_fail_without_a_hang(monkeypatch):
 
 def test_sample_mode_never_rides_the_node_axis():
     js, ps, runs = _node_case("basic")
-    static, init = ps._scan_static_state()
+    static, init = ps.scans.torch_inputs()
     valid, active, pinned, _jf, pf = runs[0]
     with pytest.raises(InputError, match="sample-mode"):
         pmesh.run_node_sharded(_port_mesh(2), static, init, ps.batch.class_of_pod, pinned,

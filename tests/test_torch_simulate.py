@@ -162,8 +162,7 @@ def test_demo_cluster_web_deployment():
 def test_out_of_slice_batch_raises():
     """A custom score plugin, outside the kernel, and an inter-pod
     anti-affinity batch, outside it before B4, both run and place as
-    the JAX package does: the custom plugin on the eager torch scan
-    (it raised OutOfSliceError before the torch scan was ported)."""
+    the JAX package does: the custom plugin on the eager torch scan."""
     from open_simulator_tpu.scheduler.plugins import SchedulerPlugin as JaxPlugin
     from open_simulator_tpu.scheduler.plugins import default_registry as jax_registry
     from open_simulator_tpu_torch.scheduler.plugins import SchedulerPlugin, default_registry
@@ -205,8 +204,7 @@ def test_out_of_slice_batch_raises():
 
 def test_sample_select_host_raises():
     """select_host="sample" runs on the eager torch scan and places as
-    the JAX package's XLA scan does (it raised OutOfSliceError before
-    the torch scan was ported)."""
+    the JAX package's XLA scan does."""
     from open_simulator_tpu_torch.utils.trace import GLOBAL
 
     nodes, pods = build_scenario(5, 10)

@@ -140,7 +140,7 @@ def test_serial_floor_rows_equal_the_kernel_rows(monkeypatch):
     _jeng, peng = _engines(build, count)
     masks = _masks(peng, 2)
     clean = peng.scen.probe_scenarios(*masks)
-    monkeypatch.setattr(peng.scen, "_kernel_rows", _oom)
+    monkeypatch.setattr(peng.scen.scans, "launch", _oom)
     GLOBAL.reset()
     floor = peng.scen.probe_scenarios(*masks)
     assert "chaos-serial-fallback" in GLOBAL.notes and "chaos-chunk-halving" in GLOBAL.notes
@@ -156,8 +156,8 @@ def test_rows_on_the_card_never_reach_the_serial_floor(monkeypatch):
     build, count = CASES["5 nodes"]
     _jeng, peng = _engines(build, count)
     masks = _masks(peng, 2)
-    monkeypatch.setattr(peng.scen, "device", torch.device("cuda"))
-    monkeypatch.setattr(peng.scen, "_kernel_rows", _oom)
+    monkeypatch.setattr(peng.scen.scans, "device", torch.device("cuda"))
+    monkeypatch.setattr(peng.scen.scans, "launch", _oom)
     monkeypatch.setattr(peng.scen, "serial_scenario", _unreachable)
     GLOBAL.reset()
     with pytest.raises(DeviceOOM, match="single-item chunk"):
