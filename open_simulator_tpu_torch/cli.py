@@ -1040,87 +1040,82 @@ def cmd_timeline(args) -> int:
     return 0
 
 
-@_with_obs("serve")
-def cmd_serve(args) -> int:
-    """Long-lived what-if daemon (serve/; docs/SERVING.md): load the
-    cluster once, build and load the kernel library, coalesce concurrent
-    POST /v1/simulate requests onto batch-kernel launches on the card.
-    Exit 0 after a clean SIGTERM/SIGINT drain, 3 when --drain-timeout
-    expired with requests still queued (shed), 2 on input errors and
-    without a card unless `--device cpu` (all before listening)."""
-    import json
-
+def build_serve_daemon(args):
+    """`simon serve`'s set-up: its parsed arguments in, a built and
+    warmed `ServeDaemon` out, bound to its port but not yet serving
+    (`start()` serves; `shutdown()` drains). The card unless `--device`
+    names another, the flags checked, the cluster loaded, the
+    kernel-library store armed, the session and the daemon built, the
+    flight recorder armed and, unless `--no-warm`, one tiny request
+    through the whole path. `cmd_serve` and in-process callers (tests,
+    the benchmark) build their daemon here. Raises OSError, ValueError
+    (InputError), ExternalIOError or NoCardError on bad input, before
+    the daemon serves."""
     from .apply.applier import Applier, SimonConfig
     from .models.validation import InputError
-    from .obs.spans import observatory_block
     from .obs.telemetry import arm_flight_recorder
-    from .ops.fused_scan import NoCardError, resolve_device
-    from .runtime import ExternalIOError
+    from .ops.fused_scan import resolve_device
     from .runtime.retry import BREAKER_COOLDOWN_ENV, enable_breaker_recovery
     from .serve.server import ServeDaemon
     from .serve.session import Session
 
-    try:
-        # the card, or exit 2 before any work (never a move to the CPU)
-        device = resolve_device(args.device)
-        # flag validation up front: a bad value must exit 2 BEFORE
-        # listening, never crash per request (docs/ROBUSTNESS.md)
-        if args.default_deadline is not None and args.default_deadline <= 0:
-            raise InputError("--default-deadline must be > 0 seconds")
-        if args.drain_timeout < 0:
-            raise InputError("--drain-timeout must be >= 0 seconds")
-        if args.tick_budget is not None and args.tick_budget <= 0:
-            raise InputError("--tick-budget must be > 0 seconds")
-        if args.max_request_pods is not None and args.max_request_pods < 1:
-            raise InputError("--max-request-pods must be >= 1")
-        if args.max_sessions < 1:
-            raise InputError("--max-sessions must be >= 1")
-        if args.checkpoint_interval is not None and args.checkpoint_interval < 1:
-            raise InputError("--checkpoint-interval must be >= 1 delta")
-        if args.keep_checkpoints < 1:
-            raise InputError("--keep-checkpoints must be >= 1")
-        if args.checkpoint_interval and not args.snapshot:
-            raise InputError("--checkpoint-interval requires --snapshot PATH")
-        if args.replay_snapshot and not args.snapshot:
-            raise InputError("--replay-snapshot requires --snapshot PATH")
-        # declarative SLOs + telemetry cadence: a bad --slo-config or
-        # --obs-cadence raises InputError here (the daemon constructor
-        # validates the cadence) -> exit 2 before listening
-        slo_engine = _build_slo_engine(args)
-        # resident service: circuit breakers get a recovery cooldown so
-        # an apiserver/extender flap degrades, not dooms, the daemon.
-        # SIMON_BREAKER_COOLDOWN wins when set (0 restores the one-shot
-        # stay-open posture); the 30s default applies only without it
-        if not os.environ.get(BREAKER_COOLDOWN_ENV):
-            enable_breaker_recovery(30.0)
-        config = SimonConfig.from_file(args.simon_config)
-        cluster = Applier(config, device=device).load_cluster()
-        # the kernel-library store is armed before the first library
-        # load (the committed scan, the warmup): a warm store then
-        # serves every library and the daemon runs no nvcc
-        _arm_store(args)
-        session = Session(cluster, incremental=not args.no_incremental,
-                          device=device)
-        daemon = ServeDaemon(
-            session,
-            host=args.host,
-            port=args.port,
-            max_batch=args.max_batch,
-            queue_depth=args.queue_depth,
-            default_deadline_s=args.default_deadline,
-            drain_timeout_s=args.drain_timeout,
-            tick_budget_s=args.tick_budget,
-            max_request_pods=args.max_request_pods,
-            max_sessions=args.max_sessions,
-            snapshot_path=args.snapshot or None,
-            checkpoint_interval=args.checkpoint_interval,
-            keep_checkpoints=args.keep_checkpoints,
-            slo_engine=slo_engine,
-            obs_cadence_s=args.obs_cadence,
-        )
-    except (OSError, ValueError, ExternalIOError, InputError, NoCardError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    # the card, or exit 2 before any work (never a move to the CPU)
+    device = resolve_device(args.device)
+    # flag validation up front: a bad value must exit 2 BEFORE
+    # listening, never crash per request (docs/ROBUSTNESS.md)
+    if args.default_deadline is not None and args.default_deadline <= 0:
+        raise InputError("--default-deadline must be > 0 seconds")
+    if args.drain_timeout < 0:
+        raise InputError("--drain-timeout must be >= 0 seconds")
+    if args.tick_budget is not None and args.tick_budget <= 0:
+        raise InputError("--tick-budget must be > 0 seconds")
+    if args.max_request_pods is not None and args.max_request_pods < 1:
+        raise InputError("--max-request-pods must be >= 1")
+    if args.max_sessions < 1:
+        raise InputError("--max-sessions must be >= 1")
+    if args.checkpoint_interval is not None and args.checkpoint_interval < 1:
+        raise InputError("--checkpoint-interval must be >= 1 delta")
+    if args.keep_checkpoints < 1:
+        raise InputError("--keep-checkpoints must be >= 1")
+    if args.checkpoint_interval and not args.snapshot:
+        raise InputError("--checkpoint-interval requires --snapshot PATH")
+    if args.replay_snapshot and not args.snapshot:
+        raise InputError("--replay-snapshot requires --snapshot PATH")
+    # declarative SLOs + telemetry cadence: a bad --slo-config or
+    # --obs-cadence raises InputError here (the daemon constructor
+    # validates the cadence) -> exit 2 before listening
+    slo_engine = _build_slo_engine(args)
+    # resident service: circuit breakers get a recovery cooldown so
+    # an apiserver/extender flap degrades, not dooms, the daemon.
+    # SIMON_BREAKER_COOLDOWN wins when set (0 restores the one-shot
+    # stay-open posture); the 30s default applies only without it
+    if not os.environ.get(BREAKER_COOLDOWN_ENV):
+        enable_breaker_recovery(30.0)
+    config = SimonConfig.from_file(args.simon_config)
+    cluster = Applier(config, device=device).load_cluster()
+    # the kernel-library store is armed before the first library
+    # load (the committed scan, the warmup): a warm store then
+    # serves every library and the daemon runs no nvcc
+    _arm_store(args)
+    session = Session(cluster, incremental=not args.no_incremental,
+                      device=device)
+    daemon = ServeDaemon(
+        session,
+        host=args.host,
+        port=args.port,
+        max_batch=args.max_batch,
+        queue_depth=args.queue_depth,
+        default_deadline_s=args.default_deadline,
+        drain_timeout_s=args.drain_timeout,
+        tick_budget_s=args.tick_budget,
+        max_request_pods=args.max_request_pods,
+        max_sessions=args.max_sessions,
+        snapshot_path=args.snapshot or None,
+        checkpoint_interval=args.checkpoint_interval,
+        keep_checkpoints=args.keep_checkpoints,
+        slo_engine=slo_engine,
+        obs_cadence_s=args.obs_cadence,
+    )
     # continuous flight recorder: the resident daemon records into a
     # bounded ring (overwrite-oldest, dropped counted) so /debug/dump
     # always has a recent span window — --trace-out still owns export
@@ -1131,6 +1126,30 @@ def cmd_serve(args) -> int:
         # store) and loaded, the cluster encoded and the committed scan
         # resident
         session.warm()
+    return daemon
+
+
+@_with_obs("serve")
+def cmd_serve(args) -> int:
+    """Long-lived what-if daemon (serve/; docs/SERVING.md): load the
+    cluster once, build and load the kernel library, coalesce concurrent
+    POST /v1/simulate requests onto batch-kernel launches on the card.
+    Exit 0 after a clean SIGTERM/SIGINT drain, 3 when --drain-timeout
+    expired with requests still queued (shed), 2 on input errors and
+    without a card unless `--device cpu` (all before listening)."""
+    import json
+
+    from .models.validation import InputError
+    from .obs.spans import observatory_block
+    from .ops.fused_scan import NoCardError
+    from .runtime import ExternalIOError
+
+    try:
+        daemon = build_serve_daemon(args)
+    except (OSError, ValueError, ExternalIOError, InputError, NoCardError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    session = daemon.session
     replay_summary = None
     if args.replay_snapshot and os.path.exists(args.snapshot):
         # failover bootstrap (fleet/replay.py): restore the newest

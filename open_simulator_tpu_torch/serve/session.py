@@ -294,19 +294,35 @@ class Session:
         then per
         request a replay into a fresh oracle and the canonical body.
 
-        Under `--trace-out` each tick is one span on the dispatcher
-        thread's own tree (`serve/tick`, batch size attached), with the
-        expand/encode/scan/replay phases nesting below it."""
+        Phases, each entered once a tick: `serve/expand`, `serve/encode`,
+        `serve/scan` (the launches and their read-back), `serve/replay`
+        and, inside it, `serve/payload` (the bodies), then `serve/gc`
+        (the tick's one young collection); the counter
+        `serve_reply_bytes_total` adds the tick's body bytes. Under
+        `--trace-out` each tick is one span on the dispatcher thread's
+        own tree (`serve/tick`, batch size attached), with the phases
+        nesting below it."""
         from ..obs import profile
         from ..obs.spans import RECORDER
+        from ..utils.gcscope import collection_scope
 
         with RECORDER.span("serve/tick", requests=len(reqs)):
             # deltas (/v1/cluster-delta, handler threads) never land
             # mid-tick: a batch evaluates against one consistent state,
-            # and no two threads launch at once
-            with self._delta_lock:
+            # and no two threads launch at once. The cyclic collector is
+            # held off for the tick and collects its young generations
+            # once at the end (`serve/gc`): the tick's short-lived
+            # objects (a body's 150,000 pod entries at Kubernetes' size
+            # limit) would otherwise set off full collections, each a
+            # walk of the whole committed roster
+            with self._delta_lock, collection_scope("serve/gc", clear_memos=False):
                 try:
-                    return self._evaluate_batch(reqs)
+                    replies = self._evaluate_batch(reqs)
+                    COUNTERS.inc(
+                        "serve_reply_bytes_total",
+                        sum(len(r.body) for r in replies if r is not None),
+                    )
+                    return replies
                 finally:
                     # the tick's launch times are read on the thread that
                     # launched them (its placements are on the host, so
@@ -414,24 +430,26 @@ class Session:
 
             from ..obs.costs import COSTS
 
-            rows = run_chunked(
-                evaluate,
-                len(batched),
-                label="serve",
-                # work on the card never moves to the host: a single
-                # row that still runs out of device memory raises
-                serial_fallback=(
-                    serial_fallback if self.device.type == "cpu" else None
-                ),
-                estimate=(
-                    COSTS.chunk_estimator("scenario_scan", plan, n_batch)
-                    if plan is not None else None
-                ),
-            )
+            with phase("serve/scan"):
+                rows = run_chunked(
+                    evaluate,
+                    len(batched),
+                    label="serve",
+                    # work on the card never moves to the host: a single
+                    # row that still runs out of device memory raises
+                    serial_fallback=(
+                        serial_fallback if self.device.type == "cpu" else None
+                    ),
+                    estimate=(
+                        COSTS.chunk_estimator("scenario_scan", plan, n_batch)
+                        if plan is not None else None
+                    ),
+                )
         else:
             rows = [np.zeros(0, dtype=np.int64) for _ in batched]
 
         with phase("serve/replay"):
+            results = []
             for row, r_i in enumerate(batched):
                 lo, hi = req_span[r_i]
                 # lo >= n_cluster always, so this is scan order
@@ -450,9 +468,14 @@ class Session:
                     meta["incremental"] = "suffix"
                 else:
                     result = self._replay(scenario_pods, rows[row], pos_of)
-                replies[r_i] = WhatIfReply(
-                    status=200, body=result_payload(result), meta=meta
-                )
+                results.append((r_i, result, meta))
+            # the bodies, each every node's pods, written in one phase
+            # a tick
+            with phase("serve/payload"):
+                for r_i, result, meta in results:
+                    replies[r_i] = WhatIfReply(
+                        status=200, body=result_payload(result), meta=meta
+                    )
         return replies
 
     # -- incremental committed state (incremental/resim.py) -----------------

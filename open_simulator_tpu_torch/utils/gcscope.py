@@ -39,11 +39,13 @@ _DEPTH = threading.local()
 
 
 @contextmanager
-def collection_scope():
+def collection_scope(name: str = "apply/gc", clear_memos: bool = True):
     """Hold the cyclic collector off for the block; on leaving the
     thread's outermost scope, clear the memos and, if this scope turned
     the collector off, collect the young generations once (together the
-    phase `apply/gc`) and turn the collector back on.
+    phase `name`) and turn the collector back on. The serve daemon's
+    tick passes `clear_memos=False`: its memos serve the next tick and
+    are never cleared under it (utils/memo.py).
 
     Counts `gc_request_collections_total:<generation>` and what those
     collections found unreachable, `gc_request_unreachable_total`."""
@@ -58,8 +60,9 @@ def collection_scope():
         _DEPTH.n = depth
         if depth == 0:
             try:
-                with phase("apply/gc"):
-                    clear_all_memos()
+                with phase(name):
+                    if clear_memos:
+                        clear_all_memos()
                     found = gc.collect(YOUNG) if own else 0
                 if own:
                     COUNTERS.inc(f"gc_request_collections_total:{YOUNG}")
